@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version at the shapes the serve path gives it
-(and one ragged shape), times it beside the plain version and one library
-call, runs the paper's §3.1 inner product through the hyperstep runner in
-both execution modes, and serves minicpm-2b at full width and depth (random
-weights from a seed) through ``generate`` and ``make_prefill_step``. Every
-check that fails raises, and the script exits non-zero. It imports neither
-JAX nor the JAX package.
+each against its plain PyTorch version at the shapes the serve paths give it
+(and ragged shapes), times it beside the plain version and one library call
+where there is one, and checks 2-layer full-width cuts of minicpm-2b and
+jamba-v0.1-52b on the card against float32 on the CPU. Then it drives the
+two main paths, each with the launch counts set to 0 before it and read
+after: the paper's §3.1 inner product through the hyperstep runner in both
+execution modes plus minicpm-2b served at full width and depth, and
+jamba-v0.1-52b served at full width with its depth cut to one period of 8
+layers (random weights from a seed), each through ``generate`` and
+``make_prefill_step``. Every check that fails raises, and the script exits
+non-zero. Each phase prints its wall time. It imports neither JAX nor the
+JAX package.
 
 Output, in order: progress lines; the card's name and power limit as
 ``nvidia-smi`` reports them; one JSON line with a row per kernel; and, last,
@@ -20,7 +25,9 @@ running anything.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -34,7 +41,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import Block, card_config, get_config  # noqa: E402
 from repro_torch.core.calibrate import default_machine  # noqa: E402
 from repro_torch.core.hyperstep import HyperstepRunner  # noqa: E402
 from repro_torch.core.plan import host_plan  # noqa: E402
@@ -61,6 +68,8 @@ KERNEL_META = {
                         "src/repro/kernels/streamed_matmul.py:44"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:40"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:35"),
 }
 
 
@@ -71,6 +80,14 @@ def check(ok: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Log the wall time of a phase, so that a later slice can budget."""
+    t0 = time.perf_counter()
+    yield
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def bench_ms(fn, arg_sets, iters: int) -> tuple[float, float]:
@@ -126,7 +143,10 @@ def check_matmul(rows: dict) -> None:
     # bf16 output of fp32 sums taken in different orders: at most one bf16 ulp
     # apart (2^-7 relative), so the tolerance is two ulps of the largest output
     shapes = [(4, 2304, 5760), (4, 5760, 2304), (1024, 2304, 5760), (1024, 5760, 2304),
-              (300, 200, 130)]
+              (300, 200, 130),
+              # jamba's dense MLPs and its untied LM head: decode and forward
+              (4, 4096, 14336), (4, 14336, 4096), (1024, 4096, 14336), (1024, 14336, 4096),
+              (4, 4096, 65536), (1024, 4096, 65536)]
     for idx, (m, k, n) in enumerate(shapes):
         sets = copies_past_l2(
             lambda i, m=m, k=k, n=n: (randn((m, k), torch.bfloat16, 10 * i + 1),
@@ -176,7 +196,9 @@ def check_dot(rows: dict) -> None:
 def check_flash(rows: dict) -> None:
     # fp32 softmax on both sides from the same bf16 inputs, one bf16 rounding
     # of the output: two ulps of the largest output
-    for idx, (b, hq, hkv, s, d) in enumerate([(4, 36, 36, 256, 64), (2, 8, 2, 100, 64)]):
+    # minicpm-2b's forward, a ragged GQA shape, jamba's forward (GQA 32/8)
+    for idx, (b, hq, hkv, s, d) in enumerate([(4, 36, 36, 256, 64), (2, 8, 2, 100, 64),
+                                               (4, 32, 8, 256, 128)]):
         sets = copies_past_l2(
             lambda i, b=b, hq=hq, hkv=hkv, s=s, d=d: (
                 randn((b, hq, s, d), torch.bfloat16, 10 * i + 5),
@@ -191,10 +213,8 @@ def check_flash(rows: dict) -> None:
         check(err <= tol, f"flash_attention {b}x{hq}/{hkv}x{s}x{d}: max err {err} > {tol}")
         ms, enqueue = bench_ms(lambda q, k, v: ops.attention(q, k, v), sets, 50)
         plain, _ = bench_ms(lambda q, k, v: ref.attention_ref(q, k, v), sets, 20)
-        lib = None
-        if hq == hkv:
-            lib, _ = bench_ms(
-                lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True), sets, 50)
+        lib, _ = bench_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=hq != hkv), sets, 50)
         pairs = s * (s + 1) // 2          # the (query, key) pairs causal masking keeps
         b_ms, b_by = bound((2 * b * hq * s * d + 2 * b * hkv * s * d) * 2,
                            4.0 * b * hq * d * pairs, "bf16")
@@ -204,6 +224,53 @@ def check_flash(rows: dict) -> None:
         if idx == 0:
             rows["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+
+def _ssm_inputs(b, seq, di, ds, dtype, seed):
+    """x, Δ, B, C in ``dtype``; A = -(1..d_state) per channel (jamba's init)
+    and D in fp32. Δ ~ 0.05·|N(0,1)|, about what softplus(-4.6 + ...) gives."""
+    return (randn((b, seq, di), dtype, seed), randn((b, seq, di), torch.float32, seed + 1,
+                                                    0.05).abs().to(dtype),
+            randn((b, seq, ds), dtype, seed + 2), randn((b, seq, ds), dtype, seed + 3),
+            -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").expand(di, ds)
+            .contiguous(), randn((di,), torch.float32, seed + 4))
+
+
+def check_ssm(rows: dict) -> None:
+    # bf16 streams: the same fp32 scan from the same bf16 inputs, one bf16
+    # rounding of the output on each side: two bf16 ulps (2·2^-8) of the
+    # largest output. fp32: sums in another order and an fma over the
+    # sequence, bounded at 1e-4 of the largest output.
+    cases = [(4, 256, 8192, 16, torch.bfloat16, 3),      # jamba's forward
+             (1, 4000, 8192, 16, torch.bfloat16, 2),     # long, ragged last chunk
+             (4, 256, 8192, 16, torch.float32, 3),
+             (2, 300, 1000, 8, torch.float32, 3)]        # ragged d_inner, d_state 8
+    for idx, (b, seq, di, ds, dtype, plain_iters) in enumerate(cases):
+        item = torch.tensor([], dtype=dtype).element_size()
+        nbytes = (3 * b * seq * di + 2 * b * seq * ds) * item + (di * ds + di) * 4
+        sets = copies_past_l2(lambda i, b=b, seq=seq, di=di, ds=ds, dtype=dtype:
+                              _ssm_inputs(b, seq, di, ds, dtype, 10 * i + 20), nbytes)
+        got, want = ops.selective_scan(*sets[0]), ref.ssm_scan_ref(*sets[0])
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = (2 * 2 ** -8 if dtype == torch.bfloat16 else 1e-4) * want.float().abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"ssm_scan b{b} L{seq}: non-finite output")
+        check(err <= tol, f"ssm_scan b{b} L{seq} di{di} ds{ds} {dtype}: max err {err} > {tol}")
+        ms, enqueue = bench_ms(lambda *a: ops.selective_scan(*a), sets, 50)
+        plain, _ = bench_ms(ref.ssm_scan_ref, sets, plain_iters)
+        b_ms, b_by = bound(nbytes, 10.0 * b * seq * di * ds, "fp32")
+        log(f"[kernel] ssm_scan b{b} L{seq} di{di} ds{ds} {str(dtype)[6:]}: max_abs_err={err:.3g} "
+            f"(tol {tol:.3g}) ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} "
+            f"library=none bound_ms={b_ms:.4f} ({b_by})")
+        if idx == 0:
+            rows["ssm_scan"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None)
+    # the state resets per batch row: a row alone gives the bits it gives in the batch
+    x, dt, bb, c, a, d = _ssm_inputs(3, 500, 8192, 16, torch.bfloat16, 90)
+    full = ops.selective_scan(x, dt, bb, c, a, d)
+    row = ops.selective_scan(*(t[1:2].contiguous() for t in (x, dt, bb, c)), a, d)
+    check(torch.equal(full[1:2], row), "ssm_scan batch rows leak state")
+    log("[kernel] ssm_scan batch-row isolation: row 1 alone equals row 1 in the batch")
 
 
 # -- phase 3: the §3.1 inner product through the hyperstep runner --------------------
@@ -236,28 +303,35 @@ def inner_product(machine) -> None:
 # -- phase 4: the slice ------------------------------------------------------------------
 
 
-def reference_check() -> None:
-    """A 2-layer cut of minicpm-2b at full width on the card (bf16, kernels)
+def _cpu_fp32(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_fp32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu_fp32(v) for v in tree]
+    return tree.float().cpu()
+
+
+def reference_check(name: str, **cut) -> None:
+    """A 2-layer cut of ``name`` at full width on the card (bf16, kernels)
     against the same weights in float32 on the CPU (plain versions)."""
-    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2)
+    cfg = dataclasses.replace(get_config(name), num_layers=2, **cut)
     params = M.init_params(cfg, 0, device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (2, 64),
                          generator=torch.Generator().manual_seed(2))
     got = M.forward(cfg, params, toks.cuda(), device="cuda").float().cpu()
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    cpu = {"embed": {k: t.float().cpu() for k, t in params["embed"].items()},
-           "final_norm": {k: t.float().cpu() for k, t in params["final_norm"].items()},
-           "stack": [[{g: {k: t.float().cpu() for k, t in blk[g].items()} for g in blk}
-                      for blk in per] for per in params["stack"]]}
-    want = M.forward(cfg32, cpu, toks, device="cpu")
+    cpu = _cpu_fp32(params)
+    del params
+    torch.cuda.empty_cache()
+    want = M.forward(dataclasses.replace(cfg, dtype="float32"), cpu, toks, device="cpu")
     err = (got - want).abs().max().item()
     # bf16 activations against fp32: ~2^-8 relative per rounding over two
     # layers, bounded here at 5% of the largest logit
     tol = 0.05 * want.abs().max().item()
-    check(bool(torch.isfinite(got).all()), "non-finite logits on the card")
-    check(err <= tol, f"2-layer forward on the card vs fp32 CPU: {err} > {tol}")
-    log(f"[reference] minicpm-2b 2 layers, card bf16 vs cpu fp32 logits: max_abs_err={err:.4g}"
-        f" (tol {tol:.4g})")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits on the card")
+    check(err <= tol, f"{name}: 2-layer forward on the card vs fp32 CPU: {err} > {tol}")
+    log(f"[reference] {name} 2 layers {[(b.mixer, b.mlp) for b in cfg.pattern]}, "
+        f"{M.count_params(cfg) / 1e9:.3f} B params, card bf16 vs cpu fp32 logits: "
+        f"max_abs_err={err:.4g} (tol {tol:.4g})")
 
 
 def serve_slice(machine) -> dict:
@@ -335,6 +409,100 @@ def serve_slice(machine) -> dict:
     return counts
 
 
+def serve_jamba(machine) -> dict:
+    """jamba-v0.1-52b at its published widths, depth cut to one period."""
+    cfg = card_config("jamba-v0.1-52b")
+    batch, prompt_len, steps = 4, 256, 32
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[jamba] jamba-v0.1-52b: {cfg.num_layers} of "
+        f"{get_config('jamba-v0.1-52b').num_layers} layers "
+        f"{[(b.mixer, b.mlp) for b in cfg.pattern]}, d_model {cfg.d_model}, "
+        f"d_inner {cfg.ssm_d_inner}, d_state {cfg.ssm_d_state}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, {cfg.moe_experts} experts top-{cfg.moe_top_k} of d_ff "
+        f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, {M.count_params(cfg) / 1e9:.3f} B params "
+        f"bf16, init {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=torch.Generator().manual_seed(1)).to("cuda")
+    counts = {}
+
+    def counted(key, fn):
+        before = ops.launch_counts()
+        out = fn()
+        counts[key] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return out
+
+    runs = []
+    for key, compiled in (("generate_compiled_first", True), ("generate_compiled", True),
+                          ("generate_measure", False)):
+        toks, stats = counted(key, lambda c=compiled: generate(
+            cfg, params, prompt, steps=steps, machine=machine, device="cuda", compiled=c))
+        runs.append(toks)
+        # a compiled run records the whole decode once; measure mode per step
+        p50 = (f" step_p50_ms={float(np.median(stats.decode_seconds)) * 1e3:.2f}"
+               if not compiled else "")
+        log(f"[jamba] {key}: prefill_ms={stats.prefill_seconds * 1e3:.2f} "
+            f"({prompt_len} decode steps, prefill block "
+            f"{prefill_block_size(cfg, batch, prompt_len, machine)}) "
+            f"decode_tok_s={steps * batch / stats.decode_total_seconds:.1f} "
+            f"({steps} tokens x batch {batch} in {stats.decode_total_seconds * 1e3:.1f} ms)"
+            f"{p50} predicted_vs_measured={json.dumps(stats.plan_row)}")
+    check(all(torch.equal(runs[0], t) for t in runs[1:]),
+          "jamba: the three greedy generate calls disagree")
+    check(tuple(runs[0].shape) == (batch, prompt_len + steps), f"jamba tokens {runs[0].shape}")
+    check(int(runs[0].min()) >= 0 and int(runs[0].max()) < cfg.vocab_size,
+          "jamba: token ids out of range")
+
+    step = make_prefill_step(cfg, device="cuda")
+    step(params, {"tokens": prompt})                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = counted("prefill_step", lambda: step(params, {"tokens": prompt}))
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(logits.shape) == (batch, prompt_len, cfg.padded_vocab),
+          f"jamba forward logits shape {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "jamba: non-finite forward logits")
+    check(counts["prefill_step"]["ssm_scan"] == 7 and counts["prefill_step"]["flash_attention"] == 1,
+          f"jamba forward launches {counts['prefill_step']}")
+    log(f"[jamba] make_prefill_step: ms={fwd_ms:.2f} (B {batch}, S {prompt_len})")
+    del logits
+
+    # The forward against the token-at-a-time prefill on the same weights. At
+    # the config's capacity factor 1.25 the decode step's capacity is
+    # ceil(4·2/16·1.25) = 1 token per expert, so the two paths drop different
+    # tokens by design (GShard); at 8.0 neither drops any.
+    cfg8 = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    last = make_prefill_step(cfg8, device="cuda")(params, {"tokens": prompt})[:, -1].float()
+    pre, _ = make_prefill(cfg8, 1, device="cuda")(
+        params, M.init_cache(cfg8, batch, prompt_len, device="cuda"), prompt)
+    pre = pre[:, -1].float()
+    err = (last - pre).abs().max().item()
+    # the paths differ in attention (flash vs dense cache read), the scan
+    # (the kernel over bf16 Δ vs the fp32 decode recurrence) and bf16
+    # rounding points; over 8 layers bounded at 5% of the largest logit
+    tol = 0.05 * pre.abs().max().item()
+    agree = float((last.argmax(-1) == pre.argmax(-1)).float().mean())
+    check(err <= tol, f"jamba forward vs token-at-a-time prefill at cf 8: {err} > {tol}")
+    log(f"[jamba] last-position logits, forward vs generate's prefill at capacity factor 8: "
+        f"max_abs_diff={err:.4g} (tol {tol:.4g}), argmax agreement {agree:.2f}")
+    log(f"[jamba] launches per call: {json.dumps(counts)}")
+    return counts
+
+
+def main_path(name: str, drive) -> dict:
+    """Drive one main path with every launch count set to 0 just before it;
+    return the counts read just after."""
+    ops.reset_launch_counts()
+    with phase(name):
+        drive()
+    launches = ops.launch_counts()
+    log(f"[main path] {name}: launches {json.dumps(launches)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the card",
@@ -357,22 +525,29 @@ def main() -> int:
                 log(f"[ptxas] {src}: {line.strip()}")
 
     rows: dict[str, dict] = {}
-    check_matmul(rows)
-    check_dot(rows)
-    check_flash(rows)
+    with phase("kernel checks"):
+        check_matmul(rows)
+        check_dot(rows)
+        check_flash(rows)
+        check_ssm(rows)
 
-    machine = default_machine(device="cuda")
+    with phase("calibration"):
+        machine = default_machine(device="cuda")
     log(f"[machine] {machine}")
-    reference_check()
+    with phase("reference checks"):
+        reference_check("minicpm-2b")
+        reference_check("jamba-v0.1-52b",
+                        pattern=(Block("mamba", "dense"), Block("attn", "dense")))
 
-    # the main path: every launch count starts at 0 here and is read at the end
-    ops.reset_launch_counts()
-    inner_product(machine)
-    serve_slice(machine)
-    launches = ops.launch_counts()
-    log(f"[main path] launches {json.dumps(launches)}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    dense = main_path("minicpm-2b", lambda: (inner_product(machine), serve_slice(machine)))
+    gc.collect()
+    torch.cuda.empty_cache()      # minicpm's weights go before jamba's come
+    hybrid = main_path("jamba-v0.1-52b", lambda: serve_jamba(machine))
+    for name in ("streamed_dot", "streamed_matmul", "flash_attention"):
+        check(dense[name] > 0, f"{name} was not launched on the minicpm-2b path")
+    for name in ("streamed_matmul", "flash_attention", "ssm_scan"):
+        check(hybrid[name] > 0, f"{name} was not launched on the jamba path")
+    launches = {k: dense[k] + hybrid[k] for k in dense}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -16,7 +16,8 @@ import dataclasses
 import math
 from typing import Iterable
 
-__all__ = ["Block", "ModelConfig", "ShapeSpec", "SHAPES", "register", "get_config", "list_configs"]
+__all__ = ["Block", "ModelConfig", "ShapeSpec", "SHAPES", "register", "get_config", "list_configs",
+           "CARD_LAYERS", "card_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +222,18 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; have {sorted(table)}")
     return table[name]
+
+
+# Depth served on one 80 GB card where the published depth does not fit it:
+# jamba-v0.1-52b's 32 layers are 103 GB in bf16; 8 layers are one period of
+# its pattern and hold every block kind once.
+CARD_LAYERS = {"jamba-v0.1-52b": 8}
+
+
+def card_config(name: str) -> ModelConfig:
+    """The published config at the depth one card holds (``CARD_LAYERS``)."""
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, num_layers=CARD_LAYERS.get(name, cfg.num_layers))
 
 
 def list_configs() -> list[str]:

@@ -11,17 +11,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.streamed_dot import streamed_dot
 from repro_torch.kernels.streamed_matmul import streamed_matmul
 
-__all__ = ["matmul", "dot", "attention", "launch_counts", "reset_launch_counts",
-           "KERNELS"]
+__all__ = ["matmul", "dot", "attention", "selective_scan", "launch_counts",
+           "reset_launch_counts", "KERNELS"]
 
 #: the wrappers whose ``launches`` count kernel launches
 KERNELS = {
     "streamed_dot": streamed_dot,
     "streamed_matmul": streamed_matmul,
     "flash_attention": flash_attention,
+    "ssm_scan": ssm_scan,
 }
 
 
@@ -35,6 +37,10 @@ def dot(v: torch.Tensor, u: torch.Tensor, *, token_size: int = 8 * 1024) -> torc
 
 def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None):
     return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+def selective_scan(x, dt, b, c, a, d, *, chunk: int = 128):
+    return ssm_scan(x, dt, b, c, a, d, chunk=chunk)
 
 
 def launch_counts() -> dict[str, int]:

@@ -51,7 +51,8 @@ __all__ = ["Launch", "geometry", "lower", "launch", "library", "build_library", 
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("device.cu", "streamed_dot.cu", "streamed_matmul.cu", "flash_attention.cu")
+SOURCES = ("device.cu", "streamed_dot.cu", "streamed_matmul.cu", "flash_attention.cu",
+           "ssm_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,6 +63,7 @@ ENTRIES: dict[str, list[Any]] = {
     "bsps_dot": [_P, _P, _LL, _I, _I, _P, _P],
     "bsps_matmul": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I],
     "bsps_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "bsps_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
 }
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["matmul_ref", "dot_ref", "attention_ref"]
+__all__ = ["matmul_ref", "dot_ref", "attention_ref", "ssm_scan_ref"]
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -50,3 +50,27 @@ def attention_ref(
         s = s.masked_fill(q_pos < k_pos, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def ssm_scan_ref(
+    x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    a: torch.Tensor, d: torch.Tensor,
+) -> torch.Tensor:
+    """Sequential selective scan, one step per position, all in fp32 with one
+    cast to ``x``'s dtype at the end.
+
+    x, dt: (B, L, d_inner); b, c: (B, L, d_state); a: (d_inner, d_state);
+    d: (d_inner,). The state h (B, d_inner, d_state) starts at 0 per row.
+    """
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    af, df = a.float(), d.float()
+    bsz, seq, d_inner = x.shape
+    h = torch.zeros((bsz, d_inner, a.shape[1]), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(seq):
+        dt_t, x_t = dtf[:, t], xf[:, t]                            # (B, di)
+        da = torch.exp(dt_t[..., None] * af)                       # (B, di, ds)
+        h = da * h + (dt_t * x_t)[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bis,bs->bi", h, cf[:, t]) + df * x_t)
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
+    return y.to(x.dtype)

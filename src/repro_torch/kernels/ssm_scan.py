@@ -1,0 +1,180 @@
+"""Mamba selective scan as a BSPS chunked stream (jamba's SSM layers): plan
+and CUDA wrapper.
+
+The recurrence
+    h_t = exp(Δ_t ⊙ A) ⊙ h_{t-1} + (Δ_t ⊙ B_t) x_t ,   y_t = C_t·h_t + D ⊙ x_t
+runs over a stream of sequence chunks (tokens): each hyperstep stages one
+chunk of (x, Δ, B, C), advances the recurrent state h — the persistent local
+state of the paper — and emits the chunk of y. Only the O(L·d) streams move
+over the memory link, never the O(L·d·n) expanded state.
+
+:func:`ssm_plan` is the JAX package's plan: grid (batch, n_chunks), both
+"arbitrary", A and D resident (rate 0), h as scratch. On the card the scan
+is independent per channel, so ``block_d`` gives the launch plan: grid
+(batch, channel tiles, n_chunks) = ("parallel", "parallel", "arbitrary").
+Each tile streams its share of x, Δ and y — together the JAX plan's words
+when the tile divides d_inner — and each (row, tile) block reads its rows
+of A and D once; the chunk's B_t and C_t, shared by every channel of a row,
+are read once per tile.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
+from repro_torch.kernels import pipeline, ref
+
+__all__ = ["ssm_scan", "ssm_plan", "BLOCK_D"]
+
+#: channels per block of the CUDA kernel, one per thread
+BLOCK_D = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_D_STATES = (8, 16)
+
+
+def ssm_plan(
+    bsz: int, seq: int, d_inner: int, d_state: int,
+    *,
+    chunk: int, dtype=torch.float32, param_dtype=torch.float32,
+    block_d: int | None = None,
+) -> StreamPlan:
+    """StreamPlan for the chunked selective scan on a padded sequence.
+
+    ~10·d_inner·d_state FLOPs per scanned position (exp/decay, state update,
+    output contraction), times ``chunk`` positions per hyperstep.
+    ``param_dtype`` prices the resident A/D operands, which the model keeps
+    in fp32 even for bf16 activation streams.
+
+    ``block_d=None`` is the JAX package's plan. ``block_d`` gives the CUDA
+    launch plan: channel tiles of ``block_d`` (the last one ragged, padded
+    in the plan) as a second "parallel" axis, the state a
+    (block_d, d_state) scratch per tile.
+    """
+    if seq % chunk:
+        raise ValueError(f"seq {seq} must be padded to chunk {chunk}")
+    if block_d is None:
+        return StreamPlan(
+            name=f"ssm_b{bsz}_{seq}x{d_inner}x{d_state}_c{chunk}",
+            grid=(bsz, seq // chunk),
+            inputs=(
+                TokenSpec("x", (1, chunk, d_inner), lambda i, j: (i, j, 0),
+                          dtype=dtype, full_shape=(bsz, seq, d_inner)),
+                TokenSpec("dt", (1, chunk, d_inner), lambda i, j: (i, j, 0),
+                          dtype=dtype, full_shape=(bsz, seq, d_inner)),
+                TokenSpec("B", (1, chunk, d_state), lambda i, j: (i, j, 0),
+                          dtype=dtype, full_shape=(bsz, seq, d_state)),
+                TokenSpec("C", (1, chunk, d_state), lambda i, j: (i, j, 0),
+                          dtype=dtype, full_shape=(bsz, seq, d_state)),
+                # A and D are resident operands: rate 0 (fetched once,
+                # hyperstep 0, single-buffered)
+                TokenSpec("A", (d_inner, d_state), lambda i, j: (0, 0),
+                          dtype=param_dtype, full_shape=(d_inner, d_state), rate=0),
+                TokenSpec("D", (1, d_inner), lambda i, j: (0, 0),
+                          dtype=param_dtype, full_shape=(1, d_inner), rate=0),
+            ),
+            outputs=(
+                # each finished y chunk streams up as the cursor moves on
+                TokenSpec("y", (1, chunk, d_inner), lambda i, j: (i, j, 0),
+                          dtype=dtype, full_shape=(bsz, seq, d_inner), direction="up"),
+            ),
+            scratch=(ScratchSpec("h", (d_inner, d_state), torch.float32),),
+            dimension_semantics=("arbitrary", "arbitrary"),
+            flops_per_hyperstep=10.0 * chunk * d_inner * d_state,
+        )
+    tiles = math.ceil(d_inner / block_d)
+    d_pad = tiles * block_d
+    return StreamPlan(
+        name=f"ssm_b{bsz}_{seq}x{d_pad}x{d_state}_c{chunk}_d{block_d}",
+        grid=(bsz, tiles, seq // chunk),
+        inputs=(
+            TokenSpec("x", (1, chunk, block_d), lambda i, k, j: (i, j, k),
+                      dtype=dtype, full_shape=(bsz, seq, d_pad)),
+            TokenSpec("dt", (1, chunk, block_d), lambda i, k, j: (i, j, k),
+                      dtype=dtype, full_shape=(bsz, seq, d_pad)),
+            TokenSpec("B", (1, chunk, d_state), lambda i, k, j: (i, j, 0),
+                      dtype=dtype, full_shape=(bsz, seq, d_state)),
+            TokenSpec("C", (1, chunk, d_state), lambda i, k, j: (i, j, 0),
+                      dtype=dtype, full_shape=(bsz, seq, d_state)),
+            TokenSpec("A", (block_d, d_state), lambda i, k, j: (k, 0),
+                      dtype=param_dtype, full_shape=(d_pad, d_state), rate=0),
+            TokenSpec("D", (1, block_d), lambda i, k, j: (0, k),
+                      dtype=param_dtype, full_shape=(1, d_pad), rate=0),
+        ),
+        outputs=(
+            TokenSpec("y", (1, chunk, block_d), lambda i, k, j: (i, j, k),
+                      dtype=dtype, full_shape=(bsz, seq, d_pad), direction="up"),
+        ),
+        scratch=(ScratchSpec("h", (block_d, d_state), torch.float32),),
+        dimension_semantics=("parallel", "parallel", "arbitrary"),
+        flops_per_hyperstep=10.0 * chunk * block_d * d_state,
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(bsz: int, seq: int, d_inner: int, d_state: int, chunk: int,
+          dtype: torch.dtype) -> StreamPlan:
+    return ssm_plan(bsz, seq, d_inner, d_state, chunk=chunk, dtype=dtype,
+                    block_d=BLOCK_D)
+
+
+def ssm_scan(
+    x: torch.Tensor,      # (B, L, d_inner)
+    dt: torch.Tensor,     # (B, L, d_inner)   Δ, already softplus'd
+    b: torch.Tensor,      # (B, L, d_state)
+    c: torch.Tensor,      # (B, L, d_state)
+    a: torch.Tensor,      # (d_inner, d_state)  negative
+    d: torch.Tensor,      # (d_inner,) skip
+    *,
+    chunk: int = 128,
+) -> torch.Tensor:
+    """Selective scan over the sequence stream; returns y: (B, L, d_inner)
+    in ``x``'s dtype.
+
+    CUDA tensors go to the kernel: contiguous x, Δ, B, C of one dtype
+    (float32 or bfloat16), float32 A and D, d_state 8 or 16. CPU tensors go
+    to :func:`repro_torch.kernels.ref.ssm_scan_ref`.
+    """
+    if x.dim() != 3 or dt.shape != x.shape or b.dim() != 3 or c.shape != b.shape \
+            or b.shape[:2] != x.shape[:2] or a.shape != (x.shape[2], b.shape[2]) \
+            or d.shape != (x.shape[2],):
+        raise ValueError(f"bad selective-scan shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
+                         f"b{tuple(b.shape)} c{tuple(c.shape)} a{tuple(a.shape)} "
+                         f"d{tuple(d.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if any(t.device != x.device for t in (dt, b, c, a, d)):
+        raise ValueError("selective-scan operands on different devices")
+    if x.device.type == "cpu":
+        return ref.ssm_scan_ref(x, dt, b, c, a, d)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on CUDA or CPU tensors, not {x.device}")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, b, c)):
+        raise TypeError(f"ssm_scan streams x, dt, b, c of one dtype, float32 or "
+                        f"bfloat16; got {x.dtype}, {dt.dtype}, {b.dtype}, {c.dtype}")
+    if a.dtype != torch.float32 or d.dtype != torch.float32:
+        raise TypeError(f"ssm_scan takes float32 A and D, got {a.dtype}, {d.dtype}")
+    bsz, seq, d_inner = x.shape
+    d_state = a.shape[1]
+    if d_state not in _D_STATES:
+        raise ValueError(f"the ssm_scan kernel supports d_state {_D_STATES}, not {d_state}")
+    if not all(t.is_contiguous() for t in (x, dt, b, c, a, d)):
+        raise ValueError("ssm_scan needs contiguous operands")
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    ck = min(chunk, seq)
+    seq_p = math.ceil(seq / ck) * ck
+    launch = pipeline.lower(_plan(bsz, seq_p, d_inner, d_state, ck, x.dtype),
+                            "bsps_ssm_scan", x.device)
+    pipeline.launch(launch, x.device, x.data_ptr(), dt.data_ptr(), b.data_ptr(),
+                    c.data_ptr(), a.data_ptr(), d.data_ptr(), y.data_ptr(),
+                    seq, d_inner, d_state, ck, BLOCK_D, _DTYPES[x.dtype])
+    ssm_scan.launches += 1
+    return y
+
+
+ssm_scan.launches = 0

@@ -76,11 +76,16 @@ def make_prefill(cfg, block: int = 1, *, device: Any = None):
     identical cache contents to the per-token loop in ``ceil(S / block)``
     steps instead of ``S``. A prompt length that is not a multiple of
     ``block`` pays one leading partial chunk (``S mod block`` tokens) so the
-    following chunks stay uniform. Pick the block with
-    :func:`prefill_block_size`. The cache is written in place.
+    following chunks stay uniform. ``block > 1`` needs an attention-only
+    stack (the recurrent mixers take one token per step). Pick the block
+    with :func:`prefill_block_size`. The cache is written in place.
     """
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
+    if block > 1 and any(b.mixer != "attn" for b in cfg.pattern):
+        raise ValueError(
+            f"chunked prefill needs an attention-only stack; {cfg.name} "
+            "has recurrent mixers (use block=1)")
     serve_step = make_serve_step(cfg, device=device)
 
     def prefill(params, cache, prompt):          # prompt: (B, S) int
@@ -123,9 +128,9 @@ def prefill_block_size(cfg, batch: int, prompt_len: int,
     (:func:`repro_torch.core.plan.autotune`): bigger blocks amortise the
     per-chunk barrier ``l``, the KV-cache scratch plus the chunk's
     double-buffered activations cap how big a block fits. Falls back to
-    token-at-a-time when nothing fits.
+    token-at-a-time when the stack has recurrent mixers or nothing fits.
     """
-    if prompt_len <= 1:
+    if prompt_len <= 1 or any(b.mixer != "attn" for b in cfg.pattern):
         return 1
     machine = machine or default_machine(device=device)
     blocks = sorted({b for b in (1, 2, 4, 8, 16, 32, 64, 128, prompt_len)

@@ -1,4 +1,4 @@
-"""The dense decoder of the port, mirroring the JAX package's models."""
+"""The decoders of the port (dense and hybrid), mirroring the JAX package's models."""
 
 from repro_torch.models.model import (
     count_params,

@@ -29,7 +29,7 @@ from repro_torch.models.layers import (
 Params = dict[str, Any]
 
 __all__ = ["init_params", "params_from_numpy", "count_params", "forward",
-           "init_cache", "decode_step", "default_positions", "torch_dtype"]
+           "init_cache", "cache_bytes", "decode_step", "default_positions", "torch_dtype"]
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -65,12 +65,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: Any = None) -> Param
     }
 
 
-def _tree_map(fn, tree: Any) -> Any:
+def _tree_map(fn, tree: Any, key: str | None = None) -> Any:
+    """Map ``fn(leaf, key)`` over a tree of dicts and lists; ``key`` is the
+    name of the dict entry that holds the leaf (or its list)."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: _tree_map(fn, v, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [_tree_map(fn, v, key) for v in tree]
+    return fn(tree, key)
+
+
+#: parameter leaves the JAX init keeps in float32 whatever the config's dtype
+FP32_LEAVES = frozenset({"router"})
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Params, device: Any = None) -> Params:
@@ -80,18 +86,20 @@ def params_from_numpy(cfg: ModelConfig, tree: Params, device: Any = None) -> Par
     ``scan_layers=False`` (``stack[i][j]``) and the period-stacked arrays of
     ``scan_layers=True`` (``stack[j]`` with a leading ``n_periods`` axis).
     Arrays may arrive as float32 (bf16 weights viewed as float32 to cross
-    through numpy); they are cast to the config's dtype, which for bf16
-    values is exact.
+    through numpy). Each leaf gets the dtype the JAX init gives it: the MoE
+    router stays float32, every other leaf takes the config's dtype (for
+    bf16 values an exact cast).
     """
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
 
-    def conv(a: Any) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device, dtype)
+    def conv(a: Any, key: str | None) -> torch.Tensor:
+        to = torch.float32 if key in FP32_LEAVES else dtype
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device, to)
 
     stack = tree["stack"]
     if cfg.scan_layers:
-        stack = [[_tree_map(lambda a, i=i: np.asarray(a, np.float32)[i], stack[j])
+        stack = [[_tree_map(lambda a, _k, i=i: np.asarray(a, np.float32)[i], stack[j])
                   for j in range(len(cfg.pattern))]
                  for i in range(cfg.n_periods)]
     if len(stack) != cfg.n_periods or any(len(per) != len(cfg.pattern) for per in stack):
@@ -109,13 +117,23 @@ def count_params(cfg: ModelConfig) -> int:
     (equal to the JAX package's leaf count)."""
     d, hd = cfg.d_model, cfg.head_dim_
     norm = d * (2 if cfg.norm_type == "layernorm" else 1)
+    mult = 3 if cfg.mlp_activation in ("swiglu", "geglu") else 2
     total = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2) + norm
     for _, blk in cfg.blocks():
         tf._check_block(blk)
-        total += norm + d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
-        if blk.mlp != "none":
-            mult = 3 if cfg.mlp_activation in ("swiglu", "geglu") else 2
+        total += norm
+        if blk.mixer == "attn":
+            total += d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
+        else:
+            di, ds, dtr = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.dt_rank
+            # w_in, conv_w + conv_b, w_x, w_dt, dt_bias + d_skip, a_log, w_out
+            total += (d * 2 * di + (cfg.ssm_d_conv + 1) * di + di * (dtr + 2 * ds)
+                      + dtr * di + 2 * di + di * ds + di * d)
+        if blk.mlp == "dense":
             total += norm + mult * d * cfg.d_ff
+        elif blk.mlp == "moe":
+            e, ff = cfg.moe_experts, cfg.moe_d_ff
+            total += norm + d * e + e * mult * d * ff + mult * d * cfg.moe_shared_experts * ff
     return total
 
 
@@ -148,7 +166,9 @@ def forward(
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device: Any = None) -> Params:
-    """KV caches for ``batch`` sequences of up to ``max_len`` positions.
+    """Per-layer caches for ``batch`` sequences of up to ``max_len``
+    positions: K/V for attention layers, the conv window and fp32 state for
+    Mamba layers.
 
     ``len`` is a Python int (every lane at the same position) — or, set by a
     caller, a (B,) int tensor for lanes at mixed positions.
@@ -162,10 +182,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device: Any = None
 
 def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
     """Bytes of :func:`init_cache`'s tensors, plus the JAX package's int32
-    length scalar — the cache scratch the serve plans budget."""
+    length scalar — the cache scratch the serve plans budget. An attention
+    layer holds K and V (B, max_len, Hkv, hd) in the config's dtype; a Mamba
+    layer its conv window (B, K-1, d_inner) in the config's dtype and its
+    state h (B, d_inner, d_state) in fp32."""
     itemsize = torch_dtype(cfg).itemsize
-    per_layer = 2 * batch * max_len * cfg.num_kv_heads * cfg.head_dim_ * itemsize
-    return per_layer * cfg.num_layers + 4
+    total = 4
+    for _, blk in cfg.blocks():
+        tf._check_block(blk)
+        if blk.mixer == "attn":
+            total += 2 * batch * max_len * cfg.num_kv_heads * cfg.head_dim_ * itemsize
+        else:
+            di = cfg.ssm_d_inner
+            total += batch * (cfg.ssm_d_conv - 1) * di * itemsize
+            total += batch * di * cfg.ssm_d_state * 4
+    return total
 
 
 def decode_step(
@@ -178,15 +209,21 @@ def decode_step(
 ) -> tuple[torch.Tensor, Params]:
     """One serve step: logits for the next token(s) + updated cache.
 
-    ``tokens`` may carry S > 1 positions at once (chunked prefill), and
-    ``cache["len"]`` may be a ``(B,)`` tensor for lanes at mixed positions.
-    The cache tensors are updated in place.
+    ``tokens`` may carry S > 1 positions at once (chunked prefill —
+    attention-only stacks: the recurrent mixers take one token per step),
+    and ``cache["len"]`` may be a ``(B,)`` tensor for lanes at mixed
+    positions. The KV caches are updated in place; a Mamba layer's cache is
+    replaced by its new state.
     """
     _check_rope(cfg)
     device = _on(params, device)
     x = embed_tokens(params["embed"], torch.as_tensor(tokens, device=device))
     s = x.shape[1]
     cache_len = cache["len"]
+    if s > 1 and any(b.mixer != "attn" for b in cfg.pattern):
+        raise ValueError(
+            "multi-token decode chunks need an attention-only stack; "
+            f"{cfg.name} has recurrent mixers")
     x, new_layers = tf.apply_stack_decode(cfg, params["stack"], cache["layers"], x,
                                           cache_len)
     x = apply_norm(cfg, params["final_norm"], x)

@@ -2,7 +2,9 @@
 
 A block is (pre-norm → mixer → residual, pre-norm → mlp → residual) with the
 mixer/mlp kinds taken from the config's repeating pattern. The port runs
-attention mixers with dense MLPs; the other kinds are not ported yet.
+attention and Mamba mixers with dense, MoE or no MLPs; the xLSTM mixers are
+not ported yet. The MoE load-balancing loss is dropped here: the port has
+no training step to add it to yet.
 
 The stack's parameters are always the per-layer layout of the JAX package's
 ``scan_layers=False``: ``stack[i][j]`` is period i, position j. The JAX
@@ -19,26 +21,39 @@ import torch
 
 from repro_torch.configs.base import Block, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 Params = dict[str, Any]
 
 
 def _check_block(blk: Block) -> None:
-    if blk.mixer != "attn" or blk.mlp not in ("dense", "none"):
+    if blk.mixer not in ("attn", "mamba") or blk.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(
             f"block ({blk.mixer}, {blk.mlp}) is not ported yet: the port runs "
-            "attention mixers with dense MLPs")
+            "attention and Mamba mixers with dense, MoE or no MLPs")
 
 
 def init_block(cfg: ModelConfig, blk: Block, gen: torch.Generator, dtype, device) -> Params:
     _check_block(blk)
+    init_mixer = attn.init_attention if blk.mixer == "attn" else mb.init_mamba
     p: Params = {"ln1": init_norm(cfg, dtype, device),
-                 "mixer": attn.init_attention(cfg, gen, dtype, device)}
+                 "mixer": init_mixer(cfg, gen, dtype, device)}
     if blk.mlp != "none":
+        init = init_mlp if blk.mlp == "dense" else moe_mod.init_moe
         p["ln2"] = init_norm(cfg, dtype, device)
-        p["mlp"] = init_mlp(cfg, gen, dtype, device)
+        p["mlp"] = init(cfg, gen, dtype, device)
     return p
+
+
+def _apply_mlp(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if blk.mlp == "none":
+        return x
+    h = apply_norm(cfg, p["ln2"], x)
+    if blk.mlp == "dense":
+        return x + apply_mlp(cfg, p["mlp"], h)
+    return x + moe_mod.moe_forward(cfg, p["mlp"], h)[0]
 
 
 def apply_block(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
@@ -46,21 +61,30 @@ def apply_block(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
     """Full-sequence (train/prefill) block."""
     _check_block(blk)
     h = apply_norm(cfg, p["ln1"], x)
-    x = x + attn.attention_forward(cfg, p["mixer"], h, positions)
-    if blk.mlp != "none":
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-    return x
+    if blk.mixer == "attn":
+        h = attn.attention_forward(cfg, p["mixer"], h, positions)
+    else:
+        h = mb.mamba_forward(cfg, p["mixer"], h)
+    return _apply_mlp(cfg, blk, p, x + h)
 
 
 def apply_block_decode(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
                        cache: Params, cache_len: Any) -> tuple[torch.Tensor, Params]:
     _check_block(blk)
     h = apply_norm(cfg, p["ln1"], x)
-    h, cache = attn.attention_decode(cfg, p["mixer"], h, cache, cache_len)
-    x = x + h
-    if blk.mlp != "none":
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-    return x, cache
+    if blk.mixer == "attn":
+        h, cache = attn.attention_decode(cfg, p["mixer"], h, cache, cache_len)
+    else:
+        h, cache = mb.mamba_decode(cfg, p["mixer"], h, cache)
+    return _apply_mlp(cfg, blk, p, x + h), cache
+
+
+def init_block_cache(cfg: ModelConfig, blk: Block, batch: int, max_len: int, dtype,
+                     device) -> Params:
+    _check_block(blk)
+    if blk.mixer == "attn":
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+    return mb.init_mamba_cache(cfg, batch, dtype, device)
 
 
 def init_stack(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> list[list[Params]]:
@@ -79,10 +103,9 @@ def apply_stack(cfg: ModelConfig, stack: list[list[Params]], x: torch.Tensor,
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device) -> list[list[Params]]:
-    for blk in cfg.pattern:
-        _check_block(blk)
     period = len(cfg.pattern)
-    return [[attn.init_kv_cache(cfg, batch, max_len, dtype, device) for _ in range(period)]
+    return [[init_block_cache(cfg, cfg.pattern[j], batch, max_len, dtype, device)
+             for j in range(period)]
             for _ in range(cfg.n_periods)]
 
 

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.streamed_dot import streamed_dot
 from repro_torch.kernels.streamed_matmul import streamed_matmul
 
@@ -105,8 +106,12 @@ def test_wrappers_count_their_launches(cuda):
     ops.dot(a[0].float(), a[1].float())
     q = _rand((1, 2, 64, 64), torch.bfloat16, cuda)
     ops.attention(q, q, q)
+    x = _rand((1, 8, 128), torch.bfloat16, cuda)
+    bc = _rand((1, 8, 16), torch.bfloat16, cuda)
+    ops.selective_scan(x, x.abs(), bc, bc, -torch.ones((128, 16), device=cuda),
+                       torch.ones(128, device=cuda))
     assert ops.launch_counts() == {"streamed_dot": 1, "streamed_matmul": 1,
-                                   "flash_attention": 1}
+                                   "flash_attention": 1, "ssm_scan": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -115,6 +120,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.ones(1, 1, 8, 32, device=cuda)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+    x, a, d = (torch.ones(1, 8, 64, device=cuda), -torch.ones(64, 32, device=cuda),
+               torch.ones(64, device=cuda))
+    bc = torch.ones(1, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="d_state"):
+        ssm_scan(x, x, bc, bc, a, d)                         # d_state 32
+    with pytest.raises(TypeError):
+        ssm_scan(x, x, bc[..., :16].contiguous(), bc[..., :16].contiguous(),
+                 a[:, :16].contiguous().half(), d)           # A not fp32
 
 
 @pytest.mark.parametrize("compiled", [False, True])
@@ -158,3 +171,88 @@ def test_generate_modes_agree_on_the_card(cuda):
     assert torch.equal(a, b) and tuple(a.shape) == (2, 75)
     assert ops.launch_counts()["streamed_matmul"] > before
     assert sa.plan_row["fetch_words_planned"] == sa.plan_row["fetch_words_measured"]
+
+
+def _ssm_inputs(b, seq, di, ds, dtype, device, seed):
+    g = np.random.default_rng(seed)
+    x = torch.as_tensor(g.standard_normal((b, seq, di)), dtype=torch.float32)
+    dt = torch.as_tensor(np.abs(g.standard_normal((b, seq, di))) * 0.05, dtype=torch.float32)
+    bb = torch.as_tensor(g.standard_normal((b, seq, ds)), dtype=torch.float32)
+    c = torch.as_tensor(g.standard_normal((b, seq, ds)), dtype=torch.float32)
+    a = -torch.arange(1, ds + 1, dtype=torch.float32).expand(di, ds).contiguous()
+    d = torch.as_tensor(g.standard_normal(di), dtype=torch.float32)
+    return ([t.to(device, dtype) for t in (x, dt, bb, c)]
+            + [a.to(device), d.to(device)])
+
+
+# the scan in fp32 on both sides: sums in another order and an fma, a few
+# ulps of the state over the sequence; bf16 streams: the same fp32 scan from
+# the same bf16 inputs, one bf16 rounding of the output on each side (two
+# ulps of the largest output)
+@pytest.mark.parametrize("b,seq,di,ds,chunk", [
+    (4, 256, 8192, 16, 128),       # jamba's forward
+    (1, 300, 200, 8, 64),          # ragged L and ragged d_inner
+    (2, 100, 130, 16, 32),         # ragged both, short chunk
+    (3, 7, 128, 8, 128),           # one short chunk
+    (1, 4000, 256, 16, 128),       # long, ragged last chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernel_matches_plain(cuda, b, seq, di, ds, chunk, dtype):
+    x, dt, bb, c, a, d = _ssm_inputs(b, seq, di, ds, dtype, cuda, 13)
+    got = ssm_scan(x, dt, bb, c, a, d, chunk=chunk)
+    want = ref.ssm_scan_ref(x, dt, bb, c, a, d)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = 1e-4 if dtype == torch.float32 else 2 * 2 ** -8
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+def test_ssm_kernel_isolates_batch_rows(cuda):
+    x, dt, bb, c, a, d = _ssm_inputs(3, 200, 300, 16, torch.float32, cuda, 14)
+    full = ssm_scan(x, dt, bb, c, a, d, chunk=64)
+    row = ssm_scan(x[1:2].contiguous(), dt[1:2].contiguous(), bb[1:2].contiguous(),
+                   c[1:2].contiguous(), a, d, chunk=64)
+    assert torch.equal(full[1:2], row)
+
+
+def test_ssm_kernel_is_deterministic_and_chunk_free(cuda):
+    x, dt, bb, c, a, d = _ssm_inputs(2, 333, 256, 16, torch.bfloat16, cuda, 15)
+    one = ssm_scan(x, dt, bb, c, a, d, chunk=128)
+    assert torch.equal(one, ssm_scan(x, dt, bb, c, a, d, chunk=128))
+    # the chunk only sizes the stage: the same recurrence, the same bits
+    assert torch.equal(one, ssm_scan(x, dt, bb, c, a, d, chunk=16))
+
+
+def test_hybrid_serve_on_the_card(cuda):
+    """A one-period jamba stack at head dim 64 (the flash kernel's) in bf16 on
+    the card: compiled and measure-mode greedy decoding agree, the forward
+    launches the scan kernel once per Mamba layer, and its last logits
+    follow the token-at-a-time prefill's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.bsp import EPIPHANY_III
+    from repro_torch.launch.serve import generate, make_prefill
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b", smoke=True), d_model=256,
+                              num_heads=4, num_kv_heads=2, d_ff=512, moe_d_ff=512,
+                              ssm_d_state=16, moe_capacity_factor=8.0, dtype="bfloat16")
+    params = M.init_params(cfg, 0, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(0))
+    a, sa = generate(cfg, params, prompt, steps=5, machine=EPIPHANY_III, device=cuda)
+    b, _ = generate(cfg, params, prompt, steps=5, machine=EPIPHANY_III, device=cuda,
+                    compiled=False)
+    assert torch.equal(a, b) and tuple(a.shape) == (2, 45)
+    assert sa.plan_row["fetch_words_planned"] == sa.plan_row["fetch_words_measured"]
+    before = ops.launch_counts()
+    logits = make_prefill_step(cfg, device=cuda)(params, {"tokens": prompt.to(cuda)})
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert counts["ssm_scan"] == 7 and counts["flash_attention"] == 1
+    assert counts["streamed_matmul"] > 0
+    pre, _ = make_prefill(cfg, 1, device=cuda)(params, M.init_cache(cfg, 2, 40, device=cuda),
+                                               prompt.to(cuda))
+    last, pre = logits[:, -1].float(), pre[:, -1].float()
+    assert (last - pre).abs().max() <= 0.05 * pre.abs().max()

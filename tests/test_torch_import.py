@@ -66,7 +66,7 @@ def test_only_the_launch_site_touches_the_library():
 
 
 def test_kernel_modules_launch_through_the_pipeline():
-    for name in ("streamed_dot", "streamed_matmul", "flash_attention"):
+    for name in ("streamed_dot", "streamed_matmul", "flash_attention", "ssm_scan"):
         text = (PORT / "kernels" / f"{name}.py").read_text()
         assert "pipeline.lower(" in text and "pipeline.launch(" in text
         assert f"{name}.launches += 1" in text

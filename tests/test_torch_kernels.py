@@ -5,19 +5,29 @@ run under ``interpret=True`` as ``tests/test_kernels.py`` runs them. The
 same numpy inputs go to both. The CUDA kernels themselves are held against
 the plain versions on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``). Tolerances: 2e-4 for float32, the JAX file's ``TOL`` for
-bfloat16.
+bfloat16 (the selective scan's bf16 output: two bf16 ulps of its largest
+value, one from each side's final rounding).
 """
+
+import dataclasses
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import bsp as jbsp
+from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.ssm_scan import ssm_plan as j_ssm_plan
+from repro.kernels.ssm_scan import ssm_scan as j_ssm
 from repro.kernels.streamed_dot import streamed_dot as j_dot
 from repro.kernels.streamed_matmul import streamed_matmul as j_matmul
+from repro_torch.core import bsp as tbsp
 from repro_torch.kernels import ops, pipeline, ref
 from repro_torch.kernels.flash_attention import attention_plan
+from repro_torch.kernels.ssm_scan import ssm_plan
 from repro_torch.kernels.streamed_dot import dot_plan
 from repro_torch.kernels.streamed_matmul import matmul_plan, split_for, tile_for
 
@@ -141,6 +151,9 @@ def test_cpu_tensors_never_reach_the_library(rng, monkeypatch):
     ops.matmul(x, x.T.contiguous())
     ops.dot(x[0], x[1])
     ops.attention(x[None, None], x[None, None], x[None, None])
+    s = torch.as_tensor(rng.standard_normal((1, 8, 64)), dtype=torch.float32)
+    bc = torch.as_tensor(rng.standard_normal((1, 8, 16)), dtype=torch.float32)
+    ops.selective_scan(s, s.abs() * 0.1, bc, bc, -torch.ones(64, 16), torch.ones(64))
     assert ops.launch_counts() == before     # the plain versions launch nothing
 
 
@@ -152,3 +165,105 @@ def test_wrappers_refuse_other_devices():
         ops.dot(x[0], x[1])
     with pytest.raises(ValueError):
         ops.attention(x[None, None], x[None, None], x[None, None])
+    s, bc = torch.empty((1, 4, 64), device="meta"), torch.empty((1, 4, 16), device="meta")
+    a, d = torch.empty((64, 16), device="meta"), torch.empty((64,), device="meta")
+    with pytest.raises(ValueError):
+        ops.selective_scan(s, s, bc, bc, a, d)
+
+
+# -- the selective scan --------------------------------------------------------------
+
+
+def _ssm_inputs(rng, b, seq, di, ds, dtype):
+    """The inputs of tests/test_kernels.py's ssm cases, as (jax, torch) pairs."""
+    x = rng.standard_normal((b, seq, di)).astype(np.float32)
+    dt = np.abs(rng.standard_normal((b, seq, di)).astype(np.float32)) * 0.2
+    bb = rng.standard_normal((b, seq, ds)).astype(np.float32)
+    c = rng.standard_normal((b, seq, ds)).astype(np.float32)
+    a = -np.abs(rng.standard_normal((di, ds)).astype(np.float32)) - 0.1
+    d = rng.standard_normal((di,)).astype(np.float32)
+    streams = [(jnp.asarray(v, getattr(jnp, dtype)), torch.as_tensor(v).to(getattr(torch, dtype)))
+               for v in (x, dt, bb, c)]
+    params = [(jnp.asarray(v), torch.as_tensor(v)) for v in (a, d)]
+    return [j for j, _ in streams + params], [t for _, t in streams + params]
+
+
+@pytest.mark.parametrize("seq,chunk", [(64, 16), (100, 32), (128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_matches_jax_kernel(rng, seq, chunk, dtype):
+    jin, tin = _ssm_inputs(rng, 2, seq, 8, 4, dtype)
+    got = ops.selective_scan(*tin, chunk=chunk)
+    assert got.dtype == tin[0].dtype and got.shape == tin[0].shape
+    want = np.asarray(j_ssm(*jin, chunk=chunk, interpret=True), np.float32)
+    oracle = np.asarray(jref.ssm_scan_ref(*jin), np.float32)
+    if dtype == "float32":
+        _close(got, want, TOL[dtype])
+        _close(got, oracle, TOL[dtype])
+    else:
+        tol = 2 * 2 ** -8 * np.abs(oracle).max()
+        assert np.abs(got.float().numpy() - want).max() <= tol
+        assert np.abs(got.float().numpy() - oracle).max() <= tol
+
+
+def test_ssm_state_isolation_across_batch(rng):
+    """The state resets at each batch row: a row alone gives what it gives
+    inside the batch."""
+    _, (x, dt, bb, c, _, _) = _ssm_inputs(rng, 3, 32, 4, 2, "float32")
+    a, d = -torch.ones((4, 2)), torch.zeros(4)
+    full = ops.selective_scan(x, dt * 0.5, bb, c, a, d, chunk=8)
+    row = ops.selective_scan(x[1:2], dt[1:2] * 0.5, bb[1:2], c[1:2], a, d, chunk=8)
+    torch.testing.assert_close(full[1:2], row, rtol=1e-5, atol=1e-5)
+
+
+def _pack(acc) -> tbsp.BSPAccelerator:
+    return tbsp.BSPAccelerator(**dataclasses.asdict(acc))
+
+
+SSM_CASES = [(2, 128, 8, 4, 16), (1, 256, 128, 8, 128), (4, 256, 8192, 16, 128)]
+
+
+@pytest.mark.parametrize("case", SSM_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_plan_parity(case, dtype):
+    """The port's ssm_plan is the JAX plan: same grid, tokens, scratch and
+    FLOPs, so the same fingerprint and Eq. 1 price on every pack."""
+    bsz, seq, di, ds, chunk = case
+    tp = ssm_plan(bsz, seq, di, ds, chunk=chunk, dtype=getattr(torch, dtype))
+    jp = j_ssm_plan(bsz, seq, di, ds, chunk=chunk, dtype=getattr(jnp, dtype))
+    assert tp.grid == jp.grid and tp.dimension_semantics == jp.dimension_semantics
+    assert tp.fingerprint() == jp.fingerprint()
+    assert tp.fetch_schedule() == jp.fetch_schedule()
+    assert tp.writeback_schedule() == jp.writeback_schedule()
+    assert tp.vmem_bytes == jp.vmem_bytes and tp.total_flops == jp.total_flops
+    for jacc in (jbsp.EPIPHANY_III, jbsp.TPU_V5E_CHIP, jbsp.TPU_V5E_POD):
+        assert tp.cost(_pack(jacc)) == jp.cost(jacc)
+        assert tp.cost(_pack(jacc), exact=False) == jp.cost(jacc, exact=False)
+        assert tp.bandwidth_heavy(_pack(jacc)) == jp.bandwidth_heavy(jacc)
+
+
+def _fetched_words(plan, names):
+    """Words of the named input streams in the plan's fetch walk."""
+    total, prev = 0, {}
+    for coords in itertools.product(*(range(g) for g in plan.grid)):
+        for t in plan.inputs:
+            blk = tuple(t.index_map(*coords))
+            if t.name in names and blk != prev.get(t.name):
+                total += t.words
+            prev[t.name] = blk
+    return total
+
+
+def test_ssm_launch_plan_tiles_the_channels():
+    """The launch plan makes batch rows and channel tiles parallel and keeps
+    the chunk loop: x, Δ and y move the JAX plan's words and the FLOPs are
+    the same. Each (row, tile) block reads its rows of A and D once, and
+    each tile reads the small B/C chunks of its row."""
+    one = ssm_plan(4, 256, 8192, 16, chunk=128, dtype=torch.bfloat16)
+    tiled = ssm_plan(4, 256, 8192, 16, chunk=128, dtype=torch.bfloat16, block_d=128)
+    assert pipeline.geometry(tiled) == ((64, 4, 1), 2)
+    assert tiled.scratch_bytes == 128 * 16 * 4
+    assert tiled.total_flops == one.total_flops
+    assert _fetched_words(tiled, ("x", "dt")) == _fetched_words(one, ("x", "dt"))
+    assert sum(tiled.writeback_schedule()) == sum(one.writeback_schedule())
+    assert _fetched_words(tiled, ("A", "D")) == 4 * _fetched_words(one, ("A", "D"))
+    assert _fetched_words(tiled, ("B", "C")) == 64 * _fetched_words(one, ("B", "C"))

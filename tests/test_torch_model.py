@@ -1,11 +1,14 @@
-"""The port's dense decoder against the JAX package's, on the CPU.
+"""The port's decoders against the JAX package's, on the CPU.
 
 minicpm-2b (tied head) and codeqwen1.5-7b (untied head, through the matmul
-wrapper) smoke configs in float32; the JAX init's weights carried over with
-``params_from_numpy``. Forward and decode logits agree within 1e-4.
+wrapper) smoke configs, and jamba-v0.1-52b's hybrid of Mamba, MoE and
+attention, in float32; the JAX init's weights carried over with
+``params_from_numpy``. Forward and decode logits agree within 1e-4; the
+Mamba and MoE layers alone within 1e-5 (fp32 sums in another order).
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -15,11 +18,14 @@ import torch
 
 from repro.configs import get_config as j_config
 from repro.models import model as JM
+from repro_torch.configs import card_config
 from repro_torch.configs import get_config as t_config
+from repro_torch.configs import list_configs as t_list_configs
 from repro_torch.models import model as TM
 
 ATOL = 1e-4
 ARCHS = ["minicpm-2b", "codeqwen1.5-7b"]
+JAMBA = "jamba-v0.1-52b"
 
 
 def _numpy_tree(params):
@@ -44,10 +50,24 @@ def _close(got, want, atol=ATOL):
 
 
 def test_configs_are_copies():
-    for name in ARCHS:
+    assert set(ARCHS + [JAMBA]) <= set(t_list_configs())
+    for name in t_list_configs():
         for smoke in (False, True):
             assert (dataclasses.asdict(t_config(name, smoke=smoke))
                     == dataclasses.asdict(j_config(name, smoke=smoke)))
+
+
+@pytest.mark.parametrize("name", ARCHS + [JAMBA])
+def test_card_config_fits_one_card(name):
+    """The published widths at a depth whose bf16 weights fit one 80 GB card:
+    the full depth where it fits, else whole periods of the pattern."""
+    full, card = j_config(name), card_config(name)
+    assert dataclasses.asdict(card) == dataclasses.asdict(
+        dataclasses.replace(full, num_layers=card.num_layers))
+    assert card.num_layers % len(card.pattern) == 0
+    assert 2 * TM.count_params(card) < 80e9
+    if card.num_layers < full.num_layers:
+        assert 2 * TM.count_params(t_config(name)) > 80e9
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -168,3 +188,187 @@ def test_blockwise_attention_matches_reference(rng, valid, causal, sq, q_offset)
                       causal=causal, q_offset=q_offset, block_kv=16,
                       kv_valid_len=torch.as_tensor(lens) if valid == "per_lane" else lens)
     _close(got, want, 2e-5)
+
+
+# -- the hybrid stack: Mamba, MoE, attention -------------------------------------------
+
+
+def _tensors(tree):
+    return jax.tree_util.tree_map(lambda a: torch.as_tensor(np.asarray(a, np.float32)), tree)
+
+
+@pytest.fixture(scope="module")
+def jamba():
+    return _pair(JAMBA)
+
+
+def test_count_params_hybrid():
+    """The hybrid count from the config equals the JAX parameter tree's leaf
+    count. For the full config that count is taken over ``abstract_params``
+    with Python integers: ``JM.count_params`` multiplies each shape in int32,
+    and the period-stacked expert weights (4 × 16 × 4096 × 14336) overflow
+    it."""
+    full = j_config(JAMBA)
+    leaves = jax.tree_util.tree_leaves(JM.abstract_params(full))
+    assert TM.count_params(t_config(JAMBA)) == sum(math.prod(x.shape) for x in leaves)
+    assert TM.count_params(t_config(JAMBA)) == 51_570_315_264
+    assert TM.count_params(t_config(JAMBA, smoke=True)) == \
+        JM.count_params(j_config(JAMBA, smoke=True))
+
+
+@pytest.mark.parametrize("name", ARCHS + [JAMBA])
+@pytest.mark.parametrize("smoke", [False, True])
+def test_cache_bytes_match_the_reference_cache(name, smoke):
+    """The serve plans' cache scratch: the bytes of the JAX ``init_cache``
+    tree (K/V per attention layer; conv window and fp32 state per Mamba
+    layer; the int32 length)."""
+    jc, tc = j_config(name, smoke=smoke), t_config(name, smoke=smoke)
+    shapes = jax.eval_shape(lambda: JM.init_cache(jc, 3, 40))
+    want = sum(math.prod(x.shape) * jnp.dtype(x.dtype).itemsize
+               for x in jax.tree_util.tree_leaves(shapes))
+    assert TM.cache_bytes(tc, 3, 40) == want
+
+
+def test_bf16_hybrid_params_keep_the_jax_dtypes():
+    """params_from_numpy gives each leaf the JAX init's dtype: the MoE
+    router stays float32 in a bfloat16 model."""
+    jc, tc = j_config(JAMBA, smoke=True), t_config(JAMBA, smoke=True)
+    jp = JM.init_params(jc, jax.random.PRNGKey(0))
+    tp = TM.params_from_numpy(tc, _numpy_tree(jp), device="cpu")
+    jl = jax.tree_util.tree_leaves_with_path(jp)
+    tl = jax.tree_util.tree_leaves_with_path(tp)
+    assert len(jl) == len(tl)
+    dtypes = {jnp.dtype("float32"): torch.float32, jnp.dtype("bfloat16"): torch.bfloat16}
+    for (jpath, j), (_, t) in zip(jl, tl):
+        assert t.dtype == dtypes[j.dtype], jax.tree_util.keystr(jpath)
+        assert tuple(t.shape) == j.shape
+    assert tp["stack"][0][1]["mlp"]["router"].dtype == torch.float32
+    assert TM.init_params(tc, 0, device="cpu")["stack"][0][1]["mlp"]["router"].dtype \
+        == torch.float32
+
+
+def _mixer(models, j):
+    """The configs and period position j's mixer params (JAX, port)."""
+    jc, tc, jp, tp = models
+    return jc, tc, jp["stack"][0][j]["mixer"], tp["stack"][0][j]["mixer"]
+
+
+@pytest.mark.parametrize("impl", ["auto", "kernel", "chunked", "oracle"])
+def test_mamba_forward_matches_reference(jamba, rng, impl):
+    from repro.models import mamba as jmb
+    from repro_torch.models import mamba as tmb
+
+    jc, tc, jpm, tpm = _mixer(jamba, 0)
+    x = rng.standard_normal((2, 12, jc.d_model)).astype(np.float32)
+    want = jmb.mamba_forward(jc, jpm, jnp.asarray(x), impl=impl)
+    _close(tmb.mamba_forward(tc, tpm, torch.as_tensor(x), impl=impl), want, 1e-5)
+
+
+def test_mamba_decode_matches_reference(jamba, rng):
+    from repro.models import mamba as jmb
+    from repro_torch.models import mamba as tmb
+
+    jc, tc, jpm, tpm = _mixer(jamba, 0)
+    x = rng.standard_normal((2, 10, jc.d_model)).astype(np.float32)
+    jcache = jmb.init_mamba_cache(jc, 2, jnp.float32)
+    tcache = tmb.init_mamba_cache(tc, 2, torch.float32, "cpu")
+    assert tcache["h"].dtype == torch.float32
+    for t in range(10):
+        jy, jcache = jmb.mamba_decode(jc, jpm, jnp.asarray(x[:, t:t + 1]), jcache)
+        ty, tcache = tmb.mamba_decode(tc, tpm, torch.as_tensor(x[:, t:t + 1]), tcache)
+        _close(ty, jy, 1e-5)
+    _close(tcache["h"], jcache["h"], 1e-5)
+    _close(tcache["conv"], jcache["conv"], 1e-5)
+    # ten decode steps are the full-sequence mixer's last ten positions
+    _close(ty[:, 0], jmb.mamba_forward(jc, jpm, jnp.asarray(x), impl="oracle")[:, -1], 1e-5)
+
+
+@pytest.mark.parametrize("seq,chunk", [(64, 16), (100, 32)])
+def test_chunked_selective_scan_matches_reference(rng, seq, chunk):
+    from repro.models.mamba import chunked_selective_scan as j_chunked
+    from repro_torch.models.mamba import chunked_selective_scan as t_chunked
+
+    b, di, ds = 2, 8, 4
+    x = rng.standard_normal((b, seq, di)).astype(np.float32)
+    dt = np.abs(rng.standard_normal((b, seq, di))).astype(np.float32) * 0.2
+    bb, c = (rng.standard_normal((b, seq, ds)).astype(np.float32) for _ in range(2))
+    a = (-np.abs(rng.standard_normal((di, ds))) - 0.1).astype(np.float32)
+    d = rng.standard_normal((di,)).astype(np.float32)
+    h0 = rng.standard_normal((b, di, ds)).astype(np.float32)
+    args = (x, dt, bb, c, a, d)
+    jy, jh = j_chunked(*map(jnp.asarray, args), chunk=chunk, h0=jnp.asarray(h0))
+    ty, th = t_chunked(*map(torch.as_tensor, args), chunk=chunk, h0=torch.as_tensor(h0))
+    _close(ty, jy, 1e-5)
+    _close(th, jh, 1e-5)
+
+
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_moe_forward_matches_reference(rng, cf):
+    """Sort-based dispatch with the reference's drops: at capacity factor
+    1.25 some (token, expert) pairs overflow and are dropped, at 8.0 none."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+
+    jc, tc, jp, tp = _pair(JAMBA, moe_capacity_factor=cf)
+    jpm, tpm = jp["stack"][0][1]["mlp"], tp["stack"][0][1]["mlp"]
+    # a shared component skews the routing, so the favourite experts overflow
+    x = rng.standard_normal((2, 12, jc.d_model)).astype(np.float32)
+    x += 2.0 * rng.standard_normal(jc.d_model).astype(np.float32)
+    jy, jaux = jmoe.moe_forward(jc, jpm, jnp.asarray(x))
+    ty, taux = tmoe.moe_forward(tc, tpm, torch.as_tensor(x))
+    _close(ty, jy, 1e-5)
+    assert float(taux) == pytest.approx(float(jaux), rel=1e-6)
+    dense, _ = jmoe.moe_forward_dense(jc, jpm, jnp.asarray(x))
+    dropped = np.abs(np.asarray(jy) - np.asarray(dense)).max() > 1e-3
+    assert dropped == (cf == 1.25)
+
+
+@pytest.mark.parametrize("shared", [0, 1])
+def test_moe_forward_dense_matches_reference(rng, shared):
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe as tmoe
+
+    jc, tc, jp, tp = _pair(JAMBA, moe_shared_experts=shared)
+    jpm, tpm = jp["stack"][0][1]["mlp"], tp["stack"][0][1]["mlp"]
+    x = rng.standard_normal((1, 9, jc.d_model)).astype(np.float32)
+    jy, jaux = jmoe.moe_forward_dense(jc, jpm, jnp.asarray(x))
+    ty, taux = tmoe.moe_forward_dense(tc, tpm, torch.as_tensor(x))
+    _close(ty, jy, 1e-5)
+    assert float(taux) == pytest.approx(float(jaux), rel=1e-6)
+    jy, _ = jmoe.moe_forward(jc, jpm, jnp.asarray(x))
+    _close(tmoe.moe_forward(tc, tpm, torch.as_tensor(x))[0], jy, 1e-5)
+
+
+def test_hybrid_forward_logits(jamba, rng):
+    jc, tc, jp, tp = jamba
+    toks = rng.integers(0, jc.vocab_size, (2, 12)).astype(np.int32)
+    want, _ = JM.forward(jc, jp, jnp.asarray(toks))
+    _close(TM.forward(tc, tp, torch.as_tensor(toks), device="cpu"), want)
+
+
+def test_hybrid_decode_steps(jamba, rng):
+    """Ten single-token steps through the Mamba, MoE and attention caches."""
+    jc, tc, jp, tp = jamba
+    toks = rng.integers(0, jc.vocab_size, (2, 10)).astype(np.int32)
+    jcache, tcache = JM.init_cache(jc, 2, 10), TM.init_cache(tc, 2, 10, device="cpu")
+    for t in range(10):
+        jl, jcache = JM.decode_step(jc, jp, jcache, jnp.asarray(toks[:, t:t + 1]))
+        tl, tcache = TM.decode_step(tc, tp, tcache, torch.as_tensor(toks[:, t:t + 1]),
+                                    device="cpu")
+        _close(tl, jl)
+    assert tcache["len"] == int(jcache["len"]) == 10
+    for j in range(len(jc.pattern)):
+        jblk, tblk = jcache["layers"][0][j], tcache["layers"][0][j]
+        assert sorted(jblk) == sorted(tblk)
+        for key in jblk:
+            _close(tblk[key], jblk[key])
+
+
+def test_multi_token_decode_needs_an_attention_only_stack(jamba):
+    jc, tc, jp, tp = jamba
+    toks = np.zeros((1, 2), np.int32)
+    with pytest.raises(ValueError, match="recurrent"):
+        JM.decode_step(jc, jp, JM.init_cache(jc, 1, 4), jnp.asarray(toks))
+    with pytest.raises(ValueError, match="recurrent"):
+        TM.decode_step(tc, tp, TM.init_cache(tc, 1, 4, device="cpu"),
+                       torch.as_tensor(toks), device="cpu")

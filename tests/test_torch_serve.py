@@ -3,7 +3,8 @@
 Greedy ``generate`` gives the JAX package's token ids in both execution
 modes, with the same explicit machine pack handed to both so that the
 autotuned prefill block agrees; chunked prefill equals token-at-a-time; the
-predicted-vs-measured rows price the same plans.
+predicted-vs-measured rows price the same plans. jamba-v0.1-52b's hybrid
+stack serves token-at-a-time, as the reference does.
 """
 
 import dataclasses
@@ -148,3 +149,59 @@ def test_registry_pins_entries_under_concurrency():
         t.join(timeout=30)
     assert not any(t.is_alive() for t in threads)
     assert len(reg) <= 2 and reg.builds == len(built) >= 3
+
+
+# -- the hybrid stack ------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jamba():
+    name = "jamba-v0.1-52b"
+    jc = dataclasses.replace(j_config(name, smoke=True), dtype="float32")
+    tc = dataclasses.replace(t_config(name, smoke=True), dtype="float32")
+    jp = JM.init_params(jc, jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), jp)
+    return jc, tc, jp, TM.params_from_numpy(tc, tree, device="cpu")
+
+
+@pytest.mark.parametrize("compiled", [True, False])
+def test_hybrid_greedy_generate_matches_reference(jamba, compiled):
+    jc, tc, jp, tp = jamba
+    prompt = np.random.default_rng(5).integers(0, jc.vocab_size, (2, 7)).astype(np.int32)
+    want, jstats = jserve.generate(jc, jp, jnp.asarray(prompt), steps=6,
+                                   machine=JPack(**PACK), compiled=compiled)
+    got, tstats = tserve.generate(tc, tp, prompt, steps=6, machine=TPack(**PACK),
+                                  compiled=compiled, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the serve plan's cache scratch is the hybrid cache: the same price
+    assert tstats.plan_row["predicted_seconds"] == pytest.approx(
+        jstats.plan_row["predicted_seconds"], rel=1e-12)
+
+
+def test_recurrent_stacks_prefill_token_at_a_time(jamba):
+    jc, tc, jp, tp = jamba
+    for l in (1e3, 1e8):
+        kw = dict(PACK, l=l)
+        assert tserve.prefill_block_size(tc, 2, 64, TPack(**kw)) == 1
+        assert jserve.prefill_block_size(jc, 2, 64, JPack(**kw)) == 1
+    with pytest.raises(ValueError, match="recurrent"):
+        jserve.make_prefill(jc, 2)
+    with pytest.raises(ValueError, match="recurrent"):
+        tserve.make_prefill(tc, 2, device="cpu")
+    prompt = np.random.default_rng(6).integers(0, jc.vocab_size, (2, 5)).astype(np.int32)
+    want, _ = jserve.make_prefill(jc, 1)(jp, JM.init_cache(jc, 2, 8), jnp.asarray(prompt))
+    got, cache = tserve.make_prefill(tc, 1, device="cpu")(
+        tp, TM.init_cache(tc, 2, 8, device="cpu"), torch.as_tensor(prompt))
+    assert cache["len"] == 5
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+def test_hybrid_prefill_step_matches_reference_forward(jamba):
+    from repro.train.steps import make_prefill_step as j_step
+    from repro_torch.train.steps import make_prefill_step as t_step
+
+    jc, tc, jp, tp = jamba
+    toks = np.random.default_rng(7).integers(0, jc.vocab_size, (2, 9)).astype(np.int32)
+    want = j_step(jc)(jp, {"tokens": jnp.asarray(toks)})
+    got = t_step(tc, device="cpu")(tp, {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
