@@ -13,9 +13,11 @@ after: the paper's §3.1 inner product through the hyperstep runner in both
 execution modes plus minicpm-2b served at full width and depth, and
 jamba-v0.1-52b served at full width with its depth cut to one period of 8
 layers (random weights from a seed), each through ``generate`` and
-``make_prefill_step``. Every check that fails raises, and the script exits
-non-zero. Each phase prints its wall time. It imports neither JAX nor the
-JAX package.
+``make_prefill_step``. The matmul's launches are also counted per variant:
+every product of the forward and of a multi-row prefill must take the
+wgmma variant, every decode product the m ≤ 16 one. Every check that fails
+raises, and the script exits non-zero. Each phase prints its wall time. It
+imports neither JAX nor the JAX package.
 
 Output, in order: progress lines; the card's name and power limit as
 ``nvidia-smi`` reports them; one JSON line with a row per kernel; and, last,
@@ -139,6 +141,15 @@ def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
 # -- phase 2: each kernel against its plain version --------------------------------
 
 
+def matmul_variant(fn) -> tuple[object, str]:
+    """``fn()``'s result and the matmul variant its one launch took."""
+    before = ops.matmul_variant_counts()
+    out = fn()
+    taken = [v for v, c in ops.matmul_variant_counts().items() if c != before[v]]
+    check(len(taken) == 1, f"one matmul launch expected, variants {taken}")
+    return out, taken[0]
+
+
 def check_matmul(rows: dict) -> None:
     # bf16 output of fp32 sums taken in different orders: at most one bf16 ulp
     # apart (2^-7 relative), so the tolerance is two ulps of the largest output
@@ -146,25 +157,33 @@ def check_matmul(rows: dict) -> None:
               (300, 200, 130),
               # jamba's dense MLPs and its untied LM head: decode and forward
               (4, 4096, 14336), (4, 14336, 4096), (1024, 4096, 14336), (1024, 14336, 4096),
-              (4, 4096, 65536), (1024, 4096, 65536)]
+              (4, 4096, 65536), (1024, 4096, 65536),
+              # the wgmma variant at ragged m, n and k edges
+              (1000, 2304, 5768), (1024, 4096, 65544)]
     for idx, (m, k, n) in enumerate(shapes):
         sets = copies_past_l2(
             lambda i, m=m, k=k, n=n: (randn((m, k), torch.bfloat16, 10 * i + 1),
                                       randn((k, n), torch.bfloat16, 10 * i + 2, k ** -0.5)),
             (m * k + k * n) * 2)
         a, b = sets[0]
-        got, want = ops.matmul(a, b), ref.matmul_ref(a, b)
+        got, variant = matmul_variant(lambda: ops.matmul(a, b))
+        want = ref.matmul_ref(a, b)
         torch.cuda.synchronize()
+        expect = "decode" if m <= 16 else ("wmma" if n % 8 or k % 8 else "wgmma")
+        check(variant == expect, f"streamed_matmul {m}x{k}x{n} took {variant}, not {expect}")
         err = (got.float() - want.float()).abs().max().item()
         tol = 2 ** -6 * want.float().abs().max().item()
         check(err <= tol, f"streamed_matmul {m}x{k}x{n}: max err {err} > {tol}")
         ms, enqueue = bench_ms(lambda a, b: ops.matmul(a, b), sets, 50)
         plain, _ = bench_ms(lambda a, b: ref.matmul_ref(a, b), sets, 20)
         lib, _ = bench_ms(torch.matmul, sets, 50)
-        b_ms, b_by = bound((m * k + k * n + m * n) * 2, 2.0 * m * n * k, "bf16")
-        log(f"[kernel] streamed_matmul {m}x{k}x{n}: max_abs_err={err:.3g} (tol {tol:.3g}) "
-            f"ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+        nbytes, flops = (m * k + k * n + m * n) * 2, 2.0 * m * n * k
+        b_ms, b_by = bound(nbytes, flops, "bf16")
+        rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if b_by == "operations"
+                else f"{nbytes / ms / 1e9:.3f} TB/s")
+        log(f"[kernel] streamed_matmul {m}x{k}x{n} variant={variant}: max_abs_err={err:.3g} "
+            f"(tol {tol:.3g}) ms={ms:.4f} ({rate}) enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} "
+            f"torch.matmul_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
         if idx == 0:   # the decode up-projection: the launch the serve path repeats most
             rows["streamed_matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
@@ -196,31 +215,39 @@ def check_dot(rows: dict) -> None:
 def check_flash(rows: dict) -> None:
     # fp32 softmax on both sides from the same bf16 inputs, one bf16 rounding
     # of the output: two ulps of the largest output
-    # minicpm-2b's forward, a ragged GQA shape, jamba's forward (GQA 32/8)
-    for idx, (b, hq, hkv, s, d) in enumerate([(4, 36, 36, 256, 64), (2, 8, 2, 100, 64),
-                                               (4, 32, 8, 256, 128)]):
+    # minicpm-2b's forward, a ragged GQA shape, jamba's forward (GQA 32/8), and
+    # at head dim 128 ragged queries at the end of the keys and one decode row
+    cases = [(4, 36, 36, 256, 256, 64), (2, 8, 2, 100, 100, 64), (4, 32, 8, 256, 256, 128),
+             (2, 32, 8, 100, 300, 128), (4, 32, 8, 1, 300, 128)]
+    for idx, (b, hq, hkv, sq, skv, d) in enumerate(cases):
         sets = copies_past_l2(
-            lambda i, b=b, hq=hq, hkv=hkv, s=s, d=d: (
-                randn((b, hq, s, d), torch.bfloat16, 10 * i + 5),
-                randn((b, hkv, s, d), torch.bfloat16, 10 * i + 6),
-                randn((b, hkv, s, d), torch.bfloat16, 10 * i + 7)),
-            (b * hq * s * d + 2 * b * hkv * s * d) * 2)
+            lambda i, b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d: (
+                randn((b, hq, sq, d), torch.bfloat16, 10 * i + 5),
+                randn((b, hkv, skv, d), torch.bfloat16, 10 * i + 6),
+                randn((b, hkv, skv, d), torch.bfloat16, 10 * i + 7)),
+            (b * hq * sq * d + 2 * b * hkv * skv * d) * 2)
         q, k, v = sets[0]
         got, want = ops.attention(q, k, v), ref.attention_ref(q, k, v)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = 2 ** -6 * want.float().abs().max().item()
-        check(err <= tol, f"flash_attention {b}x{hq}/{hkv}x{s}x{d}: max err {err} > {tol}")
+        shape = f"b{b} h{hq}/{hkv} sq{sq} skv{skv} d{d}"
+        check(err <= tol, f"flash_attention {shape}: max err {err} > {tol}")
         ms, enqueue = bench_ms(lambda q, k, v: ops.attention(q, k, v), sets, 50)
         plain, _ = bench_ms(lambda q, k, v: ref.attention_ref(q, k, v), sets, 20)
+        # SDPA's is_causal aligns the queries with the first keys; the port's
+        # sit at the end (q_offset = skv - sq), so a ragged case passes a mask
+        mask = (None if sq == skv else torch.ones(sq, skv, dtype=torch.bool, device="cuda")
+                .tril(skv - sq))
         lib, _ = bench_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=hq != hkv), sets, 50)
-        pairs = s * (s + 1) // 2          # the (query, key) pairs causal masking keeps
-        b_ms, b_by = bound((2 * b * hq * s * d + 2 * b * hkv * s * d) * 2,
+            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=hq != hkv), sets, 50)
+        # the (query, key) pairs causal masking keeps
+        pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
+        b_ms, b_by = bound((2 * b * hq * sq * d + 2 * b * hkv * skv * d) * 2,
                            4.0 * b * hq * d * pairs, "bf16")
-        log(f"[kernel] flash_attention b{b} h{hq}/{hkv} s{s} d{d}: max_abs_err={err:.3g} "
+        log(f"[kernel] flash_attention {shape}: max_abs_err={err:.3g} "
             f"(tol {tol:.3g}) ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} "
-            f"sdpa_ms={lib} bound_ms={b_ms:.4f} ({b_by})")
+            f"sdpa_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
         if idx == 0:
             rows["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
@@ -350,13 +377,13 @@ def serve_slice(machine) -> dict:
     counts = {}
 
     def delta(before):
-        now = ops.launch_counts()
+        now = counts_now()
         return {k: now[k] - before[k] for k in now}
 
-    before = ops.launch_counts()
+    before = counts_now()
     toks, stats = generate(cfg, params, prompt, steps=steps, machine=machine, device="cuda")
     counts["generate_compiled_first"] = delta(before)
-    before = ops.launch_counts()
+    before = counts_now()
     toks2, stats = generate(cfg, params, prompt, steps=steps, machine=machine, device="cuda")
     counts["generate_compiled"] = delta(before)
     check(torch.equal(toks, toks2), "two greedy generate calls disagree")
@@ -368,7 +395,7 @@ def serve_slice(machine) -> dict:
         f"{stats.decode_total_seconds * 1e3:.1f} ms) "
         f"predicted_vs_measured={json.dumps(stats.plan_row)}")
 
-    before = ops.launch_counts()
+    before = counts_now()
     toks3, stats_m = generate(cfg, params, prompt, steps=steps, machine=machine,
                               device="cuda", compiled=False)
     counts["generate_measure"] = delta(before)
@@ -382,7 +409,7 @@ def serve_slice(machine) -> dict:
     block = prefill_block_size(cfg, batch, prompt_len, machine)
     cache = M.init_cache(cfg, batch, prompt_len, device="cuda")
     pre_logits, _ = make_prefill(cfg, block, device="cuda")(params, cache, prompt)
-    before = ops.launch_counts()
+    before = counts_now()
     step = make_prefill_step(cfg, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -406,6 +433,21 @@ def serve_slice(machine) -> dict:
         f"logits vs generate's prefill: max_abs_diff={err:.4g} (tol {tol:.4g}), "
         f"argmax agreement {agree:.2f}")
     log(f"[slice] launches per call: {json.dumps(counts)}")
+    # every MLP product of the forward and of generate's prefill (m = batch ·
+    # block rows) took the wgmma variant, every decode product the m ≤ 16 one
+    mlp = 3 * cfg.num_layers
+    check(counts["prefill_step"]["streamed_matmul.wgmma"] == mlp
+          and counts["prefill_step"]["streamed_matmul"] == mlp,
+          f"minicpm forward matmul variants {counts['prefill_step']}")
+    chunks = -(-prompt_len // block)
+    for key in ("generate_compiled_first", "generate_compiled", "generate_measure"):
+        c = counts[key]
+        check(c["streamed_matmul.wgmma"] == mlp * chunks and c["streamed_matmul.wmma"] == 0
+              and c["streamed_matmul.decode"] == c["streamed_matmul"] - mlp * chunks > 0,
+              f"minicpm {key}: matmul variants {c} (prefill in {chunks} chunk(s) of {block})")
+    log(f"[slice] matmul variants: forward {mlp} wgmma; generate's prefill "
+        f"{chunks} chunk(s) of m = {batch * block}: {mlp * chunks} wgmma; decode "
+        f"{counts['generate_compiled']['streamed_matmul.decode']} m <= 16")
     return counts
 
 
@@ -429,9 +471,9 @@ def serve_jamba(machine) -> dict:
     counts = {}
 
     def counted(key, fn):
-        before = ops.launch_counts()
+        before = counts_now()
         out = fn()
-        counts[key] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        counts[key] = {k: v - before[k] for k, v in counts_now().items()}
         return out
 
     runs = []
@@ -465,8 +507,16 @@ def serve_jamba(machine) -> dict:
     check(tuple(logits.shape) == (batch, prompt_len, cfg.padded_vocab),
           f"jamba forward logits shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "jamba: non-finite forward logits")
-    check(counts["prefill_step"]["ssm_scan"] == 7 and counts["prefill_step"]["flash_attention"] == 1,
-          f"jamba forward launches {counts['prefill_step']}")
+    fwd = counts["prefill_step"]
+    check(fwd["ssm_scan"] == 7 and fwd["flash_attention"] == 1, f"jamba forward launches {fwd}")
+    # the dense MLPs and the LM head: wgmma in the forward, m ≤ 16 in decode
+    dense = 3 * sum(blk.mlp == "dense" for _, blk in cfg.blocks()) + 1
+    check(fwd["streamed_matmul.wgmma"] == fwd["streamed_matmul"] == dense,
+          f"jamba forward matmul variants {fwd}")
+    for key in ("generate_compiled_first", "generate_compiled", "generate_measure"):
+        c = counts[key]
+        check(c["streamed_matmul.decode"] == c["streamed_matmul"] > 0,
+              f"jamba {key}: matmul variants {c}")
     log(f"[jamba] make_prefill_step: ms={fwd_ms:.2f} (B {batch}, S {prompt_len})")
     del logits
 
@@ -492,6 +542,12 @@ def serve_jamba(machine) -> dict:
     return counts
 
 
+def counts_now() -> dict:
+    """Launches per kernel, and the matmul's per variant."""
+    return {**ops.launch_counts(),
+            **{f"streamed_matmul.{v}": c for v, c in ops.matmul_variant_counts().items()}}
+
+
 def main_path(name: str, drive) -> dict:
     """Drive one main path with every launch count set to 0 just before it;
     return the counts read just after."""
@@ -499,7 +555,7 @@ def main_path(name: str, drive) -> dict:
     with phase(name):
         drive()
     launches = ops.launch_counts()
-    log(f"[main path] {name}: launches {json.dumps(launches)}")
+    log(f"[main path] {name}: launches {json.dumps(counts_now())}")
     return launches
 
 
@@ -521,7 +577,7 @@ def main() -> int:
     log(f"[build] {lib} in {time.perf_counter() - t0:.1f}s")
     for src in pipeline.SOURCES:
         for line in (lib.parent / (src + ".log")).read_text().splitlines():
-            if "Used" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "Used", "spill", "arning")):
                 log(f"[ptxas] {src}: {line.strip()}")
 
     rows: dict[str, dict] = {}

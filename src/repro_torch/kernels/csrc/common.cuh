@@ -8,7 +8,8 @@
 //   loop          the product of the plan's "arbitrary" axes: the number of
 //                 hypersteps each block runs in order
 //   scratch_bytes the plan's ScratchSpec bytes: the block's persistent state,
-//                 placed at the start of dynamic shared memory
+//                 placed at the start of dynamic shared memory, or kept in
+//                 registers by kernels that say so (they check the size)
 //   stream        PyTorch's current cudaStream_t
 // and returns cudaGetLastError() (0 on success) after its launches.
 

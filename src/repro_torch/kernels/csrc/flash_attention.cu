@@ -5,24 +5,44 @@
 // softmax state (m, l, acc) is carried across the sequential KV axis in VMEM
 // scratch, skipping KV blocks above the causal diagonal.
 //
-// Bound on this card: at the prefill shapes of the slice (sequence 256,
-// head dim 64) operations — 4·D FLOPs per (query, key) pair against 2·D
-// bytes read per key and query once — and, this first version computing in
-// fp32 on the CUDA cores rather than the tensor cores, the fp32 FMA rate.
+// Both kernels below share the launch: one block of 4 warps per (q block of
+// 64, q head, batch) — the plan's three "parallel" axes are the CUDA grid —
+// and the KV stream is a loop inside the block over blocks of 64 keys, up to
+// the diagonal under causal masking (the pseudo-streaming skip). q-head h
+// reads kv-head h / (Hq / Hkv) (GQA), queries sit at the end of the keys
+// (q_offset = Skv - Sq), ragged Sq and Skv are masked (never padded), heads
+// may be strided as long as the head dim is contiguous, D is 64 or 128. The
+// online softmax is the TPU kernel's, in fp32: masked scores and the initial
+// max are -1e30, l is clamped at 1e-30 before the final division. The
+// plan's scratch (m, l, acc) is the state each warp keeps in registers; the
+// launch checks its size against the kernel's and places nothing for it.
 //
-// Design: one block per (b, h, q-block) — the plan's three "parallel" axes
-// are the CUDA grid — and the KV stream is a loop inside the block, up to
-// the diagonal under causal masking (the pseudo-streaming skip). Q for the
-// block and one K/V token at a time sit in shared memory, converted to fp32
-// on load, rows padded by one word so the score loop reads without bank
-// conflicts. Two threads own one query row: each computes half of the row's
-// 64 scores, the pair exchange row max and row sum by shuffles, and each
-// keeps half of the row's output accumulator in registers. The online
-// softmax is the TPU kernel's, in fp32: masked scores and the initial max are
-// -1e30, l is clamped at 1e-30 before the final division. q-head h reads
-// kv-head h / (Hq / Hkv) (GQA), queries sit at the end of the keys
-// (q_offset = Skv - Sq). The normalised output is staged in the plan's
-// scratch accumulator tile and written out coalesced. Head dims 64 and 128.
+// bf16 (the main path): FlashAttention-2 on the tensor cores. Bound on this
+// card at the slice's shapes (sequence 256): bytes — 4·D FLOPs per (query,
+// key) pair at the bf16 tensor-core rate take less time than reading Q, K, V
+// and writing O once. What the design does about it: Q, K and V stay bf16 in
+// shared memory (Q 8/16 KB, K and V double buffered, 40/80 KB a block at
+// D 64/128, so two or more blocks share an SM), filled by 16-byte cp.async
+// copies with the next KV block in flight while this one is computed. Each
+// warp owns 16 query rows: S = Q·Kᵀ by mma.sync m16n8k16 (bf16 in, fp32
+// accumulate) with Q's fragments loaded once and K read by ldmatrix; the
+// online softmax runs on the fp32 S fragments (each lane holds 2 rows × 2
+// columns per 8-key tile; row max and sum over the 4 lanes of a row by
+// shuffles), with sm_scale·log2(e) folded into exp2f; P is rounded to bf16
+// in registers and is the A operand of P·V, V read by ldmatrix.trans; the
+// output accumulator never leaves the registers until the end. Tiles are
+// stored with a 16-byte XOR swizzle (chunk ^ row % 8), so every ldmatrix
+// and every staged store is free of bank conflicts. The heaviest causal q
+// blocks are launched first (the q index is reversed), so the last wave is
+// not the long one. Numerics: rounding P to bf16 is the one rounding the
+// fp32 kernel does not make (about 2^-9 relative on a convex combination of
+// V rows); l sums the unrounded fp32 P.
+//
+// fp32: the first version, on the CUDA cores, kept for fp32 inputs (not on
+// the main path). TF32 tensor cores would round Q, K and P to 10 bits and
+// break the fp32 tolerance of 2e-4. Q and one K/V block sit in shared memory
+// as fp32 rows padded by one word; two threads own one query row, each
+// computing half of its scores and holding half of its output accumulator.
 
 #include "common.cuh"
 
@@ -30,37 +50,283 @@ namespace {
 
 constexpr int BQ = 64, BKV = 64, kThreads = 128;
 
-template <typename T, int D>
+using bf16 = __nv_bfloat16;
+
+// -- bf16: mma.sync on the tensor cores --------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-fills the destination when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a·b for one m16n8k16 tile: a 16×16 bf16 (row), b 16×8 bf16 (col), c fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// element offset of 16-byte chunk `chunk` of row `row` in a swizzled
+// [rows][D] bf16 tile
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * D + ((chunk ^ (row & 7)) << 3);
+}
+
+// cp.async of 64 rows [r0, r0 + 64) of a (rows, D) bf16 matrix with row
+// stride `rs` into a swizzled tile; rows at or past `limit` are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ src,
+                                          long long rs, int r0, int limit, int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int i = 0; i < 64 * CH / kThreads; ++i) {
+    const int idx = tid + i * kThreads;
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r0 + r < limit;
+    const bf16* p = ok ? src + (long long)(r0 + r) * rs + c * 8 : src;
+    cp_async16(dst + swz<D>(r, c) * 2, p, ok);
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int hq, int hkv, int sq, int skv, int q_offset, int causal,
-          float scale, int n_kv,
-          long long qsb, long long qsh, long long qss,
-          long long ksb, long long ksh, long long kss,
-          long long vsb, long long vsh, long long vss,
-          long long osb, long long osh, long long oss) {
+flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ o, int hq, int hkv, int sq,
+              int skv, int q_offset, int causal, float scale_log2, int n_kv,
+              long long qsb, long long qsh, long long qss,
+              long long ksb, long long ksh, long long kss,
+              long long vsb, long long vsh, long long vss,
+              long long osb, long long osh, long long oss) {
+  constexpr int TILE = BKV * D;         // elements of one K or V block
+  constexpr int KT = D / 16;            // k-steps of Q·Kᵀ
+  constexpr int DT = D / 8;             // 8-wide output column tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);           // [BQ][D], later the output
+  const uint32_t q_a = smem_u32(q_s);
+  const uint32_t k_a = q_a + BQ * D * 2;                // [2][BKV][D]
+  const uint32_t v_a = k_a + 2 * TILE * 2;              // [2][BKV][D]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int qi = gridDim.x - 1 - blockIdx.x;           // heaviest causal blocks first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const bf16* qh = q + b * qsb + h * qsh;
+  const bf16* kh = k + b * ksb + hk * ksh;
+  const bf16* vh = v + b * vsb + hk * vsh;
+
+  // the last KV block the causal skip keeps (whole blocks above the diagonal
+  // are never read)
+  int last = n_kv - 1;
+  if (causal) {
+    const int lim = qi * BQ + q_offset + BQ - 1;
+    last = lim < 0 ? -1 : min(last, lim / BKV);
+  }
+
+  load_tile<D>(q_a, qh, qss, qi * BQ, sq, tid);
+  if (last >= 0) {
+    load_tile<D>(k_a, kh, kss, 0, skv, tid);
+    load_tile<D>(v_a, vh, vss, 0, skv, tid);
+  }
+  cp_async_commit();
+
+  const int qpos = qi * BQ + warp * 16 + g + q_offset;  // this lane's first row; +8 the second
+  float m_r[2] = {bsps::kNegInf, bsps::kNegInf}, l_r[2] = {0.f, 0.f};
+  float acc[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  uint32_t qf[KT][4];
+
+  for (int j = 0; j <= last; ++j) {                     // the KV stream
+    const int buf = j & 1;
+    if (j < last) {                                     // the next token, in flight
+      load_tile<D>(k_a + (buf ^ 1) * TILE * 2, kh, kss, (j + 1) * BKV, skv, tid);
+      load_tile<D>(v_a + (buf ^ 1) * TILE * 2, vh, vss, (j + 1) * BKV, skv, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        const int row = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        ldsm_x4(q_a + swz<D>(row, kk * 2 + (lane >> 4)) * 2, qf[kk]);
+      }
+    }
+
+    // S = Q·Kᵀ: 16 rows × 64 keys per warp, 8 tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+    const uint32_t kb = k_a + buf * TILE * 2;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int key = p * 16 + (lane & 7) + ((lane >> 4) << 3);
+        uint32_t f[4];
+        ldsm_x4(kb + swz<D>(key, kk * 2 + ((lane >> 3) & 1)) * 2, f);
+        mma_bf16(s[2 * p], qf[kk], f[0], f[1]);
+        mma_bf16(s[2 * p + 1], qf[kk], f[2], f[3]);
+      }
+    }
+
+    // scale into the log2 domain; mask only in blocks that cross the edge
+    const int k0 = j * BKV;
+    const bool edge = k0 + BKV > skv || (causal && k0 + BKV - 1 > qi * BQ + q_offset);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[t][e] * scale_log2;
+        if (edge) {
+          const int kp = k0 + t * 8 + 2 * tig + (e & 1);
+          if (kp >= skv || (causal && kp > qpos + (e >> 1) * 8)) x = bsps::kNegInf;
+        }
+        s[t][e] = x;
+      }
+
+    // online softmax per row (r = 0: row g, r = 1: row g + 8); l stays a
+    // per-lane partial sum until the end
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_r[r];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) mx = fmaxf(mx, fmaxf(s[t][2 * r], s[t][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2f(m_r[r] - mx);           // rescale the old state
+      m_r[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        s[t][2 * r] = exp2f(s[t][2 * r] - mx);
+        s[t][2 * r + 1] = exp2f(s[t][2 * r + 1] - mx);
+        sum += s[t][2 * r] + s[t][2 * r + 1];
+      }
+      l_r[r] = l_r[r] * alpha + sum;
+#pragma unroll
+      for (int t = 0; t < DT; ++t) {
+        acc[t][2 * r] *= alpha;
+        acc[t][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P·V: P's fragments are S's, rounded to bf16 in registers
+    const uint32_t vb = v_a + buf * TILE * 2;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+      for (int p = 0; p < D / 16; ++p) {
+        uint32_t f[4];
+        ldsm_x4_trans(vb + swz<D>(key, p * 2 + (lane >> 4)) * 2, f);
+        mma_bf16(acc[2 * p], pa, f[0], f[1]);
+        mma_bf16(acc[2 * p + 1], pa, f[2], f[3]);
+      }
+    }
+    __syncthreads();                                    // this buffer may be refilled
+  }
+  cp_async_wait<0>();                                   // Q's copy, when no block ran
+  __syncthreads();
+
+  // normalise, stage the warp's 16 rows in its rows of the Q tile, store
+  // them coalesced (16 bytes a lane)
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+  const int row = warp * 16 + g;
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    *reinterpret_cast<uint32_t*>(q_s + swz<D>(row, t) + 2 * tig) =
+        pack_bf16(acc[t][0] * inv[0], acc[t][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(q_s + swz<D>(row + 8, t) + 2 * tig) =
+        pack_bf16(acc[t][2] * inv[1], acc[t][3] * inv[1]);
+  }
+  __syncwarp();
+  bf16* oh = o + b * osb + h * osh;
+#pragma unroll
+  for (int i = 0; i < 16 * DT / 32; ++i) {
+    const int idx = lane + 32 * i;
+    const int rr = warp * 16 + idx / DT, c = idx % DT, grow = qi * BQ + rr;
+    if (grow < sq)
+      *reinterpret_cast<uint4*>(oh + grow * oss + c * 8) =
+          *reinterpret_cast<const uint4*>(q_s + swz<D>(rr, c));
+  }
+}
+
+// -- fp32: the CUDA cores -----------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int hq, int hkv, int sq,
+              int skv, int q_offset, int causal, float scale, int n_kv,
+              long long qsb, long long qsh, long long qss,
+              long long ksb, long long ksh, long long kss,
+              long long vsb, long long vsh, long long vss,
+              long long osb, long long osh, long long oss) {
   constexpr int P = D + 1;       // padded row stride of the fp32 tiles
   constexpr int HALF = D / 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  // plan scratch: m (BQ), l (BQ), acc (BQ × D), fp32
-  float* m_s = reinterpret_cast<float*>(smem);
-  float* l_s = m_s + BQ;
-  float* acc_s = l_s + BQ;
-  // staged tokens: Q block, one K and one V block
-  float* q_s = acc_s + BQ * D;
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* q_s = reinterpret_cast<float*>(smem_f32);   // Q block, one K and one V block
   float* k_s = q_s + BQ * P;
   float* v_s = k_s + BKV * P;
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
-  const T* qh = q + b * qsb + h * qsh;
-  const T* kh = k + b * ksb + hk * ksh;
-  const T* vh = v + b * vsb + hk * vsh;
+  const float* qh = q + b * qsb + h * qsh;
+  const float* kh = k + b * ksb + hk * ksh;
+  const float* vh = v + b * vsb + hk * vsh;
 
   for (int idx = tid; idx < BQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, row = qi * BQ + r;
-    q_s[r * P + c] = row < sq ? bsps::to_float(qh[row * qss + c]) : 0.f;
+    q_s[r * P + c] = row < sq ? qh[row * qss + c] : 0.f;
   }
 
   const int r = tid >> 1, half = tid & 1;
@@ -70,8 +336,6 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
   for (int d = 0; d < HALF; ++d) acc[d] = 0.f;
 
-  // the last KV block the causal skip keeps (whole blocks above the diagonal
-  // are never read)
   int last = n_kv - 1;
   if (causal) {
     const int lim = qi * BQ + q_offset + BQ - 1;
@@ -82,8 +346,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int idx = tid; idx < BKV * D; idx += kThreads) {
       const int rr = idx / D, c = idx % D, key = j * BKV + rr;
       const bool ok = key < skv;
-      k_s[rr * P + c] = ok ? bsps::to_float(kh[key * kss + c]) : 0.f;
-      v_s[rr * P + c] = ok ? bsps::to_float(vh[key * vss + c]) : 0.f;
+      k_s[rr * P + c] = ok ? kh[key * kss + c] : 0.f;
+      v_s[rr * P + c] = ok ? vh[key * vss + c] : 0.f;
     }
     __syncthreads();
 
@@ -125,50 +389,49 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     }
   }
 
+  // the normalised output goes through the Q tile, written out coalesced
+  __syncthreads();
   const float inv = 1.f / fmaxf(l_run, 1e-30f);
 #pragma unroll
-  for (int d = 0; d < HALF; ++d) acc_s[r * D + half * HALF + d] = acc[d] * inv;
-  if (half == 0) {
-    m_s[r] = m_run;
-    l_s[r] = l_run;
-  }
+  for (int d = 0; d < HALF; ++d) q_s[r * P + half * HALF + d] = acc[d] * inv;
   __syncthreads();
-  T* oh = o + b * osb + h * osh;
+  float* oh = o + b * osb + h * osh;
   for (int idx = tid; idx < BQ * D; idx += kThreads) {
     const int rr = idx / D, c = idx % D, row = qi * BQ + rr;
-    if (row < sq) oh[row * oss + c] = bsps::from_float<T>(acc_s[idx]);
+    if (row < sq) oh[row * oss + c] = q_s[rr * P + c];
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStream_t stream,
                    const void* q, const void* k, const void* v, void* o, int hq, int hkv,
-                   int sq, int skv, int q_offset, int causal, float scale,
+                   int sq, int skv, int q_offset, int causal, float scale, int dtype,
                    const long long* st) {
-  constexpr int SCRATCH = (2 * BQ + BQ * D) * 4;
-  constexpr int SMEM = SCRATCH + (BQ + 2 * BKV) * (D + 1) * 4;
+  constexpr int SCRATCH = (2 * BQ + BQ * D) * 4;  // m, l, acc: in registers
   if (scratch_bytes != SCRATCH) return cudaErrorInvalidValue;  // plan and kernel disagree
-  auto kernel = flash_fwd<T, D>;
-  cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), hq, hkv, sq, skv, q_offset, causal, scale, n_kv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStream_t stream,
-                     const void* q, const void* k, const void* v, void* o, int hq, int hkv,
-                     int sq, int skv, int d, int q_offset, int causal, float scale,
-                     const long long* st) {
-  if (d == 64)
-    return launch<T, 64>(device, grid, n_kv, scratch_bytes, stream, q, k, v, o, hq, hkv, sq, skv,
-                         q_offset, causal, scale, st);
-  if (d == 128)
-    return launch<T, 128>(device, grid, n_kv, scratch_bytes, stream, q, k, v, o, hq, hkv, sq,
-                          skv, q_offset, causal, scale, st);
+  if (dtype == bsps::kBFloat16) {
+    constexpr int SMEM = (BQ + 4 * BKV) * D * 2;
+    auto kernel = flash_fwd_mma<D>;
+    cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, SMEM, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), hq, hkv, sq, skv, q_offset, causal,
+        scale * 1.4426950408889634f, n_kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+        st[7], st[8], st[9], st[10], st[11]);
+    return cudaGetLastError();
+  }
+  if (dtype == bsps::kFloat32) {
+    constexpr int SMEM = (BQ + 2 * BKV) * (D + 1) * 4;
+    auto kernel = flash_fwd_f32<D>;
+    cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, SMEM, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), hq, hkv, sq, skv, q_offset, causal, scale, n_kv, st[0], st[1],
+        st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+    return cudaGetLastError();
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -177,7 +440,8 @@ cudaError_t dispatch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStr
 // O = softmax(Q·Kᵀ·scale) V per (b, h), GQA, queries at the end of the keys.
 // grid (q blocks of 64, Hq, B), loop = KV blocks of 64. `strides` holds the
 // (batch, head, sequence) element strides of q, k, v and o in that order;
-// the head dimension is contiguous.
+// the head dimension is contiguous. bf16 needs 16-byte aligned rows (base
+// addresses and strides multiples of 8 elements); the wrapper checks.
 BSPS_EXPORT int bsps_flash(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                            void* stream, const void* q, const void* k, const void* v, void* o,
                            int hq, int hkv, int sq, int skv, int d, int q_offset, int causal,
@@ -187,11 +451,11 @@ BSPS_EXPORT int bsps_flash(int device, int gx, int gy, int gz, int loop, int scr
   if (gx < 1 || gy != hq || gz < 1 || loop < 1 || hkv < 1 || hq % hkv) return cudaErrorInvalidValue;
   const dim3 grid(gx, gy, gz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == bsps::kBFloat16)
-    return dispatch<__nv_bfloat16>(device, grid, loop, scratch_bytes, s, q, k, v, o, hq, hkv, sq,
-                                   skv, d, q_offset, causal, scale, strides);
-  if (dtype == bsps::kFloat32)
-    return dispatch<float>(device, grid, loop, scratch_bytes, s, q, k, v, o, hq, hkv, sq, skv, d,
-                           q_offset, causal, scale, strides);
+  if (d == 64)
+    return launch<64>(device, grid, loop, scratch_bytes, s, q, k, v, o, hq, hkv, sq, skv,
+                      q_offset, causal, scale, dtype, strides);
+  if (d == 128)
+    return launch<128>(device, grid, loop, scratch_bytes, s, q, k, v, o, hq, hkv, sq, skv,
+                       q_offset, causal, scale, dtype, strides);
   return cudaErrorInvalidValue;
 }

@@ -9,21 +9,47 @@
 // weight matrix to do 8 FLOPs per weight, so it is bounded by device memory;
 // at prefill (m = 1024) operations, on the bf16 tensor cores.
 //
-// Design: output tiles are the CUDA grid; the K stream is a loop inside the
-// block, as the plan's "arbitrary" axis says. Each hyperstep stages one
-// BM×BK tile of A and one BK×BN tile of B in shared memory — double
-// buffered: the next tiles are loaded into registers while the tensor cores
-// (nvcuda::wmma, bf16 in, fp32 accumulate) work on the current ones. The
-// accumulator lives in the warps' fragments; at the end it is stored to the
-// plan's scratch tile in shared memory and written out once, cast to the
-// output dtype, with ragged edges masked in the kernel (no padding copies).
-// Two tile shapes: 64×64×32 with a 2×2 warp grid, and 16×64×64 with a 1×4
-// warp grid for decode, where a 64-row tile would waste most of the block.
-// When the output tiles alone cannot fill the card (decode), the K stream is
-// split over a third grid axis: each split writes an fp32 partial tile and a
-// second launch sums the splits in a fixed order and casts — deterministic,
-// no atomics. Operands are bf16; other dtypes are refused.
+// In every variant the output tiles are the CUDA grid and the K stream is a
+// loop inside the block, as the plan's "arbitrary" axis says; ragged edges
+// are masked in the kernel (no padding copies). Operands are bf16; other
+// dtypes are refused. Three variants, by `block_m` (the wrapper's
+// variant_for picks it from shapes, strides and alignment):
+//
+// 128 — wgmma, for m > 16 when TMA can describe both operands (the forward
+// and the prefill). A 128×128 output tile per block, K streamed 64 at a
+// time through a 4-stage ring of shared-memory stages (32 KB each: A
+// 128×64 and B 64×128 as two 64×64 boxes), all with the 128-byte swizzle.
+// One producer thread issues TMA loads (cp.async.bulk.tensor.2d) into the
+// stages, which report to full/empty mbarriers; two consumer warpgroups of
+// 64 rows each run wgmma.mma_async m64n128k16 (bf16 in, fp32 accumulate) on
+// the stages that have arrived, keeping one group of products in flight
+// before they release a stage. setmaxnreg moves registers from the producer
+// warpgroup (40) to the consumers (232). The plan's 128×128 fp32
+// accumulator tile lives in the consumers' registers (64 a thread), never in
+// shared memory; the launch checks its size. TMA zero-fills boxes past the
+// ragged m, n and k edges; the epilogue casts and masks the ragged output
+// edge as it stores from the registers. A is K-major; B, the (k, n)
+// row-major weight, is the MN-major operand (the descriptor's transpose
+// bit). Blocks walk the tiles in groups of 8 m-tiles, so the blocks in
+// flight share B's column panels in the L2. No split-K, no persistent
+// scheduler. The tensor maps are encoded per call on the host (the
+// activations move) with cuTensorMapEncodeTiled, a driver-API function
+// taken through the runtime's cudaGetDriverEntryPoint: nothing links
+// against libcuda.
+//
+// 64 — wmma, for m > 16 when TMA cannot (a row stride or a base address not
+// 16-byte aligned): a 64×64×32 tile with a 2×2 warp grid, nvcuda::wmma
+// (bf16 in, fp32 accumulate), the next A/B tiles loaded into registers while
+// the tensor cores work on the current ones (double buffered in shared
+// memory); the accumulator goes out through the plan's scratch tile.
+//
+// 16 — decode: the same wmma loop on a 16×64×64 tile with a 1×4 warp grid,
+// where a 64-row tile would waste most of the block. When the output tiles
+// alone cannot fill the card, the K stream is split over a third grid axis:
+// each split writes an fp32 partial tile and a second launch sums the splits
+// in a fixed order and casts — deterministic, no atomics.
 
+#include <cuda.h>
 #include <mma.h>
 
 #include "common.cuh"
@@ -185,6 +211,272 @@ __global__ void splitk_reduce(const float* __restrict__ partials, int splits, in
   }
 }
 
+// -- the wgmma variant ------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4, GROUP_M = 8;
+constexpr int kThreads = 384;                 // consumer warpgroups 0-1, producer 2
+constexpr int A_BYTES = BM * BK * 2;          // 16 KB: 128 rows of 128 bytes
+constexpr int B_BOX = BK * 64 * 2;            // 8 KB: 64 k-rows of 64 columns
+constexpr int STAGE_BYTES = A_BYTES + 2 * B_BOX;
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;  // + alignment, barriers
+constexpr int SCRATCH = BM * BN * 4;          // the plan's accumulator: in registers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// returns once the phase of parity `parity` has completed. A phase that
+// never completes (a lost copy) traps after about 2^26 polls, seconds of
+// waiting, so the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0, polls = 0;
+  do {
+    if (++polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 inner, c1 outer) of `map` into shared memory at `dst`,
+// completing `bytes` of transaction on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (B128)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// d (64 fp32 a thread) += A (64×16, K-major) · B (16×128, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// orders the compiler's accesses of the accumulator against the async products
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y, bool pair, bool second) {
+  if (pair) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    p[0] = x;
+    if (second) p[1] = y;
+  }
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y, bool pair,
+                                       bool second) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  } else {
+    p[0] = __float2bfloat16(x);
+    if (second) p[1] = __float2bfloat16(y);
+  }
+}
+
+template <typename Out>
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+             Out* __restrict__ c, int m, int n, long long ldc, int k_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle wants 1 KB
+  const uint32_t full = ring + STAGES * STAGE_BYTES;            // full[s]: full + 8 s
+  const uint32_t empty = full + STAGES * 8;                     // empty[s]: empty + 8 s
+  const int tid = threadIdx.x, group = tid / 128;
+
+  // tile of this block: the grid's blocks walk the tiles in groups of
+  // GROUP_M m-tiles, m fastest, so the blocks in flight share B's panels
+  const int tiles_n = gridDim.x, tiles_m = gridDim.y;
+  const int lin = blockIdx.y * tiles_n + blockIdx.x, per_group = GROUP_M * tiles_n;
+  const int first_m = lin / per_group * GROUP_M;
+  const int gm = min(tiles_m - first_m, GROUP_M);
+  const int m0 = (first_m + lin % per_group % gm) * BM;
+  const int n0 = lin % per_group / gm * BN;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);                    // the producer's expect_tx
+      mbar_init(empty + 8 * s, 2);                   // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (group == 2) {                                  // producer: the TMA stream
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      for (int t = 0; t < k_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
+        const uint32_t st = ring + s * STAGE_BYTES, bar = full + 8 * s;
+        mbar_expect_tx(bar, STAGE_BYTES);
+        tma_load(st, &ta, bar, t * BK, m0);
+        tma_load(st + A_BYTES, &tb, bar, n0, t * BK);
+        tma_load(st + A_BYTES + B_BOX, &tb, bar, n0 + 64, t * BK);
+      }
+    }
+  } else {                                           // consumers: rows group·64 .. +64
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    fence_regs(d);
+    for (int t = 0; t < k_tiles; ++t) {
+      const int s = t % STAGES;
+      mbar_wait(full + 8 * s, (t / STAGES) & 1);
+      const uint32_t a = ring + s * STAGE_BYTES + group * (64 * 128);
+      const uint32_t b = ring + s * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A: 16 k = 32 bytes along the swizzled 128-byte rows, 8-row groups
+        // 1 KB apart. B: 16 k = 16 rows of 128 bytes; 8-row groups 1 KB
+        // apart (SBO), the two 64-column boxes 8 KB apart (LBO).
+        wgmma_m64n128k16(d, desc(a + kk * 32, 16, 1024), desc(b + kk * 2048, B_BOX, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                               // the previous tile's products are done
+      if (t > 0 && tid % 128 == 0) mbar_arrive(empty + 8 * ((t - 1) % STAGES));
+    }
+    wgmma_wait<0>();
+    fence_regs(d);
+
+    // epilogue: lane (g, q) of warp w holds rows w·16 + g and + 8, columns
+    // 8 j + 2 q and + 1 of every 8-column slice j
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int row = m0 + group * 64 + warp * 16 + lane / 4;
+    const bool even = (ldc & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      if (col >= n) continue;
+      const bool pair = even && col + 1 < n;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h;
+        if (r < m)
+          store2(c + (long long)r * ldc + col, d[4 * j + 2 * h], d[4 * j + 2 * h + 1], pair,
+                 col + 1 < n);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) bf16 matrix with row stride `ld` elements, read
+// in boxes of box_rows × box_cols (box_cols · 2 = 128 bytes), 128-byte swizzle
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int rows, int cols,
+            long long ld, int box_rows, int box_cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <typename Out>
+cudaError_t launch(int device, dim3 grid, int k_tiles, int scratch_bytes, cudaStream_t stream,
+                   const void* a, const void* b, void* c, int m, int n, int k, long long lda,
+                   long long ldb, long long ldc) {
+  if (scratch_bytes != SCRATCH || grid.z != 1) return cudaErrorInvalidValue;
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap ta, tb;
+  if (!encode(enc, &ta, a, m, k, lda, BM, BK) || !encode(enc, &tb, b, k, n, ldb, BK, 64))
+    return cudaErrorInvalidValue;
+  auto kernel = matmul_wgmma<Out>;
+  cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, SMEM, stream>>>(ta, tb, static_cast<Out*>(c), m, n, ldc, k_tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 template <int BM, int BN, int BK, int WM, int WN, typename Out>
 cudaError_t launch(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
                    const void* a, const void* b, void* c, float* partials, int m, int n,
@@ -209,6 +501,9 @@ template <typename Out>
 cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
                      const void* a, const void* b, void* c, float* partials, int m, int n,
                      int k, long long lda, long long ldb, long long ldc, int block_m) {
+  if (block_m == 128)
+    return wg::launch<Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k, lda,
+                           ldb, ldc);
   if (block_m == 16)
     return launch<16, 64, 64, 1, 4, Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
                                          partials, m, n, k, lda, ldb, ldc);
@@ -222,8 +517,9 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
 
 // C = A·B, A (m, k) and B (k, n) bf16 with row strides lda, ldb; C (m, n) of
 // `out_dtype` with row stride ldc. grid (n tiles, m tiles, splits), loop = K
-// tiles per split; `block_m` (16 or 64) picks the tile shape. With splits > 1,
-// `partials` holds splits·m·n floats.
+// tiles per split; `block_m` picks the variant: 128 wgmma (A and B 16-byte
+// aligned with row strides of 16-byte multiples, no split), 64 wmma, 16
+// decode. With splits > 1, `partials` holds splits·m·n floats.
 BSPS_EXPORT int bsps_matmul(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                             void* stream, const void* a, const void* b, void* c,
                             float* partials, int m, int n, int k, long long lda,

@@ -11,7 +11,9 @@ through the K/V token index maps (q-head h reads kv-head h // group).
 :func:`attention_plan` is the JAX package's plan, grid (batch, q_heads,
 q_blocks, kv_blocks) with kv sequential. On the card the three parallel axes
 are the CUDA grid and each block loops over its KV blocks; the kernel's
-blocks are 64 queries by 64 keys.
+blocks are 64 queries by 64 keys. bf16 runs on the tensor cores
+(``mma.sync``, K/V double-buffered by ``cp.async``), fp32 on the CUDA cores;
+``csrc/flash_attention.cu`` describes both.
 """
 
 from __future__ import annotations
@@ -108,6 +110,13 @@ def _plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int, causal: bool,
                           q_offset=q_offset, dtype=dtype)
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every row of ``t`` starts on a 16-byte boundary (the bf16 kernel's
+    ``cp.async`` copies)."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) * size % 16 == 0 for i in range(3))
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -121,7 +130,7 @@ def flash_attention(
     Hq must be a multiple of Hkv (GQA). When Sq < Skv the queries are placed
     at the *end* of the key sequence for causal masking. CUDA tensors go to
     the kernel (float32 or bfloat16, head dim 64 or 128, any strides with a
-    contiguous head dim); CPU tensors to
+    contiguous head dim; bf16 rows 16-byte aligned); CPU tensors to
     :func:`repro_torch.kernels.ref.attention_ref`. The result on the card is
     a (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, the layout the model
     reads it back in.
@@ -145,6 +154,9 @@ def flash_attention(
         raise ValueError(f"flash_attention supports head dims {_HEAD_DIMS}, not {d}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention needs a contiguous head dimension")
+    if q.dtype == torch.bfloat16 and not all(_rows_aligned(t) for t in (q, k, v)):
+        raise ValueError("bf16 flash_attention copies 16-byte rows: base addresses and "
+                         "batch, head and sequence strides must be multiples of 16 bytes")
     q_offset = skv - sq  # decode: queries are the last sq positions
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if b == 0 or sq == 0:

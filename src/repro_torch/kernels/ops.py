@@ -16,7 +16,7 @@ from repro_torch.kernels.streamed_dot import streamed_dot
 from repro_torch.kernels.streamed_matmul import streamed_matmul
 
 __all__ = ["matmul", "dot", "attention", "selective_scan", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+           "matmul_variant_counts", "reset_launch_counts", "KERNELS"]
 
 #: the wrappers whose ``launches`` count kernel launches
 KERNELS = {
@@ -48,6 +48,12 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def matmul_variant_counts() -> dict[str, int]:
+    """``streamed_matmul`` launches per kernel variant since the last reset."""
+    return dict(streamed_matmul.launches_by_variant)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    streamed_matmul.launches_by_variant = dict.fromkeys(streamed_matmul.launches_by_variant, 0)

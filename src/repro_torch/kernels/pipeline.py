@@ -12,9 +12,11 @@ its C entry point; the mapping (the counterpart of the JAX package's
   "parallel" grid axes           the CUDA grid, last such axis in x
   "arbitrary" grid axes          the loop count each block runs in order
                                  (a CUDA grid has no order to carry state)
-  ScratchSpec                    dynamic shared memory the block keeps its
-                                 state in, checked against the device's
-                                 per-block opt-in limit
+  ScratchSpec                    the block's persistent state: checked
+                                 against the device's per-block opt-in
+                                 limit; dynamic shared memory, or registers
+                                 where the kernel keeps it there (flash,
+                                 the matmul's wgmma variant)
   TokenSpec block_shape          the tile the kernel stages per hyperstep
   =============================  ==========================================
 

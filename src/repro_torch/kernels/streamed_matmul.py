@@ -14,6 +14,19 @@ When the output tiles alone cannot fill the card — decode, where m is the
 batch — the K stream is split over a third "parallel" axis (``split_k``):
 each split streams its share of K into an fp32 partial tile, and a closing
 launch sums the partials and casts.
+
+The kernel has three variants (``csrc/streamed_matmul.cu``), and
+:func:`variant_for` picks one from the shapes, strides and alignment alone:
+
+* ``"decode"`` — m ≤ 16: a 16×64×64 ``wmma`` tile with split K;
+* ``"wgmma"`` — m > 16 when TMA can describe both operands (base addresses
+  16-byte aligned, row strides multiples of 16 bytes): 128×128 output tiles,
+  K streamed 64 at a time by TMA through an ``mbarrier`` ring into
+  ``wgmma``, no split;
+* ``"wmma"`` — m > 16 otherwise: a 64×64×32 ``wmma`` tile.
+
+A build, encode or launch that fails raises; nothing falls back to another
+variant. ``streamed_matmul.launches_by_variant`` counts launches per variant.
 """
 
 from __future__ import annotations
@@ -26,12 +39,12 @@ import torch
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["streamed_matmul", "matmul_plan", "tile_for", "split_for"]
+__all__ = ["streamed_matmul", "matmul_plan", "variant_for", "split_for", "VARIANTS"]
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (block_m, block_n, block_k) of the kernel's two tile shapes
-_SMALL_M = (16, 64, 64)
-_LARGE_M = (64, 64, 32)
+#: (block_m, block_n, block_k) of each kernel variant; block_m names it to the C side
+VARIANTS = {"decode": (16, 64, 64), "wgmma": (128, 128, 64), "wmma": (64, 64, 32)}
+_TMA_ALIGN = 16   # bytes: TMA's base-address and row-stride granule
 
 
 def matmul_plan(
@@ -103,9 +116,20 @@ def matmul_plan(
     )
 
 
-def tile_for(m: int) -> tuple[int, int, int]:
-    """The kernel's tile for an m-row product: 16 rows for decode-sized m."""
-    return _SMALL_M if m <= _SMALL_M[0] else _LARGE_M
+def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int) -> str:
+    """The kernel variant for C = A·B with m rows, bf16 A at address
+    ``a_addr`` with row stride ``lda`` elements and B at ``b_addr`` with row
+    stride ``ldb``.
+
+    m ≤ 16 is decode; otherwise ``"wgmma"`` when TMA can describe both
+    operands — each base address 16-byte aligned and each row stride
+    (``lda·2``, ``ldb·2`` bytes) a multiple of 16 — and ``"wmma"`` when not.
+    """
+    if m <= VARIANTS["decode"][0]:
+        return "decode"
+    if all(x % _TMA_ALIGN == 0 for x in (a_addr, b_addr, 2 * lda, 2 * ldb)):
+        return "wgmma"
+    return "wmma"
 
 
 def split_for(tiles: int, k_tiles: int, sms: int) -> int:
@@ -128,9 +152,9 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """C = A @ B with BSPS block streaming. Shapes (m, k) x (k, n) -> (m, n).
 
-    CUDA tensors go to the kernel: bf16 operands whose rows are contiguous,
-    output bf16 or float32. CPU tensors go to
-    :func:`repro_torch.kernels.ref.matmul_ref`.
+    CUDA tensors go to the kernel, in the variant :func:`variant_for` names:
+    bf16 operands whose rows are contiguous, output bf16 or float32. CPU
+    tensors go to :func:`repro_torch.kernels.ref.matmul_ref`.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad matmul shapes {tuple(a.shape)} x {tuple(b.shape)}")
@@ -152,10 +176,11 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return c.zero_()
-    tile = tile_for(m)
+    variant = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0))
+    tile = VARIANTS[variant]
     bm, bn, bk = tile
-    split = split_for(math.ceil(m / bm) * math.ceil(n / bn), math.ceil(k / bk),
-                      pipeline.sm_count(a.device))
+    split = 1 if variant == "wgmma" else split_for(
+        math.ceil(m / bm) * math.ceil(n / bn), math.ceil(k / bk), pipeline.sm_count(a.device))
     launch = pipeline.lower(_plan(m, k, n, tile, out_dtype, split), "bsps_matmul", a.device)
     partials = (torch.empty((split, m, n), dtype=torch.float32, device=a.device)
                 if split > 1 else None)
@@ -163,7 +188,9 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
                     None if partials is None else partials.data_ptr(),
                     m, n, k, a.stride(0), b.stride(0), n, bm, _OUT_DTYPES[out_dtype])
     streamed_matmul.launches += 1
+    streamed_matmul.launches_by_variant[variant] += 1
     return c
 
 
 streamed_matmul.launches = 0
+streamed_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)

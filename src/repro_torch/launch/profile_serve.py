@@ -83,6 +83,12 @@ def main() -> None:
     step = make_prefill_step(cfg, device="cuda")
     step(params, {"tokens": prompt})                              # warm-up
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    print(f"[profile] forward without the profiler: "
+          f"{(time.perf_counter() - t0) / args.steps * 1e3:.2f} ms/call")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(params, {"tokens": prompt})

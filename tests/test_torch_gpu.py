@@ -34,18 +34,23 @@ def _rand(shape, dtype, device, seed=0):
 # bf16 products: fp32 accumulation on both sides, one bf16 rounding of the
 # output (relative 2^-8), so the kernel and the plain version differ by at
 # most about one output ulp
-@pytest.mark.parametrize("m,k,n", [
-    (4, 2304, 5760), (4, 5760, 2304),          # decode MLP (split K)
-    (1024, 2304, 5760),                        # prefill MLP
-    (300, 200, 130), (1, 37, 9), (17, 64, 65),  # ragged
+@pytest.mark.parametrize("m,k,n,variant", [
+    (4, 2304, 5760, "decode"), (4, 5760, 2304, "decode"),   # decode MLP (split K)
+    (1024, 2304, 5760, "wgmma"),                           # prefill MLP
+    (1000, 264, 1032, "wgmma"),                            # ragged m, n and k
+    (130, 200, 136, "wgmma"), (17, 8, 8, "wgmma"),         # one partial tile
+    (300, 200, 130, "wmma"), (17, 64, 65, "wmma"),         # B's rows not 16-byte apart
+    (1, 37, 9, "decode"),
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_matmul_kernel_matches_plain(cuda, m, k, n, out_dtype):
+def test_matmul_kernel_matches_plain(cuda, m, k, n, variant, out_dtype):
     a = _rand((m, k), torch.bfloat16, cuda, 1)
     b = _rand((k, n), torch.bfloat16, cuda, 2) * k ** -0.5
+    before = ops.matmul_variant_counts()[variant]
     got = streamed_matmul(a, b, out_dtype=out_dtype)
     want = ref.matmul_ref(a, b, out_dtype=out_dtype)
     torch.cuda.synchronize()
+    assert ops.matmul_variant_counts()[variant] == before + 1
     tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-3
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -56,6 +61,26 @@ def test_matmul_kernel_strided_rows(cuda):
     torch.testing.assert_close(streamed_matmul(a, b, out_dtype=torch.float32),
                                ref.matmul_ref(a, b, out_dtype=torch.float32),
                                rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_wgmma_reads_strided_rows(cuda, out_dtype):
+    """A column slice whose rows are 192 bytes apart (a multiple of 16) goes
+    through TMA like a contiguous matrix."""
+    a = _rand((256, 96), torch.bfloat16, cuda)[:, :64]
+    b = _rand((200, 136), torch.bfloat16, cuda, 3)[:64]
+    before = ops.matmul_variant_counts()["wgmma"]
+    got = streamed_matmul(a, b, out_dtype=out_dtype)
+    assert ops.matmul_variant_counts()["wgmma"] == before + 1
+    tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), ref.matmul_ref(a, b, out_dtype=out_dtype).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_wgmma_is_deterministic(cuda):
+    a = _rand((1000, 2304), torch.bfloat16, cuda, 16)
+    b = _rand((2304, 5768), torch.bfloat16, cuda, 17)
+    assert torch.equal(streamed_matmul(a, b), streamed_matmul(a, b))
 
 
 @pytest.mark.parametrize("n,c", [(1 << 22, 8192), (5000, 512), (100, 128), (8192, 8192)])
@@ -80,6 +105,12 @@ def test_dot_kernel_is_deterministic(cuda):
     (1, 4, 4, 32, 96, 64, True),               # queries at the end
     (2, 4, 2, 64, 128, 64, False),             # non-causal
     (1, 2, 2, 70, 70, 128, False),             # non-causal, ragged
+    (4, 32, 8, 256, 256, 128, True),           # jamba's forward (GQA 32/8)
+    (2, 8, 2, 96, 96, 128, True),              # GQA, ragged, head dim 128
+    (2, 4, 1, 1, 128, 64, True),               # decode q_offset, head dim 64
+    (1, 4, 4, 100, 300, 128, True),            # ragged queries at the end
+    (2, 4, 2, 64, 128, 128, False),            # non-causal, head dim 128
+    (1, 2, 2, 70, 70, 64, False),              # non-causal, ragged, head dim 64
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dtype):
@@ -90,6 +121,20 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dtype)
     want = ref.attention_ref(q, k, v, causal=causal)
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_is_deterministic(cuda, d):
+    q = _rand((2, 8, 200, d), torch.bfloat16, cuda, 18)
+    k = _rand((2, 2, 200, d), torch.bfloat16, cuda, 19)
+    v = _rand((2, 2, 200, d), torch.bfloat16, cuda, 20)
+    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+
+
+def test_flash_bf16_refuses_unaligned_rows(cuda):
+    x = _rand((1, 2, 64 * 64 + 1), torch.bfloat16, cuda)[..., 1:].reshape(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(x, x, x)
 
 
 def test_flash_kernel_reads_strided_heads(cuda):

@@ -23,13 +23,14 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.ssm_scan import ssm_plan as j_ssm_plan
 from repro.kernels.ssm_scan import ssm_scan as j_ssm
 from repro.kernels.streamed_dot import streamed_dot as j_dot
+from repro.kernels.streamed_matmul import matmul_plan as j_matmul_plan
 from repro.kernels.streamed_matmul import streamed_matmul as j_matmul
 from repro_torch.core import bsp as tbsp
 from repro_torch.kernels import ops, pipeline, ref
 from repro_torch.kernels.flash_attention import attention_plan
 from repro_torch.kernels.ssm_scan import ssm_plan
 from repro_torch.kernels.streamed_dot import dot_plan
-from repro_torch.kernels.streamed_matmul import matmul_plan, split_for, tile_for
+from repro_torch.kernels.streamed_matmul import VARIANTS, matmul_plan, split_for, variant_for
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-1}
 
@@ -120,8 +121,9 @@ def test_plain_versions_accumulate_in_fp32():
 def test_kernel_geometry_follows_the_plans():
     """The launch site maps parallel axes to the grid (last in x) and
     arbitrary axes to the per-block loop, for each kernel's plan."""
-    mm = matmul_plan(1024, 2304, 5760, block_m=64, block_n=64, block_k=32)
-    assert pipeline.geometry(mm) == ((90, 16, 1), 72)
+    mm = matmul_plan(1024, 2304, 5760, block_m=128, block_n=128, block_k=64)
+    assert pipeline.geometry(mm) == ((45, 8, 1), 36)
+    assert mm.scratch_bytes == 128 * 128 * 4   # the accumulator the wgmma kernel keeps
     split = matmul_plan(4, 2304, 5760, block_m=16, block_n=64, block_k=64, split_k=6)
     assert pipeline.geometry(split) == ((90, 1, 6), 6)
     attn = attention_plan(4, 36, 36, 256, 256, 64, block_q=64, block_kv=64)
@@ -132,12 +134,65 @@ def test_kernel_geometry_follows_the_plans():
 
 
 def test_decode_tiles_and_split():
-    assert tile_for(4) == (16, 64, 64) and tile_for(1024) == (64, 64, 32)
+    assert VARIANTS[variant_for(4, 0, 2304, 0, 5760)] == (16, 64, 64)
+    assert VARIANTS[variant_for(1024, 0, 2304, 0, 5760)] == (128, 128, 64)
+    assert VARIANTS[variant_for(1024, 0, 37, 0, 5760)] == (64, 64, 32)
     # decode up/down projections of minicpm-2b on 132 SMs: the split fills the
     # card about four blocks deep and divides the K tiles
     assert split_for(90, 36, 132) == 6
     assert split_for(36, 90, 132) == 15
     assert split_for(16 * 90, 72, 132) == 1
+
+
+def _bf16(shape):
+    return torch.empty(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("decode", "decode"),              # m ≤ 16, whatever the strides
+    ("forward", "wgmma"),              # minicpm's up projection
+    ("odd_ldb", "wmma"),               # n = 130: B's rows 260 bytes apart
+    ("odd_lda", "wmma"),               # k = 37: A's rows 74 bytes apart
+    ("sliced_rows", "wmma"),           # A a column slice, row stride 100 elements
+    ("wide_slice", "wgmma"),           # A a column slice, row stride 96 (192 bytes)
+    ("offset_base", "wmma"),           # A starts one element into its buffer
+])
+def test_variant_for(case, want):
+    """The variant rule reads only m, the base addresses and the row strides:
+    TMA needs 16-byte aligned bases and rows a multiple of 16 bytes apart."""
+    m, k, n = {"decode": (4, 2304, 5760), "odd_ldb": (300, 200, 130),
+               "odd_lda": (64, 37, 64)}.get(case, (1024, 2304, 5760))
+    a, b = _bf16((m, k)), _bf16((k, n))
+    if case == "sliced_rows":
+        a = _bf16((m, 100))[:, :64]
+    elif case == "wide_slice":
+        a = _bf16((m, 96))[:, :64]
+    elif case == "offset_base":
+        a = _bf16((m * k + 1,))[1:].view(m, k)
+    assert variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0)) == want
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 2304, 5760), (1024, 5760, 2304), (1024, 4096, 14336),
+                                   (1024, 14336, 4096), (1024, 4096, 65536), (1000, 2304, 5768)])
+def test_wgmma_tile_plan_is_the_jax_plan(m, k, n):
+    """At the wgmma variant's 128×128×64 blocks the port's plan is the JAX
+    package's: the same grid, fingerprint and Eq. 1 price on every pack."""
+    tp = matmul_plan(m, k, n, block_m=128, block_n=128, block_k=64, dtype=torch.bfloat16)
+    jp = j_matmul_plan(m, k, n, block_m=128, block_n=128, block_k=64, dtype=jnp.bfloat16)
+    assert tp.grid == jp.grid and tp.dimension_semantics == jp.dimension_semantics
+    assert tp.fingerprint() == jp.fingerprint()
+    assert tp.vmem_bytes == jp.vmem_bytes and tp.total_flops == jp.total_flops
+    for jacc in (jbsp.EPIPHANY_III, jbsp.TPU_V5E_CHIP, jbsp.TPU_V5E_POD):
+        assert tp.cost(_pack(jacc)) == jp.cost(jacc)
+        assert tp.cost(_pack(jacc), exact=False) == jp.cost(jacc, exact=False)
+
+
+def test_reset_clears_the_variant_counts():
+    from repro_torch.kernels.streamed_matmul import streamed_matmul
+
+    streamed_matmul.launches_by_variant["wgmma"] += 3
+    ops.reset_launch_counts()
+    assert ops.matmul_variant_counts() == {"decode": 0, "wgmma": 0, "wmma": 0}
 
 
 def test_cpu_tensors_never_reach_the_library(rng, monkeypatch):
@@ -146,7 +201,7 @@ def test_cpu_tensors_never_reach_the_library(rng, monkeypatch):
 
     monkeypatch.setattr(pipeline, "library", boom)
     monkeypatch.setattr(pipeline, "launch", boom)
-    before = ops.launch_counts()
+    before, variants = ops.launch_counts(), ops.matmul_variant_counts()
     x = torch.as_tensor(rng.standard_normal((8, 64)), dtype=torch.float32)
     ops.matmul(x, x.T.contiguous())
     ops.dot(x[0], x[1])
@@ -155,6 +210,7 @@ def test_cpu_tensors_never_reach_the_library(rng, monkeypatch):
     bc = torch.as_tensor(rng.standard_normal((1, 8, 16)), dtype=torch.float32)
     ops.selective_scan(s, s.abs() * 0.1, bc, bc, -torch.ones(64, 16), torch.ones(64))
     assert ops.launch_counts() == before     # the plain versions launch nothing
+    assert ops.matmul_variant_counts() == variants
 
 
 def test_wrappers_refuse_other_devices():
