@@ -49,6 +49,7 @@ from repro_torch.core.hyperstep import HyperstepRunner  # noqa: E402
 from repro_torch.core.plan import host_plan  # noqa: E402
 from repro_torch.core.stream import StreamSet  # noqa: E402
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
+from repro_torch.kernels.ssm_scan import LANE_CHOICES, lanes_for, ssm_scan  # noqa: E402
 from repro_torch.launch.serve import generate, make_prefill, prefill_block_size  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.train.steps import make_prefill_step  # noqa: E402
@@ -155,6 +156,8 @@ def check_matmul(rows: dict) -> None:
     # apart (2^-7 relative), so the tolerance is two ulps of the largest output
     shapes = [(4, 2304, 5760), (4, 5760, 2304), (1024, 2304, 5760), (1024, 5760, 2304),
               (300, 200, 130),
+              # the decode variant at one and at sixteen rows
+              (1, 2304, 5760), (16, 2304, 5760), (1, 4096, 14336), (16, 4096, 14336),
               # jamba's dense MLPs and its untied LM head: decode and forward
               (4, 4096, 14336), (4, 14336, 4096), (1024, 4096, 14336), (1024, 14336, 4096),
               (4, 4096, 65536), (1024, 4096, 65536),
@@ -272,6 +275,7 @@ def check_ssm(rows: dict) -> None:
              (1, 4000, 8192, 16, torch.bfloat16, 2),     # long, ragged last chunk
              (4, 256, 8192, 16, torch.float32, 3),
              (2, 300, 1000, 8, torch.float32, 3)]        # ragged d_inner, d_state 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for idx, (b, seq, di, ds, dtype, plain_iters) in enumerate(cases):
         item = torch.tensor([], dtype=dtype).element_size()
         nbytes = (3 * b * seq * di + 2 * b * seq * ds) * item + (di * ds + di) * 4
@@ -286,9 +290,28 @@ def check_ssm(rows: dict) -> None:
         ms, enqueue = bench_ms(lambda *a: ops.selective_scan(*a), sets, 50)
         plain, _ = bench_ms(ref.ssm_scan_ref, sets, plain_iters)
         b_ms, b_by = bound(nbytes, 10.0 * b * seq * di * ds, "fp32")
-        log(f"[kernel] ssm_scan b{b} L{seq} di{di} ds{ds} {str(dtype)[6:]}: max_abs_err={err:.3g} "
+        # the exponentials alone, at the special-function unit's 16 a clock per SM
+        exp_floor = b * seq * di * ds / (16 * sms * SPIN_CYCLES_PER_S) * 1e3
+        log(f"[kernel] ssm_scan b{b} L{seq} di{di} ds{ds} {str(dtype)[6:]} "
+            f"lanes={lanes_for(b, di, ds, sms)}: max_abs_err={err:.3g} "
             f"(tol {tol:.3g}) ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} "
-            f"library=none bound_ms={b_ms:.4f} ({b_by})")
+            f"library=none bound_ms={b_ms:.4f} ({b_by}) exp_floor_ms={exp_floor:.4f}")
+        if idx < 2:
+            # the lanes-per-channel trade-off at the forward shape and at B 1:
+            # each halving of the states per lane doubles the warps and adds
+            # a shuffle round per position
+            rule = lanes_for(b, di, ds, sms)
+            for lanes in LANE_CHOICES:
+                if lanes == rule:
+                    continue
+                other = ssm_scan(*sets[0], lanes=lanes)
+                torch.cuda.synchronize()
+                lerr = (other.float() - want.float()).abs().max().item()
+                # every grouping sums in one order: the same bits
+                check(torch.equal(other, got), f"ssm_scan lanes={lanes} differs from {rule}")
+                lms, _ = bench_ms(lambda *a, n=lanes: ssm_scan(*a, lanes=n), sets, 50)
+                log(f"[kernel] ssm_scan b{b} L{seq} di{di} ds{ds} lanes={lanes} (rule's "
+                    f"{rule}): max_abs_err={lerr:.3g} ms={lms:.4f}")
         if idx == 0:
             rows["ssm_scan"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=None)
@@ -448,6 +471,9 @@ def serve_slice(machine) -> dict:
     log(f"[slice] matmul variants: forward {mlp} wgmma; generate's prefill "
         f"{chunks} chunk(s) of m = {batch * block}: {mlp * chunks} wgmma; decode "
         f"{counts['generate_compiled']['streamed_matmul.decode']} m <= 16")
+    # the decode variant is one device launch per product (no split-K sum)
+    log(f"[slice] matmul device launches per decode step: "
+        f"{counts['generate_compiled']['streamed_matmul.decode'] / steps:g}")
     return counts
 
 
@@ -518,6 +544,10 @@ def serve_jamba(machine) -> dict:
         check(c["streamed_matmul.decode"] == c["streamed_matmul"] > 0,
               f"jamba {key}: matmul variants {c}")
     log(f"[jamba] make_prefill_step: ms={fwd_ms:.2f} (B {batch}, S {prompt_len})")
+    # token-at-a-time prefill and decode: prompt_len + steps decode steps, the
+    # decode variant one device launch per product
+    log(f"[jamba] matmul device launches per decode step: "
+        f"{counts['generate_compiled']['streamed_matmul.decode'] / (prompt_len + steps):g}")
     del logits
 
     # The forward against the token-at-a-time prefill on the same weights. At

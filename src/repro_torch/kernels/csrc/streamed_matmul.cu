@@ -9,45 +9,64 @@
 // weight matrix to do 8 FLOPs per weight, so it is bounded by device memory;
 // at prefill (m = 1024) operations, on the bf16 tensor cores.
 //
-// In every variant the output tiles are the CUDA grid and the K stream is a
-// loop inside the block, as the plan's "arbitrary" axis says; ragged edges
-// are masked in the kernel (no padding copies). Operands are bf16; other
-// dtypes are refused. Three variants, by `block_m` (the wrapper's
-// variant_for picks it from shapes, strides and alignment):
+// The K stream is a loop inside the block, as the plan's "arbitrary" axis
+// says; ragged edges are masked in the kernel (no padding copies). Operands
+// are bf16; other dtypes are refused. Four variants (the wrapper's
+// variant_for picks one from shapes, strides and alignment; `variant` names
+// it here):
 //
-// 128 — wgmma, for m > 16 when TMA can describe both operands (the forward
-// and the prefill). A 128×128 output tile per block, K streamed 64 at a
-// time through a 4-stage ring of shared-memory stages (32 KB each: A
-// 128×64 and B 64×128 as two 64×64 boxes), all with the 128-byte swizzle.
-// One producer thread issues TMA loads (cp.async.bulk.tensor.2d) into the
-// stages, which report to full/empty mbarriers; two consumer warpgroups of
-// 64 rows each run wgmma.mma_async m64n128k16 (bf16 in, fp32 accumulate) on
-// the stages that have arrived, keeping one group of products in flight
-// before they release a stage. setmaxnreg moves registers from the producer
-// warpgroup (40) to the consumers (232). The plan's 128×128 fp32
-// accumulator tile lives in the consumers' registers (64 a thread), never in
-// shared memory; the launch checks its size. TMA zero-fills boxes past the
-// ragged m, n and k edges; the epilogue casts and masks the ragged output
-// edge as it stores from the registers. A is K-major; B, the (k, n)
-// row-major weight, is the MN-major operand (the descriptor's transpose
-// bit). Blocks walk the tiles in groups of 8 m-tiles, so the blocks in
-// flight share B's column panels in the L2. No split-K, no persistent
-// scheduler. The tensor maps are encoded per call on the host (the
-// activations move) with cuTensorMapEncodeTiled, a driver-API function
-// taken through the runtime's cudaGetDriverEntryPoint: nothing links
-// against libcuda.
+// decode — m ≤ 16 when TMA can describe B (base 16-byte aligned, rows a
+// multiple of 16 bytes apart) and A's K share fits the block: a GEMV-like
+// product bounded by the weight bytes, so the design keeps the memory busy.
+// Each block takes a 128-column tile of B and one K share. A producer warp
+// streams the share in stages of 64 k-rows × 128 columns (two 64-column TMA
+// boxes side by side, 16 KB; rows of 256 contiguous bytes) into a 4-stage
+// 128-byte-swizzled ring with full/empty mbarriers: 64 KB in flight per
+// block, two or three blocks per SM, no register staging and no block-wide
+// barrier per K step. The tensor cores compute Cᵀ = Bᵀ·Aᵀ with mma.sync m16n8k16:
+// the weight columns are the 16-row operand (ldmatrix.trans from the
+// swizzled stage), the ≤ 16 activation rows the 8-wide side (one or two n8
+// tiles), read as 32-bit pairs from the block's K share of A, which four
+// consumer warps load once into shared memory while the first boxes fly.
+// K is split over a thread-block cluster (up to 8, along x): each block
+// leaves its fp32 partial tile in its own shared memory, and after a cluster
+// barrier every block sums its share of the tile's elements over ranks
+// 0, 1, .., splits-1 in that order through distributed shared memory and
+// stores it: one launch, no partial tensor, no atomics, deterministic.
 //
-// 64 — wmma, for m > 16 when TMA cannot (a row stride or a base address not
-// 16-byte aligned): a 64×64×32 tile with a 2×2 warp grid, nvcuda::wmma
-// (bf16 in, fp32 accumulate), the next A/B tiles loaded into registers while
-// the tensor cores work on the current ones (double buffered in shared
-// memory); the accumulator goes out through the plan's scratch tile.
+// wgmma — m > 16 when TMA can describe both operands (the forward and the
+// prefill). A 128×128 output tile per block, K streamed 64 at a time through
+// a 4-stage ring of shared-memory stages (32 KB each: A 128×64 and B 64×128
+// as two 64×64 boxes), all with the 128-byte swizzle. One producer thread
+// issues TMA loads (cp.async.bulk.tensor.2d) into the stages, which report
+// to full/empty mbarriers; two consumer warpgroups of 64 rows each run
+// wgmma.mma_async m64n128k16 (bf16 in, fp32 accumulate) on the stages that
+// have arrived, keeping one group of products in flight before they release
+// a stage. setmaxnreg moves registers from the producer warpgroup (40) to
+// the consumers (232). The plan's 128×128 fp32 accumulator tile lives in the
+// consumers' registers (64 a thread), never in shared memory; the launch
+// checks its size. TMA zero-fills boxes past the ragged m, n and k edges;
+// the epilogue casts and masks the ragged output edge as it stores from the
+// registers. A is K-major; B, the (k, n) row-major weight, is the MN-major
+// operand (the descriptor's transpose bit). Blocks walk the tiles in groups
+// of 8 m-tiles, so the blocks in flight share B's column panels in the L2.
+// No split-K, no persistent scheduler. The tensor maps are encoded per call
+// on the host (the activations move) with cuTensorMapEncodeTiled, looked
+// up through the runtime's entry-point query: nothing links against
+// libcuda.
 //
-// 16 — decode: the same wmma loop on a 16×64×64 tile with a 1×4 warp grid,
-// where a 64-row tile would waste most of the block. When the output tiles
-// alone cannot fill the card, the K stream is split over a third grid axis:
-// each split writes an fp32 partial tile and a second launch sums the splits
-// in a fixed order and casts — deterministic, no atomics.
+// wmma — m > 16 when TMA cannot (a row stride or a base address not 16-byte
+// aligned): a 64×64×32 tile with a 2×2 warp grid, nvcuda::wmma (bf16 in,
+// fp32 accumulate), the next A/B tiles loaded into registers while the
+// tensor cores work on the current ones (double buffered in shared memory);
+// the accumulator goes out through the plan's scratch tile.
+//
+// decode_wmma — m ≤ 16 when the decode variant cannot take the operands:
+// the same wmma loop on a 16×64×64 tile with a 1×4 warp grid. When the
+// output tiles alone cannot fill the card, the K stream is split over a
+// third grid axis: each split writes an fp32 partial tile and a second
+// launch sums the splits in a fixed order and casts — deterministic, no
+// atomics. wmma uses the same split rule.
 
 #include <cuda.h>
 #include <mma.h>
@@ -497,33 +516,283 @@ cudaError_t launch(int device, dim3 grid, int k_steps, int scratch_bytes, cudaSt
   return cudaGetLastError();
 }
 
+// -- the decode variant (m ≤ 16) ----------------------------------------------------------
+
+namespace gv {
+
+constexpr int NB = 2;                         // 64-column TMA boxes side by side per stage
+constexpr int BN = 64 * NB, BK = 128 / NB, STAGES = 4;
+constexpr int kConsumers = 4;                 // warps 0-3 run the products, warp 4 the TMA stream
+constexpr int kThreads = 32 * (kConsumers + 1);
+constexpr int BOX_BYTES = BK * 128;           // BK k-rows of 64 columns (128 B)
+constexpr int STAGE_BYTES = NB * BOX_BYTES;   // 16 KB
+constexpr int RING = STAGES * STAGE_BYTES;    // 64 KB of weights in flight per block
+constexpr int CG = NB;                        // 16-column groups per consumer warp
+constexpr int MAX_SPLIT = 8;                  // the portable cluster size
+constexpr int A_PAD = 8;                      // bf16 past each A row: rows 4 banks apart
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster; orders shared-memory accesses across it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the float at shared address `addr` of the cluster's block `rank`
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+// four 8×8 bf16 matrices, transposed on the way: lanes 8i .. 8i+7 give the
+// row addresses of matrix i, which lands in r[i]
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// d (16×8 fp32) += a (16×16 bf16, row-major) · b (16×8 bf16, column-major)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Cᵀ = Bᵀ·Aᵀ: the weight columns fill the 16 rows of m16n8k16, the ≤ 8·NT
+// activation rows its N side. Block (rank, j) of a cluster of `splits`
+// along x streams K tiles [rank·per, rank·per + per) of column tile j.
+template <int NT, typename Out>
+__global__ void __launch_bounds__(kThreads)
+matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ a,
+              Out* __restrict__ c, int m, int n, int k, long long lda, long long ldc,
+              int k_tiles, int per) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = wg::smem_u32(smem_raw);
+  const uint32_t ring = (base + 1023) & ~1023u;              // the swizzle wants 1 KB
+  unsigned char* ring_p = smem_raw + (ring - base);
+  const int lds = per * BK + A_PAD;                          // A share row stride (elements)
+  raw16* as = reinterpret_cast<raw16*>(ring_p + RING);       // (m, lds)
+  const uint32_t full = ring + RING + ((m * lds * 2 + 15) & ~15);
+  const uint32_t empty = full + STAGES * 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t rank = cluster_rank(), splits = cluster_size();
+  const int n0 = blockIdx.y * BN;
+  const int kt0 = (int)rank * per;
+  const int tiles = min(per, k_tiles - kt0);
+  const int k0 = kt0 * BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(full + 8 * s, 1);                        // the producer's expect_tx
+      wg::mbar_init(empty + 8 * s, kConsumers);              // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float d[CG][NT][4];
+#pragma unroll
+  for (int j = 0; j < CG; ++j)
+#pragma unroll
+    for (int t = 0; t < NT; ++t) d[j][t][0] = d[j][t][1] = d[j][t][2] = d[j][t][3] = 0.f;
+  if (warp == kConsumers) {                                  // producer: the weight stream
+    if (lane == 0) {
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) wg::mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
+        wg::mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+#pragma unroll
+        for (int bx = 0; bx < NB; ++bx)
+          wg::tma_load(ring + s * STAGE_BYTES + bx * BOX_BYTES, &tb, full + 8 * s,
+                       n0 + 64 * bx, k0 + t * BK);
+      }
+    }
+  } else {
+    // the block's K share of A, once, while the first stages are in flight;
+    // zero past k (rows at or past m are never stored: their lanes use 0)
+    const int row_chunks = per * BK / 8;
+    for (int ch = tid; ch < m * row_chunks; ch += 32 * kConsumers) {
+      const int r = ch / row_chunks, col = (ch % row_chunks) * 8;
+      *reinterpret_cast<uint4*>(as + r * lds + col) = load8(a, lda, m, k, r, k0 + col);
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
+
+    // warp w takes the 16-column groups w·CG .. w·CG + CG-1 of every stage;
+    // group gc lies in box gc / 4 at chunks 2·(gc % 4) and + 1. ldmatrix
+    // lane l addresses k-row (l & 7) + 8·(l / 16) of chunk 2·(gc % 4) +
+    // (l / 8) % 2: the four transposed 8×8 matrices are a0..a3 of the
+    // weight fragment. A box is 128-byte swizzled: chunk c of row r sits at
+    // c ^ (r % 8), and r % 8 = l % 8.
+    const int g = lane / 4, q = lane % 4;
+    const int lrow = (lane & 7) + ((lane >> 4) << 3);
+    uint32_t loff[CG];
+#pragma unroll
+    for (int j = 0; j < CG; ++j) {
+      const int gc = warp * CG + j;
+      const uint32_t chunk = (2 * (gc % 4) + ((lane >> 3) & 1)) ^ (lane & 7);
+      loff[j] = (gc / 4) * BOX_BYTES + lrow * 128 + (chunk << 4);
+    }
+    const raw16* arow[NT];
+    bool live[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      live[t] = 8 * t + g < m;
+      arow[t] = as + (live[t] ? 8 * t + g : 0) * lds + 2 * q;
+    }
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % STAGES;
+      wg::mbar_wait(full + 8 * s, (t / STAGES) & 1);
+      const uint32_t st = ring + s * STAGE_BYTES;
+#pragma unroll
+      for (int kq = 0; kq < BK / 16; ++kq) {
+        const int kk = t * BK + 16 * kq;
+        uint32_t b[NT][2];
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          // A[8u + g][kk + 2q, +1] and [kk + 8 + 2q, +1]
+          b[u][0] = live[u] ? *reinterpret_cast<const uint32_t*>(arow[u] + kk) : 0u;
+          b[u][1] = live[u] ? *reinterpret_cast<const uint32_t*>(arow[u] + kk + 8) : 0u;
+        }
+#pragma unroll
+        for (int j = 0; j < CG; ++j) {
+          uint32_t w[4];
+          ldsm_x4_t(w, st + loff[j] + kq * 16 * 128);
+#pragma unroll
+          for (int u = 0; u < NT; ++u) mma16816(d[j][u], w, b[u][0], b[u][1]);
+        }
+      }
+      __syncwarp();                                          // the stage's products are issued
+      if (lane == 0) wg::mbar_arrive(empty + 8 * s);
+    }
+  }
+  __syncthreads();                                           // the ring is free
+
+  // each block's fp32 partial (8·NT rows × BN columns) over the ring's
+  // start; lane (g, q) of warp w holds columns 16(w·CG + j) + g (+8), rows
+  // 8u + 2q (+1)
+  float* red = reinterpret_cast<float*>(ring_p);
+  if (warp < kConsumers) {
+    const int g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int j = 0; j < CG; ++j) {
+      const int col = 16 * (warp * CG + j) + g;
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        const int r = 8 * u + 2 * q;
+        red[r * BN + col] = d[j][u][0];
+        red[(r + 1) * BN + col] = d[j][u][1];
+        red[r * BN + col + 8] = d[j][u][2];
+        red[(r + 1) * BN + col + 8] = d[j][u][3];
+      }
+    }
+  }
+  cluster_sync();
+  // the cluster's sum, through distributed shared memory: block `rank` sums
+  // its share of the tile's elements over ranks 0, 1, .., splits-1 in that
+  // order (deterministic, no atomics) and stores it, columns coalesced
+  for (int e = rank * kThreads + tid; e < m * BN; e += splits * kThreads) {
+    const int col = e % BN;
+    float acc = 0.f;
+    for (uint32_t j = 0; j < splits; ++j) acc += ld_cluster(ring + 4 * e, j);
+    if (n0 + col < n) c[(long long)(e / BN) * ldc + n0 + col] = bsps::from_float<Out>(acc);
+  }
+  cluster_sync();                                            // no block leaves while read
+}
+
+template <int NT, typename Out>
+cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream_t stream,
+                   const void* a, const void* b, void* c, int m, int n, int k, long long lda,
+                   long long ldb, long long ldc) {
+  const int k_tiles = (k + BK - 1) / BK;
+  const int splits = (int)grid.x;
+  if (grid.z != 1 || splits > MAX_SPLIT || (int)grid.y != (n + BN - 1) / BN || m > 8 * NT ||
+      (splits - 1) * per >= k_tiles || splits * per < k_tiles)
+    return cudaErrorInvalidValue;
+  const int a_bytes = m * (per * BK + A_PAD) * 2;
+  if (scratch_bytes != RING + a_bytes) return cudaErrorInvalidValue;  // plan and kernel disagree
+  const int smem = 1024 + RING + ((a_bytes + 15) & ~15) + 2 * STAGES * 8;
+  wg::EncodeTiled enc = wg::encoder();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap tb;
+  if (!wg::encode(enc, &tb, b, k, n, ldb, BK, 64)) return cudaErrorInvalidValue;
+  auto kernel = matmul_decode<NT, Out>;
+  cudaError_t err = bsps::prepare_smem(kernel, device, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tb, static_cast<const raw16*>(a), static_cast<Out*>(c),
+                           m, n, k, lda, ldc, k_tiles, per);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace gv
+
+// the variant codes of the wrapper's VARIANTS, in its order
+enum Variant { kDecode = 0, kWgmma = 1, kWmma = 2, kDecodeWmma = 3 };
+
 template <typename Out>
 cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
                      const void* a, const void* b, void* c, float* partials, int m, int n,
-                     int k, long long lda, long long ldb, long long ldc, int block_m) {
-  if (block_m == 128)
-    return wg::launch<Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k, lda,
-                           ldb, ldc);
-  if (block_m == 16)
-    return launch<16, 64, 64, 1, 4, Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
-                                         partials, m, n, k, lda, ldb, ldc);
-  if (block_m == 64)
-    return launch<64, 64, 32, 2, 2, Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
-                                         partials, m, n, k, lda, ldb, ldc);
-  return cudaErrorInvalidValue;
+                     int k, long long lda, long long ldb, long long ldc, int variant) {
+  switch (variant) {
+    case kDecode:
+      if (m <= 8)
+        return gv::launch<1, Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n,
+                                  k, lda, ldb, ldc);
+      return gv::launch<2, Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
+                                lda, ldb, ldc);
+    case kWgmma:
+      return wg::launch<Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
+                             lda, ldb, ldc);
+    case kWmma:
+      return launch<64, 64, 32, 2, 2, Out>(device, grid, k_steps, scratch_bytes, stream, a, b,
+                                           c, partials, m, n, k, lda, ldb, ldc);
+    case kDecodeWmma:
+      return launch<16, 64, 64, 1, 4, Out>(device, grid, k_steps, scratch_bytes, stream, a, b,
+                                           c, partials, m, n, k, lda, ldb, ldc);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // C = A·B, A (m, k) and B (k, n) bf16 with row strides lda, ldb; C (m, n) of
-// `out_dtype` with row stride ldc. grid (n tiles, m tiles, splits), loop = K
-// tiles per split; `block_m` picks the variant: 128 wgmma (A and B 16-byte
-// aligned with row strides of 16-byte multiples, no split), 64 wmma, 16
-// decode. With splits > 1, `partials` holds splits·m·n floats.
+// `out_dtype` with row stride ldc. `variant` (enum Variant) picks the kernel:
+// decode — grid (splits, n tiles), one cluster of `splits` per column tile,
+// loop = K tiles per split, B TMA-describable; wgmma — grid (n tiles, m
+// tiles), loop = K tiles, A and B TMA-describable; wmma and decode_wmma —
+// grid (n tiles, m tiles, splits), loop = K tiles per split, and with
+// splits > 1 `partials` holds splits·m·n floats.
 BSPS_EXPORT int bsps_matmul(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                             void* stream, const void* a, const void* b, void* c,
                             float* partials, int m, int n, int k, long long lda,
-                            long long ldb, long long ldc, int block_m, int out_dtype) {
+                            long long ldb, long long ldc, int variant, int out_dtype) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (gx < 1 || gy < 1 || gz < 1 || loop < 1 || (gz > 1 && partials == nullptr))
@@ -532,9 +801,9 @@ BSPS_EXPORT int bsps_matmul(int device, int gx, int gy, int gz, int loop, int sc
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == bsps::kBFloat16)
     return dispatch<__nv_bfloat16>(device, grid, loop, scratch_bytes, s, a, b, c, partials, m,
-                                   n, k, lda, ldb, ldc, block_m);
+                                   n, k, lda, ldb, ldc, variant);
   if (out_dtype == bsps::kFloat32)
     return dispatch<float>(device, grid, loop, scratch_bytes, s, a, b, c, partials, m, n, k,
-                           lda, ldb, ldc, block_m);
+                           lda, ldb, ldc, variant);
   return cudaErrorInvalidValue;
 }

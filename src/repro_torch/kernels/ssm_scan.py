@@ -12,6 +12,12 @@ over the memory link, never the O(L·d·n) expanded state.
 "arbitrary", A and D resident (rate 0), h as scratch. On the card the scan
 is independent per channel, so ``block_d`` gives the launch plan: grid
 (batch, channel tiles, n_chunks) = ("parallel", "parallel", "arbitrary").
+The kernel splits each channel's states over a group of lanes of a
+128-thread block (:func:`lanes_for`: 2, 4 or 8), so a tile holds
+``128 / lanes`` channels, and stages at most ``STAGE_BYTES`` of each
+channel's x per chunk (64 bf16 or 32 fp32 positions, double buffered), so
+the launch plan's chunk is that stage (:func:`launch_geometry`): the chunk
+only sizes the stage, and the result is the same bits for any chunk.
 Each tile streams its share of x, Δ and y — together the JAX plan's words
 when the tile divides d_inner — and each (row, tile) block reads its rows
 of A and D once; the chunk's B_t and C_t, shared by every channel of a row,
@@ -28,10 +34,18 @@ import torch
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["ssm_scan", "ssm_plan", "BLOCK_D"]
+__all__ = ["ssm_scan", "ssm_plan", "launch_geometry", "lanes_for", "LANE_CHOICES",
+           "STAGE_BYTES", "MIN_WARPS_PER_SM"]
 
-#: channels per block of the CUDA kernel, one per thread
-BLOCK_D = 128
+_THREADS = 128        # threads per block of the CUDA kernel
+#: lanes per channel the kernel is built for; each lane holds d_state / lanes
+#: of the channel's state
+LANE_CHOICES = (2, 4, 8)
+#: warps per SM below which the serial walk's latency shows (lanes_for)
+MIN_WARPS_PER_SM = 6
+#: bytes of each channel's x per shared-memory stage: 64 bf16 or 32 fp32
+#: positions (at most the kernel's kMaxStage, 64)
+STAGE_BYTES = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _D_STATES = (8, 16)
 
@@ -114,11 +128,36 @@ def ssm_plan(
     )
 
 
+def lanes_for(bsz: int, d_inner: int, d_state: int, sms: int) -> int:
+    """Lanes per channel: the fewest of :data:`LANE_CHOICES` (at most
+    d_state / 2: a lane holds a pair of states at least) whose warps fill
+    every SM at least :data:`MIN_WARPS_PER_SM` deep, else the most. Fewer
+    lanes do fewer instructions per state (one shuffle round less per
+    halving); more lanes give more warps to hide the serial walk. Every
+    grouping gives the same bits."""
+    allowed = [g for g in LANE_CHOICES if 2 * g <= d_state]
+    for lanes in allowed:
+        if bsz * d_inner * lanes >= 32 * MIN_WARPS_PER_SM * sms:
+            return lanes
+    return allowed[-1]
+
+
+def launch_geometry(seq: int, chunk: int, lanes: int, itemsize: int) -> tuple[int, int, int]:
+    """``(block_d, stage, padded seq)`` of the kernel's launch: a tile of
+    ``128 / lanes`` channels, a stage of ``min(chunk, seq, STAGE_BYTES /
+    itemsize)`` positions, and the sequence padded to whole stages in the
+    plan."""
+    if lanes not in LANE_CHOICES:
+        raise ValueError(f"lanes per channel must be one of {LANE_CHOICES}, not {lanes}")
+    stage = min(chunk, seq, STAGE_BYTES // itemsize)
+    return _THREADS // lanes, stage, math.ceil(seq / stage) * stage
+
+
 @functools.lru_cache(maxsize=256)
 def _plan(bsz: int, seq: int, d_inner: int, d_state: int, chunk: int,
-          dtype: torch.dtype) -> StreamPlan:
+          dtype: torch.dtype, block_d: int) -> StreamPlan:
     return ssm_plan(bsz, seq, d_inner, d_state, chunk=chunk, dtype=dtype,
-                    block_d=BLOCK_D)
+                    block_d=block_d)
 
 
 def ssm_scan(
@@ -130,13 +169,16 @@ def ssm_scan(
     d: torch.Tensor,      # (d_inner,) skip
     *,
     chunk: int = 128,
+    lanes: int | None = None,
 ) -> torch.Tensor:
     """Selective scan over the sequence stream; returns y: (B, L, d_inner)
     in ``x``'s dtype.
 
     CUDA tensors go to the kernel: contiguous x, Δ, B, C of one dtype
-    (float32 or bfloat16), float32 A and D, d_state 8 or 16. CPU tensors go
-    to :func:`repro_torch.kernels.ref.ssm_scan_ref`.
+    (float32 or bfloat16), float32 A and D, d_state 8 or 16, each channel's
+    state split over ``lanes`` lanes (2, 4 or 8, at most d_state / 2;
+    :func:`lanes_for` when None). CPU tensors go to
+    :func:`repro_torch.kernels.ref.ssm_scan_ref`.
     """
     if x.dim() != 3 or dt.shape != x.shape or b.dim() != 3 or c.shape != b.shape \
             or b.shape[:2] != x.shape[:2] or a.shape != (x.shape[2], b.shape[2]) \
@@ -166,13 +208,17 @@ def ssm_scan(
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    ck = min(chunk, seq)
-    seq_p = math.ceil(seq / ck) * ck
-    launch = pipeline.lower(_plan(bsz, seq_p, d_inner, d_state, ck, x.dtype),
+    if lanes is None:
+        lanes = lanes_for(bsz, d_inner, d_state, pipeline.sm_count(x.device))
+    block_d, ck, seq_p = launch_geometry(seq, chunk, lanes, x.element_size())
+    if 2 * lanes > d_state:
+        raise ValueError(f"{lanes} lanes per channel leave less than a pair of d_state "
+                         f"{d_state} to each")
+    launch = pipeline.lower(_plan(bsz, seq_p, d_inner, d_state, ck, x.dtype, block_d),
                             "bsps_ssm_scan", x.device)
     pipeline.launch(launch, x.device, x.data_ptr(), dt.data_ptr(), b.data_ptr(),
                     c.data_ptr(), a.data_ptr(), d.data_ptr(), y.data_ptr(),
-                    seq, d_inner, d_state, ck, BLOCK_D, _DTYPES[x.dtype])
+                    seq, d_inner, d_state, ck, block_d, _DTYPES[x.dtype])
     ssm_scan.launches += 1
     return y
 

@@ -11,19 +11,28 @@ maps: A's tile (i, s) is fetched again for every j.
 
 :func:`matmul_plan` with ``split_k=1`` is exactly the JAX package's plan.
 When the output tiles alone cannot fill the card — decode, where m is the
-batch — the K stream is split over a third "parallel" axis (``split_k``):
-each split streams its share of K into an fp32 partial tile, and a closing
-launch sums the partials and casts.
+batch — the K stream is split: in the ``wmma`` variants over a third
+"parallel" axis (``split_k``), each split streaming its share of K into an
+fp32 partial tile and a closing launch summing the partials; in the
+``decode`` variant over the blocks of a cluster (:func:`decode_plan`),
+summed inside the launch.
 
-The kernel has three variants (``csrc/streamed_matmul.cu``), and
+The kernel has four variants (``csrc/streamed_matmul.cu``), and
 :func:`variant_for` picks one from the shapes, strides and alignment alone:
 
-* ``"decode"`` — m ≤ 16: a 16×64×64 ``wmma`` tile with split K;
-* ``"wgmma"`` — m > 16 when TMA can describe both operands (base addresses
-  16-byte aligned, row strides multiples of 16 bytes): 128×128 output tiles,
-  K streamed 64 at a time by TMA through an ``mbarrier`` ring into
+* ``"decode"`` — m ≤ 16 when TMA can describe B (base 16-byte aligned, rows
+  a multiple of 16 bytes apart) and A's K share fits a block
+  (:func:`decode_fits`): 128-column tiles of B streamed by TMA in stages of
+  64 k-rows through a 4-stage ``mbarrier`` ring into ``mma.sync`` (Cᵀ = Bᵀ·Aᵀ,
+  the weight on the 16-row side), K split over a thread-block cluster of
+  :func:`decode_split` blocks whose partials are summed through distributed
+  shared memory: one launch per product, :func:`decode_plan`;
+* ``"wgmma"`` — m > 16 when TMA can describe both operands: 128×128 output
+  tiles, K streamed 64 at a time by TMA through an ``mbarrier`` ring into
   ``wgmma``, no split;
-* ``"wmma"`` — m > 16 otherwise: a 64×64×32 ``wmma`` tile.
+* ``"wmma"`` — m > 16 otherwise: a 64×64×32 ``wmma`` tile with split K;
+* ``"decode_wmma"`` — m ≤ 16 otherwise: a 16×64×64 ``wmma`` tile with split K
+  (:func:`split_for`) and a second launch that sums the splits.
 
 A build, encode or launch that fails raises; nothing falls back to another
 variant. ``streamed_matmul.launches_by_variant`` counts launches per variant.
@@ -39,12 +48,25 @@ import torch
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["streamed_matmul", "matmul_plan", "variant_for", "split_for", "VARIANTS"]
+__all__ = ["streamed_matmul", "matmul_plan", "decode_plan", "variant_for", "split_for",
+           "decode_split", "decode_fits", "VARIANTS"]
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: (block_m, block_n, block_k) of each kernel variant; block_m names it to the C side
-VARIANTS = {"decode": (16, 64, 64), "wgmma": (128, 128, 64), "wmma": (64, 64, 32)}
+#: (block_m, block_n, block_k) of each kernel variant, in the C side's code
+#: order; the decode variant's block_m is the most rows it takes
+VARIANTS = {"decode": (16, 128, 64), "wgmma": (128, 128, 64), "wmma": (64, 64, 32),
+            "decode_wmma": (16, 64, 64)}
+_CODES = {name: i for i, name in enumerate(VARIANTS)}
 _TMA_ALIGN = 16   # bytes: TMA's base-address and row-stride granule
+DECODE_STAGES = 4              # the decode variant's ring of 16 KB weight stages
+DECODE_MAX_SPLIT = 8           # the portable thread-block cluster size
+DECODE_A_MAX = 64 * 1024       # bytes of A's K share one block may hold
+_DECODE_A_PAD = 8              # bf16 past each row of the share (bank spread)
+# the block's shared memory beside the ring and the A share: 1 KB of swizzle
+# alignment and the mbarriers; and what the SM reserves per block
+_DECODE_SMEM_EXTRA = 1024 + 64
+_SM_BLOCK_RESERVE = 1024
+SM_SMEM = 233472               # bytes of shared memory per SM on Hopper (228 KB)
 
 
 def matmul_plan(
@@ -116,18 +138,100 @@ def matmul_plan(
     )
 
 
-def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int) -> str:
-    """The kernel variant for C = A·B with m rows, bf16 A at address
-    ``a_addr`` with row stride ``lda`` elements and B at ``b_addr`` with row
-    stride ``ldb``.
+def decode_plan(m: int, k: int, n: int, split: int, *,
+                out_dtype=torch.bfloat16) -> StreamPlan:
+    """Launch plan of the decode variant for C = A·B, (m, k) × (k, n), m ≤ 16.
 
-    m ≤ 16 is decode; otherwise ``"wgmma"`` when TMA can describe both
-    operands — each base address 16-byte aligned and each row stride
-    (``lda·2``, ``ldb·2`` bytes) a multiple of 16 — and ``"wmma"`` when not.
+    Grid (column tile j, split sp, hyperstep s) = (parallel, parallel,
+    arbitrary): the ``split`` blocks of column tile j form one cluster, block
+    sp streams K tiles ``sp·S .. sp·S + S - 1`` (S = ⌈k tiles / split⌉) of
+    B's 128-column panel j, and A's whole K share (m, S·64) is loaded once
+    per block. All ``split`` blocks own C's tile j: their partials are
+    summed inside the cluster, so C streams up once per tile and no partial
+    tensor exists. Scratch: the ring of weight boxes and the A share.
     """
+    _, bn, bk = VARIANTS["decode"]
+    tiles, k_tiles = -(-n // bn), -(-k // bk)
+    per = -(-k_tiles // split)
+    if not 1 <= split <= min(DECODE_MAX_SPLIT, k_tiles) or (split - 1) * per >= k_tiles:
+        raise ValueError(f"bad decode split {split} of {k_tiles} K tiles")
+    k_pad = split * per * bk
+    return StreamPlan(
+        name=f"matmul_decode_{m}x{k}x{n}_s{split}",
+        grid=(tiles, split, per),
+        inputs=(
+            TokenSpec("A", (m, per * bk), lambda j, sp, s: (0, sp),
+                      dtype=torch.bfloat16, full_shape=(m, k_pad)),
+            TokenSpec("B", (bk, bn), lambda j, sp, s, S=per: (sp * S + s, j),
+                      dtype=torch.bfloat16, full_shape=(k_pad, tiles * bn)),
+        ),
+        outputs=(
+            TokenSpec("C", (m, bn), lambda j, sp, s: (0, j), dtype=out_dtype,
+                      full_shape=(m, tiles * bn), direction="up"),
+        ),
+        scratch=(ScratchSpec("ring", (DECODE_STAGES, bk, bn), torch.bfloat16),
+                 ScratchSpec("A_share", (m, per * bk + _DECODE_A_PAD), torch.bfloat16)),
+        dimension_semantics=("parallel", "parallel", "arbitrary"),
+        flops_per_hyperstep=2.0 * m * bn * bk,
+    )
+
+
+def _a_share_bytes(m: int, k_tiles: int, split: int) -> int:
+    bk = VARIANTS["decode"][2]
+    return m * (-(-k_tiles // split) * bk + _DECODE_A_PAD) * 2
+
+
+def decode_fits(m: int, k: int) -> bool:
+    """Whether A's K share fits one decode block at the widest cluster."""
+    k_tiles = -(-k // VARIANTS["decode"][2])
+    return _a_share_bytes(m, k_tiles, min(DECODE_MAX_SPLIT, k_tiles)) <= DECODE_A_MAX
+
+
+def _decode_blocks_per_sm(m: int, k_tiles: int, split: int) -> int:
+    _, bn, bk = VARIANTS["decode"]
+    smem = (DECODE_STAGES * bk * bn * 2 + _a_share_bytes(m, k_tiles, split)
+            + _DECODE_SMEM_EXTRA + _SM_BLOCK_RESERVE)
+    return max(1, SM_SMEM // smem)
+
+
+def decode_split(m: int, n: int, k: int, sms: int) -> int:
+    """Cluster size (the K split) of the decode variant on ``sms``
+    multiprocessors: the largest split (at most 8 and at most the K tiles)
+    whose blocks fill at most 7/8 of the slots the card holds at once, so
+    every block's ring is in flight from the start and no short second wave
+    trails (7/8: a cluster must fit inside one GPC); 1 when the column tiles
+    alone overfill the card. A split whose A share overflows a block is
+    never taken. Then trimmed so no block of the cluster gets an empty
+    share."""
+    _, bn, bk = VARIANTS["decode"]
+    tiles, k_tiles = -(-n // bn), -(-k // bk)
+    fits = [s for s in range(1, min(DECODE_MAX_SPLIT, k_tiles) + 1)
+            if _a_share_bytes(m, k_tiles, s) <= DECODE_A_MAX]
+    if not fits:
+        raise ValueError(f"A's K share of a {m} x {k} product overflows a decode block")
+    split = fits[0]
+    for s in fits:
+        if 8 * tiles * s <= 7 * sms * _decode_blocks_per_sm(m, k_tiles, s):
+            split = s
+    return -(-k_tiles // -(-k_tiles // split))
+
+
+def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int) -> str:
+    """The kernel variant for C = A·B with m rows and depth k, bf16 A at
+    address ``a_addr`` with row stride ``lda`` elements and B at ``b_addr``
+    with row stride ``ldb``.
+
+    TMA can describe an operand whose base address is 16-byte aligned and
+    whose row stride (``lda·2``, ``ldb·2`` bytes) is a multiple of 16. m ≤ 16
+    is ``"decode"`` when TMA can describe B and A's K share fits a block
+    (:func:`decode_fits`; A is read with plain loads), ``"decode_wmma"``
+    when not; m > 16 is ``"wgmma"`` when TMA can describe both operands and
+    ``"wmma"`` when not.
+    """
+    b_tma = b_addr % _TMA_ALIGN == 0 and 2 * ldb % _TMA_ALIGN == 0
     if m <= VARIANTS["decode"][0]:
-        return "decode"
-    if all(x % _TMA_ALIGN == 0 for x in (a_addr, b_addr, 2 * lda, 2 * ldb)):
+        return "decode" if b_tma and decode_fits(m, k) else "decode_wmma"
+    if b_tma and a_addr % _TMA_ALIGN == 0 and 2 * lda % _TMA_ALIGN == 0:
         return "wgmma"
     return "wmma"
 
@@ -138,6 +242,11 @@ def split_for(tiles: int, k_tiles: int, sms: int) -> int:
     ``k_tiles`` not above the shortfall (1 when the tiles fill the card)."""
     want = math.ceil(4 * sms / tiles)
     return max(d for d in range(1, min(want, k_tiles) + 1) if k_tiles % d == 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_plan(m: int, k: int, n: int, split: int, out_dtype: torch.dtype) -> StreamPlan:
+    return decode_plan(m, k, n, split, out_dtype=out_dtype)
 
 
 @functools.lru_cache(maxsize=256)
@@ -176,17 +285,25 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return c.zero_()
-    variant = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0))
-    tile = VARIANTS[variant]
-    bm, bn, bk = tile
-    split = 1 if variant == "wgmma" else split_for(
-        math.ceil(m / bm) * math.ceil(n / bn), math.ceil(k / bk), pipeline.sm_count(a.device))
-    launch = pipeline.lower(_plan(m, k, n, tile, out_dtype, split), "bsps_matmul", a.device)
-    partials = (torch.empty((split, m, n), dtype=torch.float32, device=a.device)
-                if split > 1 else None)
+    variant = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k)
+    partials = None
+    if variant == "decode":
+        split = decode_split(m, n, k, pipeline.sm_count(a.device))
+        plan = _decode_plan(m, k, n, split, out_dtype)
+    else:
+        tile = VARIANTS[variant]
+        bm, bn, bk = tile
+        split = 1 if variant == "wgmma" else split_for(
+            math.ceil(m / bm) * math.ceil(n / bn), math.ceil(k / bk),
+            pipeline.sm_count(a.device))
+        plan = _plan(m, k, n, tile, out_dtype, split)
+        if split > 1:
+            partials = torch.empty((split, m, n), dtype=torch.float32, device=a.device)
+    launch = pipeline.lower(plan, "bsps_matmul", a.device)
     pipeline.launch(launch, a.device, a.data_ptr(), b.data_ptr(), c.data_ptr(),
                     None if partials is None else partials.data_ptr(),
-                    m, n, k, a.stride(0), b.stride(0), n, bm, _OUT_DTYPES[out_dtype])
+                    m, n, k, a.stride(0), b.stride(0), n, _CODES[variant],
+                    _OUT_DTYPES[out_dtype])
     streamed_matmul.launches += 1
     streamed_matmul.launches_by_variant[variant] += 1
     return c

@@ -40,7 +40,8 @@ def _rand(shape, dtype, device, seed=0):
     (1000, 264, 1032, "wgmma"),                            # ragged m, n and k
     (130, 200, 136, "wgmma"), (17, 8, 8, "wgmma"),         # one partial tile
     (300, 200, 130, "wmma"), (17, 64, 65, "wmma"),         # B's rows not 16-byte apart
-    (1, 37, 9, "decode"),
+    (1, 37, 9, "decode_wmma"),                             # B's rows 18 bytes apart
+    (4, 2304, 5761, "decode_wmma"),                        # the same, split K
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_matmul_kernel_matches_plain(cuda, m, k, n, variant, out_dtype):
@@ -55,12 +56,54 @@ def test_matmul_kernel_matches_plain(cuda, m, k, n, variant, out_dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_matmul_kernel_strided_rows(cuda):
-    a = _rand((8, 96), torch.bfloat16, cuda)[:, :64]     # row stride 96
+# the decode variant at every decode shape of minicpm-2b and jamba-v0.1-52b
+# (MLP up/gate, down and jamba's LM head) at 1 to 16 rows; and a ragged n and k
+@pytest.mark.parametrize("m", [1, 4, 8, 16])
+@pytest.mark.parametrize("k,n", [(2304, 5760), (5760, 2304), (4096, 14336), (14336, 4096),
+                                 (4096, 65536), (1000, 1032)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_matches_plain(cuda, m, k, n, out_dtype):
+    a = _rand((m, k), torch.bfloat16, cuda, 21)
+    b = _rand((k, n), torch.bfloat16, cuda, 22) * k ** -0.5
+    before = ops.matmul_variant_counts()["decode"]
+    got = streamed_matmul(a, b, out_dtype=out_dtype)
+    want = ref.matmul_ref(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ops.matmul_variant_counts()["decode"] == before + 1
+    tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("lda", [96, 97])
+def test_matmul_kernel_strided_rows(cuda, lda):
+    """Row strides of 192 and 194 bytes: the decode variant reads A with
+    plain loads, so neither needs TMA's alignment."""
+    a = _rand((8, lda), torch.bfloat16, cuda)[:, :64]
     b = _rand((64, 72), torch.bfloat16, cuda, 3)
+    before = ops.matmul_variant_counts()["decode"]
     torch.testing.assert_close(streamed_matmul(a, b, out_dtype=torch.float32),
                                ref.matmul_ref(a, b, out_dtype=torch.float32),
                                rtol=1e-3, atol=1e-3)
+    assert ops.matmul_variant_counts()["decode"] == before + 1
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 5760, 2304), (16, 14336, 4096), (4, 2304, 5760)])
+def test_decode_cluster_split_is_deterministic(cuda, m, k, n):
+    """The cluster's partials are summed in rank order: the same bits every call."""
+    a = _rand((m, k), torch.bfloat16, cuda, 23)
+    b = _rand((k, n), torch.bfloat16, cuda, 24)
+    one = streamed_matmul(a, b, out_dtype=torch.float32)
+    assert all(torch.equal(one, streamed_matmul(a, b, out_dtype=torch.float32))
+               for _ in range(3))
+
+
+def test_decode_product_is_one_launch(cuda):
+    a = _rand((4, 5760), torch.bfloat16, cuda, 25)
+    b = _rand((5760, 2304), torch.bfloat16, cuda, 26)
+    ops.reset_launch_counts()
+    ops.matmul(a, b)
+    assert ops.launch_counts()["streamed_matmul"] == 1
+    assert ops.matmul_variant_counts() == {"decode": 1, "wgmma": 0, "wmma": 0, "decode_wmma": 0}
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -240,6 +283,7 @@ def _ssm_inputs(b, seq, di, ds, dtype, device, seed):
     (2, 100, 130, 16, 32),         # ragged both, short chunk
     (3, 7, 128, 8, 128),           # one short chunk
     (1, 4000, 256, 16, 128),       # long, ragged last chunk
+    (1, 4000, 8192, 16, 128),      # B 1 at jamba's full width
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssm_kernel_matches_plain(cuda, b, seq, di, ds, chunk, dtype):
@@ -253,12 +297,45 @@ def test_ssm_kernel_matches_plain(cuda, b, seq, di, ds, chunk, dtype):
     assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
+@pytest.mark.parametrize("b,seq,di,ds,lanes", [
+    (2, 100, 130, 16, 2), (2, 100, 130, 16, 4), (2, 100, 130, 16, 8),
+    (1, 300, 200, 8, 2), (1, 300, 200, 8, 4),          # d_state 8: a pair a lane at least
+    (1, 200, 8192, 16, 2), (1, 200, 8192, 16, 4), (1, 200, 8192, 16, 8),   # B 1, full width
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_lane_groups_match_plain(cuda, b, seq, di, ds, lanes, dtype):
+    """Each channel's states split over 2, 4 or 8 lanes, at d_state 8 and 16
+    (tolerances as above), and every grouping gives the same bits."""
+    x, dt, bb, c, a, d = _ssm_inputs(b, seq, di, ds, dtype, cuda, 16)
+    got = ssm_scan(x, dt, bb, c, a, d, lanes=lanes)
+    want = ref.ssm_scan_ref(x, dt, bb, c, a, d)
+    tol = 1e-4 if dtype == torch.float32 else 2 * 2 ** -8
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    assert torch.equal(got, ssm_scan(x, dt, bb, c, a, d, lanes=2))
+
+
+def test_ssm_refuses_lane_groups_past_the_states(cuda):
+    x, dt, bb, c, a, d = _ssm_inputs(1, 16, 64, 8, torch.float32, cuda, 17)
+    with pytest.raises(ValueError, match="lanes"):
+        ssm_scan(x, dt, bb, c, a, d, lanes=8)
+
+
 def test_ssm_kernel_isolates_batch_rows(cuda):
     x, dt, bb, c, a, d = _ssm_inputs(3, 200, 300, 16, torch.float32, cuda, 14)
     full = ssm_scan(x, dt, bb, c, a, d, chunk=64)
     row = ssm_scan(x[1:2].contiguous(), dt[1:2].contiguous(), bb[1:2].contiguous(),
                    c[1:2].contiguous(), a, d, chunk=64)
     assert torch.equal(full[1:2], row)
+
+
+def test_ssm_row_alone_matches_batch_at_full_width(cuda):
+    """At jamba's width a batch of 4 takes 2 lanes a channel and one row
+    alone 4 (ssm_scan.lanes_for): the same bits all the same."""
+    x, dt, bb, c, a, d = _ssm_inputs(4, 100, 8192, 16, torch.bfloat16, cuda, 18)
+    full = ssm_scan(x, dt, bb, c, a, d)
+    row = ssm_scan(*(t[2:3].contiguous() for t in (x, dt, bb, c)), a, d)
+    assert torch.equal(full[2:3], row)
 
 
 def test_ssm_kernel_is_deterministic_and_chunk_free(cuda):

@@ -28,9 +28,18 @@ from repro.kernels.streamed_matmul import streamed_matmul as j_matmul
 from repro_torch.core import bsp as tbsp
 from repro_torch.kernels import ops, pipeline, ref
 from repro_torch.kernels.flash_attention import attention_plan
-from repro_torch.kernels.ssm_scan import ssm_plan
+from repro_torch.kernels.ssm_scan import launch_geometry, lanes_for, ssm_plan
 from repro_torch.kernels.streamed_dot import dot_plan
-from repro_torch.kernels.streamed_matmul import VARIANTS, matmul_plan, split_for, variant_for
+from repro_torch.kernels.streamed_matmul import (
+    DECODE_A_MAX,
+    VARIANTS,
+    decode_fits,
+    decode_plan,
+    decode_split,
+    matmul_plan,
+    split_for,
+    variant_for,
+)
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-1}
 
@@ -134,11 +143,13 @@ def test_kernel_geometry_follows_the_plans():
 
 
 def test_decode_tiles_and_split():
-    assert VARIANTS[variant_for(4, 0, 2304, 0, 5760)] == (16, 64, 64)
-    assert VARIANTS[variant_for(1024, 0, 2304, 0, 5760)] == (128, 128, 64)
-    assert VARIANTS[variant_for(1024, 0, 37, 0, 5760)] == (64, 64, 32)
-    # decode up/down projections of minicpm-2b on 132 SMs: the split fills the
-    # card about four blocks deep and divides the K tiles
+    assert VARIANTS[variant_for(4, 0, 2304, 0, 5760, 2304)] == (16, 128, 64)
+    assert VARIANTS[variant_for(4, 0, 2304, 0, 5761, 2304)] == (16, 64, 64)
+    assert VARIANTS[variant_for(1024, 0, 2304, 0, 5760, 2304)] == (128, 128, 64)
+    assert VARIANTS[variant_for(1024, 0, 37, 0, 5760, 37)] == (64, 64, 32)
+    # split_for, the wmma and decode_wmma variants' rule: decode up/down
+    # projections of minicpm-2b on 132 SMs, the split fills the card about
+    # four blocks deep and divides the K tiles
     assert split_for(90, 36, 132) == 6
     assert split_for(36, 90, 132) == 15
     assert split_for(16 * 90, 72, 132) == 1
@@ -149,7 +160,10 @@ def _bf16(shape):
 
 
 @pytest.mark.parametrize("case,want", [
-    ("decode", "decode"),              # m ≤ 16, whatever the strides
+    ("decode", "decode"),              # m ≤ 16, B TMA-describable
+    ("decode_odd_lda", "decode"),      # A's rows 194 bytes apart: A takes plain loads
+    ("decode_odd_ldb", "decode_wmma"),  # n = 9: B's rows 18 bytes apart
+    ("decode_deep_k", "decode_wmma"),  # m 16, k 65536: A's K share overflows a block
     ("forward", "wgmma"),              # minicpm's up projection
     ("odd_ldb", "wmma"),               # n = 130: B's rows 260 bytes apart
     ("odd_lda", "wmma"),               # k = 37: A's rows 74 bytes apart
@@ -158,18 +172,71 @@ def _bf16(shape):
     ("offset_base", "wmma"),           # A starts one element into its buffer
 ])
 def test_variant_for(case, want):
-    """The variant rule reads only m, the base addresses and the row strides:
-    TMA needs 16-byte aligned bases and rows a multiple of 16 bytes apart."""
+    """The variant rule reads only m, k, the base addresses and the row
+    strides: TMA needs 16-byte aligned bases and rows a multiple of 16 bytes
+    apart."""
     m, k, n = {"decode": (4, 2304, 5760), "odd_ldb": (300, 200, 130),
-               "odd_lda": (64, 37, 64)}.get(case, (1024, 2304, 5760))
+               "odd_lda": (64, 37, 64), "decode_odd_lda": (4, 64, 64),
+               "decode_odd_ldb": (1, 37, 9), "decode_deep_k": (16, 65536, 128),
+               }.get(case, (1024, 2304, 5760))
     a, b = _bf16((m, k)), _bf16((k, n))
-    if case == "sliced_rows":
+    if case == "decode_odd_lda":
+        a = _bf16((m, 97))[:, :64]
+    elif case == "sliced_rows":
         a = _bf16((m, 100))[:, :64]
     elif case == "wide_slice":
         a = _bf16((m, 96))[:, :64]
     elif case == "offset_base":
         a = _bf16((m * k + 1,))[1:].view(m, k)
-    assert variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0)) == want
+    assert variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k) == want
+
+
+# (m, k, n) -> cluster size on 132 SMs: the largest split whose blocks fill
+# at most 7/8 of the card's slots at once, raised until A's K share fits
+@pytest.mark.parametrize("m,k,n,split", [
+    (4, 2304, 5760, 6),        # minicpm up/gate: 45 column tiles, 36 K tiles, 3 blocks an SM
+    (4, 5760, 2304, 8),        # minicpm down: 18 tiles
+    (4, 4096, 14336, 2),       # jamba up/gate: 112 tiles, 2 blocks an SM
+    (4, 14336, 4096, 7),       # jamba down: 32 tiles
+    (4, 4096, 65536, 1),       # jamba's LM head: 512 tiles overfill the card
+    (16, 4096, 14336, 3),      # 16 rows: 1 or 2 shares would hold 131 or 66 KB of A
+    (16, 14336, 4096, 8),
+    (16, 1000, 1032, 8),       # ragged: 16 K tiles, two each
+    (1, 100, 64, 2),           # two K tiles
+])
+def test_decode_split(m, k, n, split):
+    assert decode_split(m, n, k, 132) == split
+    assert decode_fits(m, k)
+    k_tiles = -(-k // 64)
+    per = -(-k_tiles // split)
+    assert (split - 1) * per < k_tiles <= split * per       # no empty share
+    assert m * (per * 64 + 8) * 2 <= DECODE_A_MAX
+
+
+def test_decode_fits_bounds_the_a_share():
+    assert decode_fits(16, 8 * 15 * 128) and not decode_fits(16, 8 * 16 * 128)
+    assert decode_fits(4, 61440) and not decode_fits(4, 65536)
+
+
+def test_decode_plan_geometry():
+    """The decode plan: grid (column tiles, split, K tiles per split), the
+    split in x so that a cluster along x holds one column tile's shares;
+    every weight word streams once, A's share once per block, C once per
+    tile; scratch = the 4-stage ring of 64 × 128 stages and the A share."""
+    assert VARIANTS["decode"] == (16, 128, 64)
+    plan = decode_plan(4, 2304, 5760, 6)
+    assert pipeline.geometry(plan) == ((6, 45, 1), 6)
+    assert plan.scratch_bytes == 4 * 64 * 128 * 2 + 4 * (6 * 64 + 8) * 2
+    assert _fetched_words(plan, ("B",)) == 2304 * 5760
+    assert _fetched_words(plan, ("A",)) == 45 * 4 * 2304
+    assert sum(plan.writeback_schedule()) == 4 * 5760
+    assert plan.total_flops == 2.0 * 4 * 2304 * 5760
+    ragged = decode_plan(16, 1000, 1032, 8)
+    assert pipeline.geometry(ragged) == ((8, 9, 1), 2)
+    with pytest.raises(ValueError):
+        decode_plan(4, 1000, 1032, 9)           # past the cluster limit
+    with pytest.raises(ValueError):
+        decode_plan(4, 576, 64, 8)              # 9 K tiles in 2s: the last share empty
 
 
 @pytest.mark.parametrize("m,k,n", [(1024, 2304, 5760), (1024, 5760, 2304), (1024, 4096, 14336),
@@ -192,7 +259,7 @@ def test_reset_clears_the_variant_counts():
 
     streamed_matmul.launches_by_variant["wgmma"] += 3
     ops.reset_launch_counts()
-    assert ops.matmul_variant_counts() == {"decode": 0, "wgmma": 0, "wmma": 0}
+    assert ops.matmul_variant_counts() == {"decode": 0, "wgmma": 0, "wmma": 0, "decode_wmma": 0}
 
 
 def test_cpu_tensors_never_reach_the_library(rng, monkeypatch):
@@ -313,13 +380,44 @@ def test_ssm_launch_plan_tiles_the_channels():
     """The launch plan makes batch rows and channel tiles parallel and keeps
     the chunk loop: x, Δ and y move the JAX plan's words and the FLOPs are
     the same. Each (row, tile) block reads its rows of A and D once, and
-    each tile reads the small B/C chunks of its row."""
-    one = ssm_plan(4, 256, 8192, 16, chunk=128, dtype=torch.bfloat16)
-    tiled = ssm_plan(4, 256, 8192, 16, chunk=128, dtype=torch.bfloat16, block_d=128)
-    assert pipeline.geometry(tiled) == ((64, 4, 1), 2)
-    assert tiled.scratch_bytes == 128 * 16 * 4
+    each tile reads the small B/C chunks of its row. At jamba's forward in
+    bf16 the kernel's tile is 64 channels (2 lanes each) and its stage 64
+    positions."""
+    block_d, stage, seq_p = launch_geometry(256, 128, lanes_for(4, 8192, 16, 132), 2)
+    assert (block_d, stage, seq_p) == (64, 64, 256)
+    one = ssm_plan(4, 256, 8192, 16, chunk=stage, dtype=torch.bfloat16)
+    tiled = ssm_plan(4, 256, 8192, 16, chunk=stage, dtype=torch.bfloat16, block_d=block_d)
+    assert pipeline.geometry(tiled) == ((128, 4, 1), 4)
+    assert tiled.scratch_bytes == 64 * 16 * 4
     assert tiled.total_flops == one.total_flops
     assert _fetched_words(tiled, ("x", "dt")) == _fetched_words(one, ("x", "dt"))
     assert sum(tiled.writeback_schedule()) == sum(one.writeback_schedule())
     assert _fetched_words(tiled, ("A", "D")) == 4 * _fetched_words(one, ("A", "D"))
-    assert _fetched_words(tiled, ("B", "C")) == 64 * _fetched_words(one, ("B", "C"))
+    assert _fetched_words(tiled, ("B", "C")) == 128 * _fetched_words(one, ("B", "C"))
+
+
+@pytest.mark.parametrize("bsz,d_inner,d_state,want", [
+    (4, 8192, 16, 2),    # jamba's forward: 2048 warps at 2 lanes, 15.5 an SM
+    (1, 8192, 16, 4),    # B 1: 512 warps at 2 lanes would be 3.9 an SM
+    (2, 8192, 16, 2),
+    (1, 1000, 16, 8),    # too few channels for 6 warps an SM at any grouping
+    (1, 1000, 8, 4),     # d_state 8: a lane holds a pair at least, so 4 at most
+])
+def test_ssm_lanes_rule(bsz, d_inner, d_state, want):
+    assert lanes_for(bsz, d_inner, d_state, 132) == want
+
+
+@pytest.mark.parametrize("seq,chunk,lanes,itemsize,want", [
+    (256, 128, 2, 2, (64, 64, 256)),     # bf16: the chunk only sizes the stage, at most 64
+    (256, 128, 2, 4, (64, 32, 256)),     # fp32: 32 positions a stage, the same 128 bytes
+    (300, 128, 4, 2, (32, 64, 320)),     # ragged L: the plan pads to whole stages
+    (7, 128, 4, 2, (32, 7, 7)),          # one short stage
+    (4000, 16, 8, 4, (16, 16, 4000)),    # 8 lanes a channel: 16 channels a block
+])
+def test_ssm_launch_geometry(seq, chunk, lanes, itemsize, want):
+    assert launch_geometry(seq, chunk, lanes, itemsize) == want
+
+
+def test_ssm_launch_geometry_refuses_other_lane_groups():
+    with pytest.raises(ValueError):
+        launch_geometry(256, 64, 3, 2)
