@@ -15,9 +15,16 @@ jamba-v0.1-52b served at full width with its depth cut to one period of 8
 layers (random weights from a seed), each through ``generate`` and
 ``make_prefill_step``. The matmul's launches are also counted per variant:
 every product of the forward and of a multi-row prefill must take the
-wgmma variant, every decode product the m ≤ 16 one. Every check that fails
-raises, and the script exits non-zero. Each phase prints its wall time. It
-imports neither JAX nor the JAX package.
+wgmma variant, every decode product the m ≤ 16 one. On minicpm-2b's weights
+the continuous-batching ``ServeEngine`` then serves 16 requests over 8
+lanes (the ``engine`` phase): every request drained, the decode variant
+launched per segment and the wgmma variant by the joins' prefills, no host
+sync inside a steady-state segment, each lane's logits at every segment
+boundary close to batch-1 ``generate``'s on the same tokens and every
+greedy token one that such logits can pick, and a run with an injected dispatch
+failure and page exhaustion giving a clean run's tokens. Every check that
+fails raises, and the script exits non-zero. Each phase prints its wall
+time. It imports neither JAX nor the JAX package.
 
 Output, in order: progress lines; the card's name and power limit as
 ``nvidia-smi`` reports them; one JSON line with a row per kernel; and, last,
@@ -45,11 +52,14 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import Block, card_config, get_config  # noqa: E402
 from repro_torch.core.calibrate import default_machine  # noqa: E402
+from repro_torch.core.faults import FaultPlan, FaultSpec  # noqa: E402
 from repro_torch.core.hyperstep import HyperstepRunner  # noqa: E402
 from repro_torch.core.plan import host_plan  # noqa: E402
 from repro_torch.core.stream import StreamSet  # noqa: E402
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import LANE_CHOICES, lanes_for, ssm_scan  # noqa: E402
+from repro_torch.kernels.streamed_matmul import decode_split  # noqa: E402
+from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.serve import generate, make_prefill, prefill_block_size  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.train.steps import make_prefill_step  # noqa: E402
@@ -63,6 +73,18 @@ L2_BYTES = 50 * 2**20
 # the H100 SXM's boost clock (1.98 GHz): torch.cuda._sleep spins for clock
 # cycles, at most this many per second
 SPIN_CYCLES_PER_S = 1.98e9
+# A packed lane (m = 8 rows in every product of a decode step) and the same
+# request served alone (m = 1) round differently: the plain products (the
+# attention projections, the tied LM head) take other library algorithms at
+# another m, and each bf16 rounding that differs grows over 40 layers. The
+# engine phase feeds the engine's own tokens to a batch-1 decode and holds
+# the lane's logits, read at every segment boundary, within NEAR_TIE / 2 of
+# the batch-1 logits at the same position (relative to the largest |logit|).
+# Logits that close can only pick a token whose batch-1 logit is within
+# NEAR_TIE of the top one, so every engine token must be: where the batch-1
+# top-2 margin is wider, the token must be batch-1's. The first token comes
+# from the batch-1 prefill in both runs and must be equal.
+NEAR_TIE = 2.0 ** -4
 
 KERNEL_META = {
     "streamed_dot": ("src/repro_torch/kernels/csrc/streamed_dot.cu",
@@ -158,6 +180,9 @@ def check_matmul(rows: dict) -> None:
               (300, 200, 130),
               # the decode variant at one and at sixteen rows
               (1, 2304, 5760), (16, 2304, 5760), (1, 4096, 14336), (16, 4096, 14336),
+              # the engine's packed step (8 lanes) and its joins' one-chunk
+              # prefills (17-256 rows: one partial and one full 128-row tile)
+              (8, 2304, 5760), (8, 5760, 2304), (100, 2304, 5760), (256, 5760, 2304),
               # jamba's dense MLPs and its untied LM head: decode and forward
               (4, 4096, 14336), (4, 14336, 4096), (1024, 4096, 14336), (1024, 14336, 4096),
               (4, 4096, 65536), (1024, 4096, 65536),
@@ -474,7 +499,207 @@ def serve_slice(machine) -> dict:
     # the decode variant is one device launch per product (no split-K sum)
     log(f"[slice] matmul device launches per decode step: "
         f"{counts['generate_compiled']['streamed_matmul.decode'] / steps:g}")
+    with phase("engine"):
+        serve_engine(cfg, params, machine)
     return counts
+
+
+# -- the continuous-batching engine on minicpm-2b's weights -------------------------------
+
+
+def batch1_logits(cfg, params, prompt: torch.Tensor, tokens: list[int], max_len: int,
+                  machine) -> torch.Tensor:
+    """The fp32 logits ``generate``'s batch-1 decode gives before each of
+    ``tokens``, fed those tokens in turn (teacher-forced), on the same
+    functions: (len(tokens), vocab)."""
+    block = prefill_block_size(cfg, 1, prompt.shape[0], machine)
+    cache = M.init_cache(cfg, 1, max_len, device="cuda")
+    logits, cache = make_prefill(cfg, block, device="cuda")(params, cache, prompt[None])
+    fed = torch.tensor(tokens, dtype=torch.int32, device="cuda")
+    out = []
+    for i in range(len(tokens)):
+        out.append(logits[0, -1].float())
+        logits, cache = M.decode_step(cfg, params, cache, fed[i].view(1, 1), device="cuda")
+    return torch.stack(out)
+
+
+def engine_requests(cfg, n: int, seed: int) -> list[tuple[np.ndarray, int]]:
+    """``n`` greedy requests from ``seed``: prompts of 16–256 tokens, 32–64
+    new tokens each."""
+    rng = np.random.default_rng(seed)
+    lens = np.linspace(16, 256, n).astype(int)
+    rng.shuffle(lens)
+    return [(rng.integers(0, cfg.vocab_size, int(s)).astype(np.int32),
+             int(rng.integers(32, 65))) for s in lens]
+
+
+def run_engine(cfg, params, machine, requests, guard=None, watch=(), **kw):
+    """Serve ``requests`` through a fresh engine; returns (engine, rid ->
+    tokens, rid -> boundary logits). ``guard(prog)`` may wrap the compiled
+    segment program first. For each rid in ``watch``, every segment boundary
+    at which the request still runs keeps (tokens generated so far, its lane's
+    fp32 logits for the next token), a copy on the card."""
+    eng = ServeEngine(cfg, params, max_lanes=8, pool_seq=512, segment_len=8,
+                      page_tokens=16, machine=machine, device="cuda", **kw)
+    if guard is not None:
+        guard(eng._runner._compiled_cache[eng.segment_len])
+    for prompt, new in requests:
+        eng.submit(prompt, new)
+    seen = {rid: [] for rid in watch}
+    for _ in range(1000):
+        if not eng.queue and not eng.running:
+            break
+        eng.step_segment()
+        for rid in watch:
+            req = eng.running.get(rid)
+            if req is not None:
+                seen[rid].append((len(req.generated), eng._logits[req.lane, -1].clone()))
+    return eng, eng.run_until_drained(), seen
+
+
+def serve_engine(cfg, params, machine) -> None:
+    requests = engine_requests(cfg, 16, seed=3)
+    per_segment: list[dict] = []
+    synced = {"guarded": 0}
+
+    def guard(prog):
+        """Count each segment's launches per variant; from the second segment
+        on (steady state), run the replay under sync-debug mode "error": a
+        host sync inside the segment raises."""
+        inner = prog._call
+
+        def call(*args):
+            before = counts_now()
+            steady = bool(per_segment)
+            if steady:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = inner(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            synced["guarded"] += steady
+            now = counts_now()
+            per_segment.append({k: now[k] - before[k] for k in now})
+            return out
+
+        prog._call = call
+
+    # the 4 requests with the fewest new tokens are held against batch-1
+    checked = sorted(range(len(requests)), key=lambda r: requests[r][1])[:4]
+    before = counts_now()
+    eng, out, seen = run_engine(cfg, params, machine, requests, guard=guard, watch=checked)
+    total = {k: v - before[k] for k, v in counts_now().items()}
+    st = eng.stats()
+    check(len(out) == len(requests) and not eng.queue and not eng.running,
+          f"engine drained {len(out)} of {len(requests)} requests")
+    for rid, (prompt, new) in enumerate(requests):
+        toks = out[rid]
+        check(len(toks) == len(prompt) + new and np.array_equal(toks[:len(prompt)], prompt),
+              f"engine request {rid}: {len(toks)} tokens for {len(prompt)} + {new}")
+        check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"engine request {rid}: token ids out of range")
+    codes = st["health"]["count_by_code"]
+    check(not {"BSPS203", "BSPS211"} & set(codes), f"engine health events {st['health']}")
+    log(f"[engine] {len(requests)} requests (prompts 16-256, 32-64 new tokens, greedy) over "
+        f"{eng.max_lanes} lanes, pool {eng.pool_seq} positions x {eng.max_lanes} lanes "
+        f"({M.cache_bytes(cfg, eng.max_lanes, eng.pool_seq) / 1e9:.2f} GB), segment "
+        f"{eng.segment_len}: segments={st['segments']} tokens={st['tokens']} "
+        f"tokens_per_s={st['tokens_per_s']:.1f} latency_p50_ms={st['latency_p50_s'] * 1e3:.2f} "
+        f"latency_p99_ms={st['latency_p99_s'] * 1e3:.2f} mean_occupancy="
+        f"{st['mean_occupancy']:.2f} prefill_ms_mean="
+        f"{np.mean([r.prefill_seconds for r in eng.finished.values()]) * 1e3:.1f} "
+        f"health={json.dumps(codes)}")
+    verdicts = [(a["verdict"], a["measured_verdict"]) for a in eng.admission_log]
+    log(f"[engine] admissions={st['admissions']} confirmed={st['admission_verdict_matches']} "
+        f"(predicted, measured): {json.dumps(verdicts)} "
+        f"first segment predicted_vs_measured={json.dumps(eng.segment_log[0])}")
+
+    # every segment's products took the decode variant (m = 8 lanes), one
+    # launch each; the joins' prefills took wgmma (blocks over 16 rows)
+    mlp = 3 * cfg.num_layers
+    for i, c in enumerate(per_segment):
+        check(c["streamed_matmul.decode"] == c["streamed_matmul"] == mlp * eng.segment_len,
+              f"engine segment {i}: matmul launches {c}")
+    check(total["streamed_matmul.wgmma"] > 0 and total["streamed_matmul.decode"] > 0
+          and total["streamed_matmul.wmma"] == total["streamed_matmul.decode_wmma"] == 0,
+          f"engine matmul variants {total}")
+    log(f"[engine] matmul launches per segment: decode {mlp * eng.segment_len} "
+        f"({mlp} per packed step, every segment); whole run: {json.dumps(total)}")
+    check(synced["guarded"] == len(per_segment) - 1 >= 1, f"sync guard {synced}")
+    log(f"[engine] sync-debug: {synced['guarded']} steady-state segments replayed under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host sync inside a segment")
+
+    # each checked request's engine tokens fed to a batch-1 decode: the
+    # lane's logits at every boundary against batch-1's at the same position,
+    # and every engine token against batch-1's logits before it
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = {m: [decode_split(m, n, k, sms) for k, n in ((cfg.d_model, cfg.d_ff),
+                                                          (cfg.d_ff, cfg.d_model))]
+              for m in (1, eng.max_lanes)}
+    log(f"[engine] decode matmul K split (up, down) at m = 1: {splits[1]}, at m = "
+        f"{eng.max_lanes}: {splits[eng.max_lanes]}; near tie: margin < {NEAR_TIE:g} of the "
+        f"largest |logit|, boundary logits held within {NEAR_TIE / 2:g}")
+    for rid in checked:
+        prompt, new = requests[rid]
+        p = torch.from_numpy(prompt).cuda()
+        got = out[rid][len(prompt):].tolist()
+        lg1 = batch1_logits(cfg, params, p, got, eng.pool_seq, machine)
+        scale = lg1.abs().amax(-1)
+        top2 = torch.topk(lg1, 2, dim=-1)
+        fed = torch.tensor(got, device="cuda")
+        gaps = ((top2.values[:, 0] - lg1.gather(1, fed[:, None])[:, 0]) / scale).tolist()
+        margins = ((top2.values[:, 0] - top2.values[:, 1]) / scale).tolist()
+        want = top2.indices[:, 0].tolist()
+        div = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        drifts = [((lg - lg1[n]).abs().max() / scale[n]).item() for n, lg in seen[rid]]
+        picked = [got[n] == int(torch.argmax(lg)) for n, lg in seen[rid]]
+        if rid == checked[0]:
+            ref, _ = generate(cfg, params, p[None], steps=new, machine=machine,
+                              max_len=eng.pool_seq, device="cuda")
+            upto = new if div is None else div + 1
+            check(ref[0, len(prompt):len(prompt) + upto].tolist() == want[:upto],
+                  "batch-1 teacher-forced decode disagrees with generate")
+        check(div != 0, f"engine request {rid}: first token differs from batch-1's")
+        check(len(drifts) >= 2 and all(picked),
+              f"engine request {rid}: boundary tokens {picked} are not their logits' argmax")
+        check(max(drifts) < NEAR_TIE / 2,
+              f"engine request {rid}: lane logits stray {max(drifts):.4g} from batch-1's at "
+              f"the segment boundaries {[n for n, _ in seen[rid]]}: {drifts}")
+        check(max(gaps) <= NEAR_TIE,
+              f"engine request {rid}: token at step {int(np.argmax(gaps))} is {max(gaps):.4g} "
+              f"below batch-1's top logit")
+        at = "none" if div is None else (
+            f"at step {div} (batch-1 margin {margins[div]:.4g}, engine token ranked "
+            f"{int((lg1[div] > lg1[div, got[div]]).sum()) + 1})")
+        tie = next((i for i in range(1, new) if margins[i] < NEAR_TIE), None)
+        log(f"[engine] request {rid} (prompt {len(prompt)}, {new} new): first divergence from "
+            f"batch-1 generate {at}; first near tie {tie}; lane logits vs batch-1 at "
+            f"{len(drifts)} boundaries: max {max(drifts):.4g}; largest gap of an engine token "
+            f"below the batch-1 top {max(gaps):.4g}")
+    clean_prefix = {rid: out[rid] for rid in range(2)}
+    del eng, out
+    gc.collect()
+
+    # a short run twice: clean, and with one failed dispatch and one exhausted
+    # page pool — the same greedy tokens, the faults logged
+    short = [(prompt, 16) for prompt, _ in requests[:2]]
+    _, clean, _ = run_engine(cfg, params, machine, short)
+    inj = FaultPlan([FaultSpec("dispatch_fail", at=(1,)),
+                     FaultSpec("page_exhaust", at=(0,))]).replay()
+    feng, faulty, _ = run_engine(cfg, params, machine, short, faults=inj, retry_backoff_s=0.0)
+    codes = feng.health.counts_by_code()
+    check(all(np.array_equal(clean[r], faulty[r]) for r in clean),
+          "engine fault run: tokens differ from the clean run")
+    check(codes.get("BSPS204") == 1 and codes.get("BSPS207") == 1 and "BSPS211" not in codes,
+          f"engine fault run codes {codes}")
+    check([(f.kind, f.index) for f in inj.trace] == [("page_exhaust", 0), ("dispatch_fail", 1)],
+          f"engine fault run trace {inj.trace}")
+    same = all(np.array_equal(clean[r], clean_prefix[r][:len(clean[r])]) for r in clean)
+    log(f"[engine] fault run (dispatch_fail at dispatch 1, page_exhaust at check 0): "
+        f"trace {[(f.kind, f.index) for f in inj.trace]}, codes {json.dumps(codes)}, tokens "
+        f"equal to the clean run's; equal to the 16-request run's first 16: {same}")
+    del feng
+    gc.collect()
 
 
 def serve_jamba(machine) -> dict:

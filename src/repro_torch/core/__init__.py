@@ -1,5 +1,6 @@
 """The paper's contribution, ported: the BSP accelerator model, pseudo-streams,
-hypersteps and the BSPS cost function."""
+hypersteps and the BSPS cost function, with the runtime's fault injection and
+health monitoring."""
 
 from repro_torch.core.bsp import BSPAccelerator, BSPComputer, EPIPHANY_III
 from repro_torch.core.cost import (
@@ -13,6 +14,21 @@ from repro_torch.core.cost import (
     cannon_k_equal,
     inner_product_cost,
 )
+from repro_torch.core.faults import (
+    FAULT_KINDS,
+    FaultInjected,
+    FaultInjector,
+    FaultPlan,
+    FaultRecord,
+    FaultSpec,
+    corrupt_array,
+    fault_signature,
+)
+from repro_torch.core.health import (
+    HEALTH_CODES,
+    HealthEvent,
+    HealthMonitor,
+)
 from repro_torch.core.hyperstep import (
     CompiledHyperstepProgram,
     HyperstepRecord,
@@ -20,6 +36,7 @@ from repro_torch.core.hyperstep import (
     run_bsps,
 )
 from repro_torch.core.plan import (
+    CompiledSchedule,
     PlanChoice,
     ScratchSpec,
     StreamPlan,
@@ -35,8 +52,11 @@ __all__ = [
     "HyperstepCost", "SuperstepCost", "bsp_cost", "bsps_cost",
     "cannon_bsp_cost", "cannon_bsps_cost", "cannon_hyperstep", "cannon_k_equal",
     "inner_product_cost",
+    "FAULT_KINDS", "FaultInjected", "FaultInjector", "FaultPlan",
+    "FaultRecord", "FaultSpec", "corrupt_array", "fault_signature",
+    "HEALTH_CODES", "HealthEvent", "HealthMonitor",
     "CompiledHyperstepProgram", "HyperstepRecord", "HyperstepRunner", "run_bsps",
-    "PlanChoice", "ScratchSpec", "StreamPlan", "TokenSpec",
+    "CompiledSchedule", "PlanChoice", "ScratchSpec", "StreamPlan", "TokenSpec",
     "autotune", "enumerate_plans", "host_plan",
     "Stream", "StreamSet",
 ]

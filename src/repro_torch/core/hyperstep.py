@@ -65,8 +65,15 @@ Two execution modes:
   identical), so :meth:`HyperstepRunner.predicted_vs_measured` stays the
   Eq. 1 table row.
 
-The JAX package's fault injection, health monitor, calibration store and
-static verifier hooks are not ported yet.
+The runner's robustness hooks are the JAX package's: a static verifier
+(:func:`repro_torch.core.verify.verify_runner`) runs before a run or a
+compile, a :class:`~repro_torch.core.faults.FaultInjector` is consulted at the
+dispatch, the DMA lanes, the compute and the flush, a
+:class:`~repro_torch.core.health.HealthMonitor` scores each record against its
+Eq. 1 price, and each run lands as one record in a
+:class:`~repro_torch.core.calibstore.CalibrationStore`. In compiled mode the
+health check and the calibration record happen at the run's boundary, after
+the replay: nothing inside the replay reads the card back.
 """
 
 from __future__ import annotations
@@ -82,10 +89,11 @@ import torch
 from repro_torch.core.bsp import BSPAccelerator
 from repro_torch.core.plan import StreamPlan
 from repro_torch.core.stream import Stream
+from repro_torch.core.verify import Diagnostic, PlanVerificationError, verify_runner
 from repro_torch.device import resolve_device
 
 __all__ = ["HyperstepRecord", "HyperstepRunner", "CompiledHyperstepProgram",
-           "run_bsps"]
+           "PlanVerificationError", "run_bsps"]
 
 
 @dataclasses.dataclass
@@ -211,13 +219,21 @@ def _fetch(
     rates: Sequence[int],
     core: int,
     lane: _Lane,
+    inj: Any = None,
+    g: int = 0,
 ) -> tuple[list[Any], float]:
     """Stage the next token block of each advancing stream into local memory.
 
     Returns (tokens, seconds): one entry per *advancing* (rate > 0) stream, in
-    stream order, plus the in-thread duration — the lane-busy time.
+    stream order, plus the in-thread duration — the lane-busy time. With a
+    fault injector ``inj``, hyperstep ``g``'s injected DMA stall sleeps
+    *inside* the lane first, so the stall is real lane-busy time and the bulk
+    sync feels it.
     """
     t0 = time.perf_counter()
+    d = inj.fetch_delay(g, core) if inj is not None else 0.0
+    if d:
+        time.sleep(d)
     toks = []
     for s, rate in zip(streams, rates):
         if rate <= 0:
@@ -231,14 +247,20 @@ def _prologue(
     rates: Sequence[int],
     core: int,
     lane: _Lane,
+    inj: Any = None,
+    g: int = 0,
 ) -> tuple[list[Any], list[Any], int, float]:
     """Pre-loop staging: rate-0 residents + hyperstep 0's tokens, one core.
 
     Returns (residents, first_tokens, words, seconds) — the words and the
     in-thread duration cover *everything* this core moved before hyperstep 0,
-    matching the plan's arrival-0 charge.
+    matching the plan's arrival-0 charge. ``inj``/``g`` inject a DMA stall on
+    that staging, as in ``_fetch``.
     """
     t0 = time.perf_counter()
+    d = inj.fetch_delay(g, core) if inj is not None else 0.0
+    if d:
+        time.sleep(d)
     residents: list[Any] = []
     words = 0
     for s, r in zip(streams, rates):
@@ -318,6 +340,14 @@ def _gather_block(stacked: torch.Tensor, start: int, rate: int) -> torch.Tensor:
         return stacked[start]
     sl = stacked[start:start + rate]
     return sl.reshape((rate * sl.shape[1],) + tuple(sl.shape[2:]))
+
+
+def _scatter_block(buf: torch.Tensor, tok: Any, idx: int) -> None:
+    """Device-side ``move_up``: write ``tok`` into row ``idx`` of a stacked
+    out-buffer, in place. The flush mask is static, so the caller skips the
+    rows that do not complete; no host sync."""
+    row = buf[idx]
+    row.copy_(torch.as_tensor(tok).reshape(row.shape))
 
 
 @dataclasses.dataclass
@@ -408,6 +438,35 @@ class HyperstepRunner:
         :class:`BSPAccelerator` to price it on. When both are given the
         runner predicts its own wall time with Eq. 1 — the plan also supplies
         the default hyperstep count.
+    verify:
+        If True (default) the runner statically verifies the run before
+        executing or compiling it (:func:`repro_torch.core.verify.verify_runner`):
+        cursor overruns, bad MOVE seeks, up-stream write races, backing
+        aliasing and budget blowouts raise
+        :class:`~repro_torch.core.verify.PlanVerificationError` *before* any
+        dispatch. Memoized per (hyperstep count, cursor positions), so hot
+        paths pay a set lookup. ``verify=False`` opts out.
+    faults:
+        Optional :class:`~repro_torch.core.faults.FaultInjector`, consulted
+        before each dispatch (host loop: per hyperstep; compiled: per run —
+        an injected ``dispatch_fail`` raises
+        :class:`~repro_torch.core.faults.FaultInjected` from :meth:`run`
+        before any cursor or state moves), inside each DMA lane's fetch
+        (``dma_stall``), around the compute (``straggler``) and on up-stream
+        tokens at flush time (``corrupt``). Hyperstep-indexed triggers use
+        the *global* hyperstep count, so a host-loop run and a compiled run
+        of the same program produce the same fault trace.
+    health:
+        Optional :class:`~repro_torch.core.health.HealthMonitor`. Each
+        appended aggregate record is scored against its Eq. 1 prediction and
+        flushed up-stream tokens are NaN-checked — in compiled mode once, at
+        the run's boundary.
+    calibstore:
+        Where each run's measured aggregates land as one
+        :class:`~repro_torch.core.calibstore.MeasurementRecord` (needs
+        ``plan`` + ``machine``). ``None`` records into the process default
+        store, a :class:`~repro_torch.core.calibstore.CalibrationStore`
+        isolates, ``False`` disables recording.
     """
 
     def __init__(
@@ -425,6 +484,10 @@ class HyperstepRunner:
         on_hyperstep_end: Callable[[int, Sequence[Any]], None] | None = None,
         plan: StreamPlan | None = None,
         machine: BSPAccelerator | None = None,
+        verify: bool = True,
+        faults: Any | None = None,
+        health: Any | None = None,
+        calibstore: Any | None = None,
     ) -> None:
         self._step = step
         self._multi = cores is not None
@@ -486,7 +549,18 @@ class HyperstepRunner:
         # run one per run — the execution mode's own barrier count, priced at
         # the machine's l (which calibrate() measures as that latency)
         self.dispatches_run: int = 0
+        # lifetime twins of the two counters above: fault triggers and health
+        # observations are indexed by these, and they survive reset_records()
+        # — a segment engine that resets its per-segment row must still walk
+        # forward through a FaultPlan's hyperstep domain
+        self.lifetime_hypersteps: int = 0
+        self.lifetime_dispatches: int = 0
         self._compiled_cache: dict[int, CompiledHyperstepProgram] = {}
+        self._verify_enabled = verify
+        self._verified_keys: set[Any] = set()
+        self.faults = faults
+        self.health = health
+        self.calibstore = calibstore
 
     # -- schedule helpers ----------------------------------------------------
 
@@ -554,6 +628,114 @@ class HyperstepRunner:
 
     def _on_end_arg(self) -> Any:
         return self._streams if self._multi else self._streams[0]
+
+    # -- static verification ---------------------------------------------------
+
+    def verify(self, num_hypersteps: int | None = None) -> list[Diagnostic]:
+        """Statically verify the upcoming run; returns all diagnostics.
+
+        Pure cursor arithmetic (no data moves, nothing compiles) — see
+        :func:`repro_torch.core.verify.verify_runner`. :meth:`run` and
+        :meth:`compile` call this automatically unless the runner was built
+        with ``verify=False``; call it directly to see warnings and infos,
+        which the automatic hook ignores.
+        """
+        return verify_runner(self, num_hypersteps)
+
+    def _verify_or_raise(self, total: int) -> None:
+        """The compile/run hook: raise on error findings, memoized per walk."""
+        if not self._verify_enabled:
+            return
+        key = (
+            total,
+            tuple(tuple(s.cursor for s in ss) for ss in self._streams),
+            tuple(tuple(s.cursor for s in outs) for outs in self._out_streams),
+        )
+        if key in self._verified_keys:
+            return
+        errors = [d for d in self.verify(total) if d.severity == "error"]
+        if errors:
+            raise PlanVerificationError(errors)
+        self._verified_keys.add(key)
+
+    # -- fault injection / health / calibration hooks --------------------------
+
+    @property
+    def _source_name(self) -> str:
+        return self.plan.name if self.plan is not None else "hyperstep"
+
+    def _predicted_seconds_for(self, total: int, dispatches: int = 1) -> float:
+        """Eq. 1 price of ``total`` hypersteps + ``dispatches`` barriers.
+
+        The health monitor's SLO denominator. Without a plan + machine the
+        fallback is a flat per-hyperstep unit — the monitor's baseline ratio
+        self-normalizes, so only *changes* in per-hyperstep time alarm.
+        """
+        if self.plan is not None and self.machine is not None:
+            per = (self.plan.predicted_seconds(self.machine)
+                   / max(self.plan.num_hypersteps, 1))
+            return per * total + self.machine.flops_to_seconds(
+                self.machine.l * dispatches)
+        return 1e-3 * max(total, 1)
+
+    def _observe(self, total: int, dispatches: int, index: int,
+                 measured_seconds: float | None = None) -> None:
+        if self.health is None or not self.records:
+            return
+        self.health.observe_record(
+            self.records[-1], self._predicted_seconds_for(total, dispatches),
+            source=self._source_name, index=index,
+            measured_seconds=measured_seconds)
+
+    def _record_measurement(self, hypersteps: int, dispatches: int,
+                            rec_start: int, fault_start: int,
+                            measured_seconds: float) -> None:
+        """Fold the run just finished into the calibration store.
+
+        Runs with an active injector are recorded *with* their ``faulty``
+        flag rather than dropped — the robust fitter's outlier screen is what
+        rejects a sporadic stall, and a sustained one is real drift it must
+        see. Store recording must never fail the run that was measured.
+        """
+        if self.plan is None or self.machine is None or self.calibstore is False:
+            return
+        store = self.calibstore
+        if store is None:
+            from repro_torch.core.calibstore import get_default_store
+            store = get_default_store()
+        faulty = (self.faults is not None and
+                  len(getattr(self.faults, "trace", ())) > fault_start)
+        try:
+            store.record_run(
+                plan=self.plan, machine=self.machine,
+                records=self.records[rec_start:],
+                hypersteps=hypersteps, dispatches=dispatches,
+                predicted_seconds=self._predicted_seconds_for(
+                    hypersteps, dispatches),
+                measured_seconds=measured_seconds, faulty=faulty,
+                device=self.device)
+        except (ValueError, OverflowError):
+            # a plan whose flops cannot be aggregated (callable per-step work
+            # on a giant grid with no declared mean) prices nothing — skip
+            return
+
+    def _apply_compiled_corruption(self, sched: _RunSchedule, out_bufs: Any,
+                                   base: int, total: int) -> Any:
+        """Apply compiled-mode ``corrupt`` triggers to the scattered rows."""
+        from repro_torch.core.faults import corrupt_stacked_row
+
+        for h_local, slot, mode, core_sel in self.faults.corrupt_targets(
+                base, total):
+            if slot >= len(self._out_streams[0]):
+                continue
+            if not sched.flush_mask[h_local, slot]:
+                continue
+            for c, core in enumerate(self._core_ids):
+                if core_sel is not None and core != core_sel:
+                    continue
+                row = int(sched.scatter_indices[h_local, c, slot])
+                out_bufs[c][slot] = corrupt_stacked_row(out_bufs[c][slot], row, mode)
+        return out_bufs
 
     # -- compiled mode -------------------------------------------------------
 
@@ -658,6 +840,7 @@ class HyperstepRunner:
         total = self._resolve_total(num_hypersteps)
         if total <= 0:
             raise ValueError(f"nothing to compile (total={total})")
+        self._verify_or_raise(total)
         sched = self._simulate_schedule(total)
         prog = CompiledHyperstepProgram(
             total=total, schedule=sched, _call=self._build_program(sched))
@@ -703,9 +886,9 @@ class HyperstepRunner:
                     if not flush[h][j]:
                         continue
                     for c in range(ncores):
-                        tok = out_tokens[j][c] if multi else out_tokens[j]
-                        row = out_bufs[c][j][scatter[h][c][j]]
-                        row.copy_(torch.as_tensor(tok).reshape(row.shape))
+                        _scatter_block(out_bufs[c][j],
+                                       out_tokens[j][c] if multi else out_tokens[j],
+                                       scatter[h][c][j])
             return state, out_bufs
 
         return program
@@ -714,6 +897,14 @@ class HyperstepRunner:
         total = self._resolve_total(num_hypersteps)
         if total <= 0:
             return state
+        self._verify_or_raise(total)
+        base = self.lifetime_hypersteps
+        fault_start = (len(getattr(self.faults, "trace", ()))
+                       if self.faults is not None else 0)
+        if self.faults is not None:
+            # simulated preemption: raises before any stream opens or state
+            # moves, so the caller may retry the dispatch verbatim
+            self.faults.on_dispatch()
         prog = self._compiled_cache.get(total)
         if prog is not None and not self._schedule_current(prog.schedule):
             # the streams stand at a different cursor position than the
@@ -737,13 +928,36 @@ class HyperstepRunner:
                         for outs in self._out_streams]
             _block(stacked)
             _block(out_bufs)
+            if self.faults is not None:
+                # the whole run stages at once, so every dma_stall trigger in
+                # range lands on this one link crossing
+                d = sum(self.faults.fetch_delay(g)
+                        for g in range(base, base + total))
+                if d:
+                    time.sleep(d)
             stage_s = time.perf_counter() - t0
 
             t1 = time.perf_counter()
             state, out_bufs = prog(state, out_bufs, stacked)
             _block(state)
             _block(out_bufs)
+            if self.faults is not None:
+                d = sum(self.faults.compute_delay(g)
+                        for g in range(base, base + total))
+                if d:
+                    time.sleep(d)
             run_s = time.perf_counter() - t1
+
+            # the run's boundary: corruption triggers land on the scattered
+            # rows, and the health monitor reads each output buffer once
+            if self.faults is not None:
+                out_bufs = self._apply_compiled_corruption(
+                    sched, out_bufs, base, total)
+            if self.health is not None:
+                for c in range(self.num_cores):
+                    for buf in out_bufs[c]:
+                        self.health.check_output(
+                            buf, source=self._source_name, index=base)
 
             # drain the finished output tokens back to external memory and
             # advance the cursors to the walk's final positions
@@ -792,6 +1006,18 @@ class HyperstepRunner:
         ))
         self.hypersteps_run += total
         self.dispatches_run += 1
+        self.lifetime_hypersteps += total
+        self.lifetime_dispatches += 1
+        # the run's bulk-synchronous wall: staging the pseudo-stream across
+        # the link + the replay + draining the outputs. step_seconds alone is
+        # the compute window — Eq. 1 prices the link crossings too, so health
+        # scoring and the calibration record use the full wall (a stalled
+        # DMA lands in stage_s and must move the ratio)
+        wall = stage_s + run_s + drain_s
+        self._observe(total, 1, self.lifetime_dispatches - 1,
+                      measured_seconds=wall)
+        self._record_measurement(total, 1, len(self.records) - 1,
+                                 fault_start, wall)
         return state
 
     def run(self, state: Any, num_hypersteps: int | None = None, *,
@@ -844,6 +1070,11 @@ class HyperstepRunner:
             total = self._resolve_total(num_hypersteps)
             if total <= 0:
                 return state
+            self._verify_or_raise(total)
+            inj = self.faults
+            base = self.lifetime_hypersteps
+            rec_start = len(self.records)
+            fault_start = len(getattr(inj, "trace", ())) if inj is not None else 0
 
             # Hyperstep 0's tokens are assumed resident at program start
             # (paper §2); rate-0 operands are fetched here, once, and reused.
@@ -851,7 +1082,7 @@ class HyperstepRunner:
             # lane-busy time land in record 0's initial_fetch_* fields so the
             # measured fetch totals match the plan's arrival-0 charge.
             pro_futs = [
-                dma.submit(_prologue, ss, self._rates, core, lane)
+                dma.submit(_prologue, ss, self._rates, core, lane, inj, base)
                 for dma, ss, core, lane in zip(self._dma, self._streams,
                                                self._core_ids, lanes)
             ]
@@ -871,19 +1102,25 @@ class HyperstepRunner:
             n_out = len(self._out_streams[0])
 
             for h in range(total):
+                if inj is not None:
+                    # host-loop dispatch = one step call per hyperstep; an
+                    # injected preemption raises here, before this step's
+                    # compute or cursor motion (the finally rewinds streams)
+                    inj.on_dispatch()
                 t0 = time.perf_counter()
                 last = h == total - 1
                 futs: list[Future] | None = None
                 if not last:
                     if self._prefetch:
                         futs = [
-                            dma.submit(_fetch, ss, self._rates, core, lane)
+                            dma.submit(_fetch, ss, self._rates, core, lane,
+                                       inj, base + h + 1)
                             for dma, ss, core, lane in zip(
                                 self._dma, self._streams, self._core_ids, lanes)
                         ]
                     else:
                         nxts = [
-                            _fetch(ss, self._rates, core, lane)
+                            _fetch(ss, self._rates, core, lane, inj, base + h + 1)
                             for ss, core, lane in zip(
                                 self._streams, self._core_ids, lanes)
                         ]
@@ -902,6 +1139,10 @@ class HyperstepRunner:
                     # the bulk sync doubles as the timing fence; without
                     # records the steps may be enqueued ahead freely
                     _block(state)
+                if inj is not None:
+                    d = inj.compute_delay(base + h)
+                    if d:
+                        time.sleep(d)  # straggler: the core, not the link
                 compute_s = time.perf_counter() - t_c
 
                 wait_s = 0.0
@@ -925,6 +1166,18 @@ class HyperstepRunner:
                 flush = [(h + 1) % e == 0 for e in self._out_every]
                 wb_now = [(0, 0.0)] * ncores
                 if n_out and any(flush):
+                    if inj is not None:
+                        out_tokens = [
+                            inj.corrupt_token(base + h, j, tok)
+                            if flush[j] and tok is not None else tok
+                            for j, tok in enumerate(out_tokens)
+                        ]
+                    if self.health is not None:
+                        for j, tok in enumerate(out_tokens):
+                            if flush[j] and tok is not None:
+                                self.health.check_output(
+                                    tok, source=self._source_name,
+                                    index=base + h)
                     per_core_out = self._per_core_out(out_tokens)
                     if self._prefetch:
                         # absolute index: records accumulate across run() calls
@@ -984,12 +1237,20 @@ class HyperstepRunner:
                 ))
                 self.hypersteps_run += 1
                 self.dispatches_run += 1
+                self.lifetime_hypersteps += 1
+                self.lifetime_dispatches += 1
+                self._observe(1, 1, base + h)
                 if self._on_end and not last:
                     # Cursor adjustments (seek/MOVE) for the *following* fetch.
                     self._on_end(h + 1, self._on_end_arg())
             join_writeback()
             if not measure:
                 _block(state)  # final bulk sync before cursors rewind
+            # host-loop wall: step_seconds already spans compute + fetch wait
+            # per hyperstep, so the run's measured side is their sum
+            self._record_measurement(
+                total, total, rec_start, fault_start,
+                sum(r.step_seconds for r in self.records[rec_start:]))
             return state
         finally:
             # join any in-flight DMA work *before* closing: close() rewinds

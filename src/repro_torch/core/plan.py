@@ -57,9 +57,14 @@ __all__ = [
     "TokenSpec",
     "ScratchSpec",
     "StreamPlan",
+    "CompiledSchedule",
     "PlanChoice",
+    "AdmissionDecision",
     "host_plan",
     "streamed_operand",
+    "batched_scratch",
+    "packed_decode_plan",
+    "admission_decision",
     "enumerate_plans",
     "autotune",
     "median_seconds",
@@ -156,6 +161,40 @@ class ScratchSpec:
     @property
     def nbytes(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64)) * dtype_itemsize(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompiledSchedule:
+    """A plan's cursor walk as static index arrays (one row per hyperstep).
+
+    The device-side image of :meth:`StreamPlan.fetch_schedule` /
+    :meth:`StreamPlan.writeback_schedule`: everything a compiled hyperstep
+    program (:meth:`repro_torch.core.hyperstep.HyperstepRunner.compile`)
+    needs to replay the whole walk — including ``MOVE``-style reuse, which
+    appears as repeated block coordinates — without any host round-trips.
+    All arrays are in execution order (last grid axis fastest).
+
+    ``in_blocks[i]``  (H, rank) int32 — input i's block coords at each step.
+    ``in_changed[i]`` (H,) bool — steps whose block differs from the previous
+                      one (the steps the fetch schedule charges ``e·C_i``).
+    ``out_blocks[j]`` (H, rank) int32 — output j's block coords.
+    ``out_completes[j]`` (H,) bool — steps at which the resident output block
+                      is *finished* (the walk moves off it next step, or the
+                      grid ends): the steps a compiled program must write it.
+    ``fetch_words`` / ``writeback_words`` (H,) int64 — the per-step word
+                      charges, identical to the schedule methods' lists.
+    """
+
+    in_blocks: tuple[np.ndarray, ...]
+    in_changed: tuple[np.ndarray, ...]
+    out_blocks: tuple[np.ndarray, ...]
+    out_completes: tuple[np.ndarray, ...]
+    fetch_words: np.ndarray
+    writeback_words: np.ndarray
+
+    @property
+    def num_hypersteps(self) -> int:
+        return len(self.fetch_words)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,6 +335,49 @@ class StreamPlan:
             written[-1] += sum(t.words for t in self.outputs)
         object.__setattr__(self, "_writeback_cache", written)
         return written
+
+    def compiled_schedule(self) -> CompiledSchedule:
+        """The whole cursor walk as static index arrays (compiled-mode input).
+
+        Enumerates the grid once and materialises, per token spec, the block
+        coordinates resident at every hyperstep plus the change/completion
+        masks — ``fetch_schedule``/``writeback_schedule`` and the ``MOVE``
+        seeks they encode, turned into arrays a compiled replay can gather
+        and scatter with. For 1-D (host-level) grids the first coordinate
+        column is directly the stream token index.
+        """
+        if self.num_hypersteps > ENUMERATION_LIMIT:
+            raise ValueError(
+                f"{self.name}: {self.num_hypersteps} hypersteps exceeds the "
+                f"enumeration limit {ENUMERATION_LIMIT}; compiled schedules "
+                "need an enumerable grid")
+        h_total = self.num_hypersteps
+        coords_all = list(itertools.product(*(range(g) for g in self.grid)))
+        in_blocks, in_changed = [], []
+        for tok in self.inputs:
+            blocks = np.asarray([tok.index_map(*c) for c in coords_all],
+                                np.int32).reshape(h_total, -1)
+            changed = np.ones(h_total, bool)
+            changed[1:] = np.any(blocks[1:] != blocks[:-1], axis=1)
+            in_blocks.append(blocks)
+            in_changed.append(changed)
+        out_blocks, out_completes = [], []
+        for tok in self.outputs:
+            blocks = np.asarray([tok.index_map(*c) for c in coords_all],
+                                np.int32).reshape(h_total, -1)
+            completes = np.zeros(h_total, bool)
+            completes[:-1] = np.any(blocks[1:] != blocks[:-1], axis=1)
+            completes[-1] = True
+            out_blocks.append(blocks)
+            out_completes.append(completes)
+        return CompiledSchedule(
+            in_blocks=tuple(in_blocks),
+            in_changed=tuple(in_changed),
+            out_blocks=tuple(out_blocks),
+            out_completes=tuple(out_completes),
+            fetch_words=np.asarray(self.fetch_schedule(), np.int64),
+            writeback_words=np.asarray(self.writeback_schedule(), np.int64),
+        )
 
     # -- identity ------------------------------------------------------------
 
@@ -642,7 +724,7 @@ def host_plan(
 
 
 # ---------------------------------------------------------------------------
-# Serving-tier pricing: operands that stream every hyperstep
+# Serving-tier pricing: packed decode plans and Eq. 1-priced admission
 # ---------------------------------------------------------------------------
 
 
@@ -668,6 +750,163 @@ def streamed_operand(name: str, words: int, *, dtype: Any = torch.float32,
     )
 
 
+def batched_scratch(name: str, bytes_per_lane: int, lanes: int,
+                    dtype: Any = torch.int8) -> ScratchSpec:
+    """Persistent per-lane state of a packed batch as one ScratchSpec.
+
+    The serve engine's paged KV pool is plan scratch — it never moves on the
+    external link as a stream token (decode *reads* of it are priced
+    separately via :func:`streamed_operand`), but it occupies local memory,
+    so :attr:`StreamPlan.vmem_bytes` must budget all ``lanes`` copies.
+    """
+    itemsize = dtype_itemsize(dtype)
+    if bytes_per_lane % itemsize:
+        raise ValueError(
+            f"bytes_per_lane={bytes_per_lane} not a multiple of "
+            f"{dtype_name(dtype)} itemsize {itemsize}")
+    return ScratchSpec(name, (lanes, bytes_per_lane // itemsize), dtype)
+
+
+def packed_decode_plan(
+    *,
+    lanes: int,
+    steps: int,
+    flops_per_token: float,
+    params_words: int,
+    kv_words_per_lane: float,
+    out_words_per_lane: int = 1,
+    scratch: tuple[ScratchSpec, ...] = (),
+    supersteps_per_hyperstep: float = 1.0,
+    name: str = "packed_decode",
+) -> StreamPlan:
+    """Eq. 1 plan for ``steps`` packed decode hypersteps over ``lanes`` lanes.
+
+    One hyperstep = one batched forward pass generating one token per lane.
+    The compute side is ``lanes · flops_per_token`` plus one barrier ``l``
+    per hyperstep (``supersteps_per_hyperstep = 1`` — the dispatch/bulk-sync
+    the BSF line of work shows must be priced for the batching break-even to
+    exist). On the link side the parameters are a *resident* operand — they
+    cross the external link once for the whole segment and are then shared
+    by every lane and every step (the term batching amortises); what streams
+    *every* hyperstep is each lane's KV working set (the term that grows
+    with occupancy and sequence length), plus one generated id per lane
+    written back up.
+
+    This is the plan the serve engine prices *before* admitting a request:
+    compare ``packed_decode_plan(lanes=B)`` against ``lanes=B+1`` with
+    :func:`admission_decision` — the verdict tips bandwidth-heavy exactly
+    when one more lane's per-step KV traffic outweighs the flops it adds.
+    """
+    if lanes <= 0 or steps <= 0:
+        raise ValueError(f"need lanes > 0 and steps > 0, got {lanes}, {steps}")
+    kv_words = int(round(lanes * kv_words_per_lane))
+    inputs = [TokenSpec(
+        name="params",
+        block_shape=(int(params_words),),
+        index_map=lambda t: (0,),
+        dtype=torch.float32,
+        full_shape=(int(params_words),),
+        direction="down",
+        rate=0,                     # resident: fetched once, reused all segment
+    )]
+    if kv_words > 0:
+        inputs.append(streamed_operand("kv_pool", kv_words))
+    outputs = (TokenSpec(
+        name="generated",
+        block_shape=(1, lanes * out_words_per_lane),
+        index_map=lambda t: (t, 0),
+        dtype=torch.int32,
+        full_shape=(steps, lanes * out_words_per_lane),
+        direction="up",
+    ),)
+    return StreamPlan(
+        name=name,
+        grid=(steps,),
+        inputs=tuple(inputs),
+        outputs=outputs,
+        scratch=scratch,
+        dimension_semantics=("arbitrary",),
+        flops_per_hyperstep=flops_per_token * lanes,
+        supersteps_per_hyperstep=supersteps_per_hyperstep,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionDecision:
+    """Eq. 1's answer to "does admitting one more stream still pay?".
+
+    ``verdict`` is the candidate plan's side of Eq. 1's ``max``
+    (``"compute_bound"`` or ``"bandwidth_heavy"``); ``admit`` is the policy:
+    admit while the packed step is predicted to *stay* compute-bound — the
+    admission that tips a compute-bound batch bandwidth-heavy is the one
+    deferred (the BSF scalability boundary, applied per admission). A batch
+    that is already bandwidth-heavy (e.g. batch-1 decode, a GEMV streaming
+    the whole weight set) is a different regime: there one more lane
+    amortises the shared link terms, so the policy admits while
+    ``throughput_gain`` — predicted candidate tokens/sec over current —
+    stays above 1.
+    """
+
+    admit: bool
+    verdict: str
+    predicted_step_seconds: float
+    predicted_tokens_per_s: float
+    throughput_gain: float
+
+    def row(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def admission_decision(
+    current: StreamPlan | None,
+    candidate: StreamPlan,
+    acc: BSPAccelerator,
+    *,
+    tokens_per_hyperstep: float,
+    current_tokens_per_hyperstep: float | None = None,
+) -> AdmissionDecision:
+    """Price admitting one more stream: compare candidate vs current with Eq. 1.
+
+    ``current=None`` means the engine is idle — an idle engine always admits
+    (there is no throughput to protect), but the verdict is still reported so
+    the caller can see whether even one lane is bandwidth-heavy.
+    """
+    cand_s = candidate.predicted_seconds(acc) / candidate.num_hypersteps
+    cand_tps = tokens_per_hyperstep / max(cand_s, 1e-12)
+    heavy = candidate.bandwidth_heavy(acc)
+    verdict = "bandwidth_heavy" if heavy else "compute_bound"
+    if current is None:
+        return AdmissionDecision(
+            admit=True, verdict=verdict,
+            predicted_step_seconds=cand_s,
+            predicted_tokens_per_s=cand_tps,
+            throughput_gain=float("inf"),
+        )
+    cur_s = current.predicted_seconds(acc) / current.num_hypersteps
+    cur_tokens = (tokens_per_hyperstep - 1.0
+                  if current_tokens_per_hyperstep is None
+                  else current_tokens_per_hyperstep)
+    cur_tps = cur_tokens / max(cur_s, 1e-12)
+    gain = cand_tps / max(cur_tps, 1e-12)
+    if not heavy:
+        admit = True
+    elif current.bandwidth_heavy(acc):
+        # The link is the binding resource even without this request (the
+        # batch-1-GEMV regime): one more lane shares the resident params and
+        # the barrier ``l`` across more tokens, so admit while that pays.
+        admit = gain > 1.0
+    else:
+        # This admission is the one that tips the step bandwidth-heavy.
+        admit = False
+    return AdmissionDecision(
+        admit=admit,
+        verdict=verdict,
+        predicted_step_seconds=cand_s,
+        predicted_tokens_per_s=cand_tps,
+        throughput_gain=gain,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Planner: enumerate -> filter by budget -> score with Eq. 1 -> (measure)
 # ---------------------------------------------------------------------------
@@ -675,7 +914,13 @@ def streamed_operand(name: str, words: int, *, dtype: Any = torch.float32,
 
 @dataclasses.dataclass(frozen=True)
 class PlanChoice:
-    """One scored candidate from :func:`autotune`."""
+    """One scored candidate from :func:`autotune`.
+
+    ``diagnostics`` holds the candidate's static-verifier findings
+    (:func:`repro_torch.core.verify.verify_plan`) — a rejected candidate
+    carries the diagnostic that rejected it instead of being silently
+    filtered.
+    """
 
     params: Mapping[str, Any]
     plan: StreamPlan
@@ -683,6 +928,11 @@ class PlanChoice:
     predicted_flops: float
     predicted_seconds: float
     measured_seconds: float | None = None
+    diagnostics: tuple = ()
+    # which machine pack priced this candidate: "eq1" = the closed-form pack
+    # the caller passed, "measured" = a calibration-store refit for the
+    # candidate's band
+    priced_on: str = "eq1"
 
     def row(self) -> dict[str, Any]:
         """Flat record for the predicted-vs-measured tables."""
@@ -692,11 +942,14 @@ class PlanChoice:
             "vmem_bytes": self.plan.vmem_bytes,
             "predicted_flops": self.predicted_flops,
             "predicted_seconds": self.predicted_seconds,
+            "priced_on": self.priced_on,
         }
         if self.measured_seconds is not None:
             out["measured_seconds"] = self.measured_seconds
             if self.measured_seconds > 0:
                 out["pred_over_meas"] = self.predicted_seconds / self.measured_seconds
+        if self.diagnostics:
+            out["diagnostics"] = " ".join(d.code for d in self.diagnostics)
         return out
 
 
@@ -706,27 +959,58 @@ def enumerate_plans(
     acc: BSPAccelerator,
     *,
     exact: bool | None = None,
+    store: Any | None = None,
+    device: Any = None,
 ) -> list[PlanChoice]:
     """Score every candidate parameter set; feasible ones first, cheapest first.
 
     ``exact`` is forwarded to :meth:`StreamPlan.cost` — pass False to score
-    with the O(1) closed form regardless of grid size. A candidate is
-    feasible when it fits the accelerator's local memory
-    (:meth:`StreamPlan.fits`). The JAX package also runs its static plan
-    verifier here; the port has no verifier yet, so a candidate that verifier
-    would reject is not rejected here.
+    with the O(1) closed form regardless of grid size.
+
+    ``store`` (a :class:`~repro_torch.core.calibstore.CalibrationStore`)
+    prices a candidate on the *measured* refit pack for its block-shape band
+    when a confident one exists, falling back to closed-form Eq. 1 on ``acc``
+    otherwise — :attr:`PlanChoice.priced_on` records which. The fit reads
+    the records of ``device`` (the card when ``None``). Feasibility
+    (local-memory fit, static verification) always uses ``acc``: the refit
+    changes the clock, not the budget.
+
+    Every candidate is statically verified
+    (:func:`repro_torch.core.verify.verify_plan`, same ``exact`` economy): a
+    candidate with error-severity findings is infeasible and carries them in
+    :attr:`PlanChoice.diagnostics` rather than being silently filtered.
     """
+    from repro_torch.core.verify import verify_plan
+
+    fitted_packs: dict[int, Any] = {}
+
+    def pricing_pack(plan: StreamPlan) -> tuple[BSPAccelerator, str]:
+        if store is None:
+            return acc, "eq1"
+        from repro_torch.core.calibstore import plan_band
+
+        band = plan_band(plan)
+        if band not in fitted_packs:
+            fitted_packs[band] = store.refit_machine(acc, band=band, device=device)
+        fitted = fitted_packs[band]
+        return (fitted, "measured") if fitted is not None else (acc, "eq1")
+
     choices = []
     for params in candidates:
         plan = build(**params)
-        flops = plan.cost(acc, exact=exact)
+        pack, priced_on = pricing_pack(plan)
+        flops = plan.cost(pack, exact=exact)
+        diags = tuple(verify_plan(plan, acc, exact=exact))
         choices.append(
             PlanChoice(
                 params=dict(params),
                 plan=plan,
-                feasible=plan.fits(acc),
+                feasible=plan.fits(acc)
+                and not any(d.severity == "error" for d in diags),
                 predicted_flops=flops,
-                predicted_seconds=acc.flops_to_seconds(flops),
+                predicted_seconds=pack.flops_to_seconds(flops),
+                diagnostics=diags,
+                priced_on=priced_on,
             )
         )
     # ties (common on the degenerate closed-form path) break toward fewer
@@ -762,8 +1046,14 @@ def autotune(
     measure_top: int = 3,
     repeats: int = 3,
     exact: bool | None = None,
+    store: Any | None = None,
+    device: Any = None,
 ) -> tuple[PlanChoice, list[PlanChoice]]:
     """Pick the predicted-fastest feasible plan; optionally verify by running.
+
+    ``store`` and ``device`` forward to :func:`enumerate_plans`: candidates
+    whose band has a confident calibration-store fit are priced on the
+    measured pack instead of closed-form Eq. 1.
 
     ``build(**params) -> StreamPlan`` constructs a candidate;  candidates that
     blow the double-buffered local-memory budget (:meth:`StreamPlan.fits`,
@@ -777,13 +1067,17 @@ def autotune(
 
     Returns ``(best, all_choices)``.
     """
-    choices = enumerate_plans(build, candidates, acc, exact=exact)
+    choices = enumerate_plans(build, candidates, acc, exact=exact, store=store,
+                              device=device)
     feasible = [c for c in choices if c.feasible]
     if not feasible:
+        codes = sorted({d.code for c in choices for d in c.diagnostics
+                        if d.severity == "error"})
         raise ValueError(
             f"no candidate fits local memory "
             f"(L = {acc.L} words on {acc.name}); smallest candidate needs "
             f"{min((c.plan.vmem_bytes for c in choices), default=0)} bytes"
+            + (f"; diagnostics: {' '.join(codes)}" if codes else "")
         )
     if measure is None:
         return feasible[0], choices

@@ -251,6 +251,22 @@ class StreamSet:
         self._streams.append(s)
         return s
 
+    def create_lanes(self, num_tokens: int, lanes: int, *,
+                     dtype: Any = np.int32, name: str = "lane") -> list[Stream]:
+        """One independent up-stream per lane of a packed batch.
+
+        Each lane of a continuous-batching engine owns its own write-back
+        stream of ``num_tokens`` scalar tokens (the generated ids of one
+        request segment) — retiring a request hands its lane's stream to the
+        next admitted request without touching the other lanes' streams.
+        """
+        if num_tokens <= 0 or lanes <= 0:
+            raise ValueError(
+                f"need num_tokens > 0 and lanes > 0, got {num_tokens}, {lanes}")
+        return [self.create(np.zeros((num_tokens,), dtype), 1,
+                            name=f"{name}[{i}]")
+                for i in range(lanes)]
+
     def stacked(self, device: Any = "cpu") -> list[torch.Tensor]:
         """Device-resident stacked copies of every stream (creation order).
 

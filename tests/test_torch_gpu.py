@@ -26,6 +26,12 @@ def cuda():
     return torch.device("cuda")
 
 
+# a machine pack whose 32 MB local memory holds the small decoders' caches: the
+# runner verifies each decode plan against it (BSPS141) before it runs
+HOST_PACK = dict(p=1, g=0.0, l=1e5, r=1e9, e=0.25, L=(1 << 25) // 4, E=(1 << 34) // 4,
+                 word_bytes=4, name="test-host")
+
+
 def _rand(shape, dtype, device, seed=0):
     g = np.random.default_rng(seed)
     return torch.as_tensor(g.standard_normal(shape), dtype=torch.float32).to(device, dtype)
@@ -244,7 +250,7 @@ def test_generate_modes_agree_on_the_card(cuda):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.core.bsp import EPIPHANY_III
+    from repro_torch.core.bsp import BSPAccelerator
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
 
@@ -253,8 +259,9 @@ def test_generate_modes_agree_on_the_card(cuda):
     params = M.init_params(cfg, 0, device=cuda)
     prompt = torch.randint(0, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(0))
     before = ops.launch_counts()["streamed_matmul"]
-    a, sa = generate(cfg, params, prompt, steps=5, machine=EPIPHANY_III, device=cuda)
-    b, sb = generate(cfg, params, prompt, steps=5, machine=EPIPHANY_III, device=cuda,
+    pack = BSPAccelerator(**HOST_PACK)
+    a, sa = generate(cfg, params, prompt, steps=5, machine=pack, device=cuda)
+    b, sb = generate(cfg, params, prompt, steps=5, machine=pack, device=cuda,
                      compiled=False)
     assert torch.equal(a, b) and tuple(a.shape) == (2, 75)
     assert ops.launch_counts()["streamed_matmul"] > before
@@ -354,7 +361,7 @@ def test_hybrid_serve_on_the_card(cuda):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.core.bsp import EPIPHANY_III
+    from repro_torch.core.bsp import BSPAccelerator
     from repro_torch.launch.serve import generate, make_prefill
     from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill_step
@@ -364,8 +371,9 @@ def test_hybrid_serve_on_the_card(cuda):
                               ssm_d_state=16, moe_capacity_factor=8.0, dtype="bfloat16")
     params = M.init_params(cfg, 0, device=cuda)
     prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(0))
-    a, sa = generate(cfg, params, prompt, steps=5, machine=EPIPHANY_III, device=cuda)
-    b, _ = generate(cfg, params, prompt, steps=5, machine=EPIPHANY_III, device=cuda,
+    pack = BSPAccelerator(**HOST_PACK)
+    a, sa = generate(cfg, params, prompt, steps=5, machine=pack, device=cuda)
+    b, _ = generate(cfg, params, prompt, steps=5, machine=pack, device=cuda,
                     compiled=False)
     assert torch.equal(a, b) and tuple(a.shape) == (2, 45)
     assert sa.plan_row["fetch_words_planned"] == sa.plan_row["fetch_words_measured"]
@@ -378,3 +386,127 @@ def test_hybrid_serve_on_the_card(cuda):
                                                prompt.to(cuda))
     last, pre = logits[:, -1].float(), pre[:, -1].float()
     assert (last - pre).abs().max() <= 0.05 * pre.abs().max()
+
+
+# -- the continuous-batching engine at a 2-layer full-width cut of minicpm-2b --------
+
+# A packed lane (m = 8 rows in each product) and the same request alone
+# (m = 1) round differently in the plain products. chip_smoke.py's rule: fed
+# the engine's tokens, a batch-1 decode's logits stay within NEAR_TIE / 2 of
+# the lane's at every segment boundary (relative to the largest |logit|), and
+# every engine token's batch-1 logit is within NEAR_TIE of the top one.
+NEAR_TIE = 2.0 ** -4
+
+
+@pytest.fixture(scope="module")
+def engine_cut():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2)    # bf16, full width
+    return cfg, M.init_params(cfg, 0, device="cuda")
+
+
+def _engine(cfg, params, **kw):
+    from repro_torch.core.bsp import BSPAccelerator
+    from repro_torch.launch.engine import ServeEngine
+
+    return ServeEngine(cfg, params, max_lanes=8, pool_seq=128, segment_len=4,
+                       machine=BSPAccelerator(**HOST_PACK), calibstore=False,
+                       device="cuda", **kw)
+
+
+def _requests(cfg, seed=4):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, cfg.vocab_size, s).astype(np.int32), n)
+            for s, n in ((20, 12), (37, 8), (64, 12), (90, 16), (9, 12))]
+
+
+def test_engine_packed_lanes_match_batch1_on_the_card(cuda, engine_cut):
+    from repro_torch.core.bsp import BSPAccelerator
+    from repro_torch.launch.serve import generate, make_prefill, prefill_block_size
+    from repro_torch.models import model as M
+
+    cfg, params = engine_cut
+    pack = BSPAccelerator(**HOST_PACK)
+    reqs = _requests(cfg)
+    eng = _engine(cfg, params)
+    before = ops.matmul_variant_counts()
+    rids = [eng.submit(p, n) for p, n in reqs]
+    seen = {rid: [] for rid in rids}
+    while eng.queue or eng.running:
+        eng.step_segment()
+        for rid, req in eng.running.items():
+            seen[rid].append((len(req.generated), eng._logits[req.lane, -1].clone()))
+    out = eng.run_until_drained()
+    counts = {k: v - before[k] for k, v in ops.matmul_variant_counts().items()}
+    assert counts["decode"] > 0 and counts["wgmma"] > 0      # packed steps; joins' prefills
+    for rid, (p, n) in zip(rids, reqs):
+        prompt = torch.from_numpy(p).cuda()
+        got = out[rid][len(p):].tolist()
+        block = prefill_block_size(cfg, 1, len(p), pack)
+        logits, cache = make_prefill(cfg, block, device="cuda")(
+            params, M.init_cache(cfg, 1, eng.pool_seq, device="cuda"), prompt[None])
+        lg1 = []
+        for tok in got:                    # teacher-forced on the engine's tokens
+            lg1.append(logits[0, -1].float())
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          torch.tensor([[tok]], dtype=torch.int32,
+                                                       device="cuda"), device="cuda")
+        lg1 = torch.stack(lg1)
+        scale = lg1.abs().amax(-1)
+        want = torch.argmax(lg1, -1).tolist()
+        div = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        # the first token comes from the same batch-1 prefill in both runs
+        assert div != 0, rid
+        upto = n if div is None else div + 1
+        seq, _ = generate(cfg, params, prompt[None], steps=n, machine=pack,
+                          max_len=eng.pool_seq, device="cuda")
+        assert seq[0, len(p):len(p) + upto].tolist() == want[:upto]
+        assert seen[rid], rid
+        for at, lg in seen[rid]:
+            assert got[at] == int(torch.argmax(lg)), (rid, at)
+            assert (lg - lg1[at]).abs().max() < NEAR_TIE / 2 * scale[at], (rid, at)
+        fed = torch.tensor(got, device="cuda")
+        gaps = (lg1.amax(-1) - lg1.gather(1, fed[:, None])[:, 0]) / scale
+        assert float(gaps.max()) <= NEAR_TIE, (rid, gaps.tolist())
+
+
+def test_engine_sampled_run_repeats_under_its_seed_on_the_card(cuda, engine_cut):
+    cfg, params = engine_cut
+    outs = []
+    for _ in range(2):
+        eng = _engine(cfg, params, temperature=1.0)
+        rids = [eng.submit(p, n, seed=10 + i) for i, (p, n) in enumerate(_requests(cfg))]
+        out = eng.run_until_drained()
+        outs.append([out[r].tolist() for r in rids])
+    assert outs[0] == outs[1]
+
+
+def test_engine_segment_makes_no_host_sync_on_the_card(cuda, engine_cut):
+    """From the second segment on, the compiled replay runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside a
+    segment raises."""
+    cfg, params = engine_cut
+    eng = _engine(cfg, params)
+    prog = eng._runner._compiled_cache[eng.segment_len]
+    inner, calls = prog._call, []
+
+    def guarded(*args):
+        if calls:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            calls.append(1)
+
+    prog._call = guarded
+    for p, n in _requests(cfg):
+        eng.submit(p, n)
+    eng.run_until_drained()
+    assert len(calls) == eng.stats()["segments"] >= 3
