@@ -2,8 +2,8 @@
 
 40L, d_model 2304, 36H (GQA kv=36 ⇒ MHA), d_ff 5760, vocab 122753. Tied
 embeddings (MiniCPM shares input/output embeddings). The paper-distinctive
-WSD (warmup-stable-decay) learning-rate schedule belongs to the training
-path, which the port does not carry yet.
+WSD (warmup-stable-decay) learning-rate schedule is
+:func:`repro_torch.optim.schedule.wsd`.
 """
 
 from repro_torch.configs.base import Block, ModelConfig, register

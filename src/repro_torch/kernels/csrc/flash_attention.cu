@@ -38,6 +38,13 @@
 // fp32 kernel does not make (about 2^-9 relative on a convex combination of
 // V rows); l sums the unrounded fp32 P.
 //
+// Both kernels may also write the rows' log-sum-exp (lse, (B, Hq, Sq) fp32,
+// natural log), which the backward pass (models/flash.py) recomputes the
+// probabilities from. The bf16 kernel's running max m₂ and sum l live in
+// the log2 domain (scores scaled by sm_scale·log2 e, exp2f), so its lse is
+// (m₂ + log₂ l)·ln 2; the fp32 kernel's are natural, lse = m + ln l. l is
+// clamped at 1e-30 as for the output.
+//
 // fp32: the first version, on the CUDA cores, kept for fp32 inputs (not on
 // the main path). TF32 tensor cores would round Q, K and P to 10 bits and
 // break the fp32 tolerance of 2e-4. Q and one K/V block sit in shared memory
@@ -124,7 +131,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int hq, int hkv, int sq,
+              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+              int hq, int hkv, int sq,
               int skv, int q_offset, int causal, float scale_log2, int n_kv,
               long long qsb, long long qsh, long long qss,
               long long ksb, long long ksh, long long kss,
@@ -278,6 +286,10 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / fmaxf(l, 1e-30f);
+    const int grow = qi * BQ + warp * 16 + g + 8 * r;
+    if (lse != nullptr && tig == 0 && grow < sq)
+      lse[((long long)b * hq + h) * sq + grow] =
+          (m_r[r] + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
   }
   const int row = warp * 16 + g;
 #pragma unroll
@@ -304,7 +316,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int hq, int hkv, int sq,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int hq, int hkv, int sq,
               int skv, int q_offset, int causal, float scale, int n_kv,
               long long qsb, long long qsh, long long qss,
               long long ksb, long long ksh, long long kss,
@@ -392,6 +405,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   // the normalised output goes through the Q tile, written out coalesced
   __syncthreads();
   const float inv = 1.f / fmaxf(l_run, 1e-30f);
+  if (lse != nullptr && half == 0 && qi * BQ + r < sq)
+    lse[((long long)b * hq + h) * sq + qi * BQ + r] = m_run + logf(fmaxf(l_run, 1e-30f));
 #pragma unroll
   for (int d = 0; d < HALF; ++d) q_s[r * P + half * HALF + d] = acc[d] * inv;
   __syncthreads();
@@ -404,8 +419,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStream_t stream,
-                   const void* q, const void* k, const void* v, void* o, int hq, int hkv,
-                   int sq, int skv, int q_offset, int causal, float scale, int dtype,
+                   const void* q, const void* k, const void* v, void* o, float* lse, int hq,
+                   int hkv, int sq, int skv, int q_offset, int causal, float scale, int dtype,
                    const long long* st) {
   constexpr int SCRATCH = (2 * BQ + BQ * D) * 4;  // m, l, acc: in registers
   if (scratch_bytes != SCRATCH) return cudaErrorInvalidValue;  // plan and kernel disagree
@@ -416,7 +431,7 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, SMEM, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), hq, hkv, sq, skv, q_offset, causal,
+        static_cast<bf16*>(o), lse, hq, hkv, sq, skv, q_offset, causal,
         scale * 1.4426950408889634f, n_kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
         st[7], st[8], st[9], st[10], st[11]);
     return cudaGetLastError();
@@ -428,7 +443,7 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), hq, hkv, sq, skv, q_offset, causal, scale, n_kv, st[0], st[1],
+        static_cast<float*>(o), lse, hq, hkv, sq, skv, q_offset, causal, scale, n_kv, st[0], st[1],
         st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
     return cudaGetLastError();
   }
@@ -441,21 +456,22 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
 // grid (q blocks of 64, Hq, B), loop = KV blocks of 64. `strides` holds the
 // (batch, head, sequence) element strides of q, k, v and o in that order;
 // the head dimension is contiguous. bf16 needs 16-byte aligned rows (base
-// addresses and strides multiples of 8 elements); the wrapper checks.
+// addresses and strides multiples of 8 elements); the wrapper checks. `lse`,
+// when not null, receives each row's log-sum-exp, (B, Hq, Sq) fp32.
 BSPS_EXPORT int bsps_flash(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                            void* stream, const void* q, const void* k, const void* v, void* o,
                            int hq, int hkv, int sq, int skv, int d, int q_offset, int causal,
-                           float scale, int dtype, const long long* strides) {
+                           float scale, int dtype, const long long* strides, float* lse) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (gx < 1 || gy != hq || gz < 1 || loop < 1 || hkv < 1 || hq % hkv) return cudaErrorInvalidValue;
   const dim3 grid(gx, gy, gz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch<64>(device, grid, loop, scratch_bytes, s, q, k, v, o, hq, hkv, sq, skv,
+    return launch<64>(device, grid, loop, scratch_bytes, s, q, k, v, o, lse, hq, hkv, sq, skv,
                       q_offset, causal, scale, dtype, strides);
   if (d == 128)
-    return launch<128>(device, grid, loop, scratch_bytes, s, q, k, v, o, hq, hkv, sq, skv,
+    return launch<128>(device, grid, loop, scratch_bytes, s, q, k, v, o, lse, hq, hkv, sq, skv,
                        q_offset, causal, scale, dtype, strides);
   return cudaErrorInvalidValue;
 }

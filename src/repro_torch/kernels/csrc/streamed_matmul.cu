@@ -28,6 +28,11 @@
 // swizzled stage), the ≤ 16 activation rows the 8-wide side (one or two n8
 // tiles), read as 32-bit pairs from the block's K share of A, which four
 // consumer warps load once into shared memory while the first boxes fly.
+// With kBRowsN, B is given as (n, k) rows: a stage is two 64 × 64 boxes of
+// 64 weight columns (n) by 64 k, and ldmatrix reads them without .trans —
+// the weight columns already lie along the rows of the 16-row operand. The
+// output's row stride may be odd (the tied head's vocabulary): stores are
+// element by element.
 // K is split over a thread-block cluster (up to 8, along x): each block
 // leaves its fp32 partial tile in its own shared memory, and after a cluster
 // barrier every block sums its share of the tile's elements over ranks
@@ -47,8 +52,14 @@
 // consumers' registers (64 a thread), never in shared memory; the launch
 // checks its size. TMA zero-fills boxes past the ragged m, n and k edges;
 // the epilogue casts and masks the ragged output edge as it stores from the
-// registers. A is K-major; B, the (k, n) row-major weight, is the MN-major
-// operand (the descriptor's transpose bit). Blocks walk the tiles in groups
+// registers. Operand layouts (`layout` bits): A is K-major — (m, k) rows —
+// or, with kAColMajor, M-major — given as its (k, m) transpose, read in two
+// 64 × 64 boxes per stage and fed with the descriptor's A transpose bit (the
+// weight gradient Aᵀ·dC reads the activations this way, with no copy); B is
+// MN-major — the (k, n) row-major weight, two 64 × 64 boxes, the B transpose
+// bit — or, with kBRowsN, K-major — given as (n, k) rows, one 128 × 64 box,
+// no transpose bit (the tied LM head x·Eᵀ and the input gradient dC·Wᵀ read
+// their operand this way, with no copy). Blocks walk the tiles in groups
 // of 8 m-tiles, so the blocks in flight share B's column panels in the L2.
 // No split-K, no persistent scheduler. The tensor maps are encoded per call
 // on the host (the activations move) with cuTensorMapEncodeTiled, looked
@@ -293,7 +304,9 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// d (64 fp32 a thread) += A (64×16, K-major) · B (16×128, MN-major)
+// d (64 fp32 a thread) += A (64×16) · B (16×128); TA = 1: A M-major (else
+// K-major), TB = 1: B MN-major (else K-major)
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -304,7 +317,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n"
+      " %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -314,7 +327,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -351,7 +364,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y, bool 
   }
 }
 
-template <typename Out>
+// A's stage holds rows group·64 .. +64 of the tile at group · 8 KB in both
+// layouts: K-major, 64 rows of 128 bytes; M-major, the group's 64 × 64 box.
+template <typename Out, bool AT, bool BKM>
 __global__ void __launch_bounds__(kThreads, 1)
 matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
              Out* __restrict__ c, int m, int n, long long ldc, int k_tiles) {
@@ -387,9 +402,18 @@ matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
         if (t >= STAGES) mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
         const uint32_t st = ring + s * STAGE_BYTES, bar = full + 8 * s;
         mbar_expect_tx(bar, STAGE_BYTES);
-        tma_load(st, &ta, bar, t * BK, m0);
-        tma_load(st + A_BYTES, &tb, bar, n0, t * BK);
-        tma_load(st + A_BYTES + B_BOX, &tb, bar, n0 + 64, t * BK);
+        if (AT) {
+          tma_load(st, &ta, bar, m0, t * BK);
+          tma_load(st + A_BYTES / 2, &ta, bar, m0 + 64, t * BK);
+        } else {
+          tma_load(st, &ta, bar, t * BK, m0);
+        }
+        if (BKM) {
+          tma_load(st + A_BYTES, &tb, bar, t * BK, n0);
+        } else {
+          tma_load(st + A_BYTES, &tb, bar, n0, t * BK);
+          tma_load(st + A_BYTES + B_BOX, &tb, bar, n0 + 64, t * BK);
+        }
       }
     }
   } else {                                           // consumers: rows group·64 .. +64
@@ -406,10 +430,13 @@ matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        // A: 16 k = 32 bytes along the swizzled 128-byte rows, 8-row groups
-        // 1 KB apart. B: 16 k = 16 rows of 128 bytes; 8-row groups 1 KB
-        // apart (SBO), the two 64-column boxes 8 KB apart (LBO).
-        wgmma_m64n128k16(d, desc(a + kk * 32, 16, 1024), desc(b + kk * 2048, B_BOX, 1024));
+        // K-major (A, or B given as (n, k)): 16 k = 32 bytes along the
+        // swizzled 128-byte rows, 8-row groups 1 KB apart (SBO). MN-major
+        // (B given as (k, n), or A as (k, m)): 16 k = 16 rows of 128 bytes;
+        // 8-row groups 1 KB apart (SBO), 64-column boxes 8 KB apart (LBO).
+        const uint64_t da = AT ? desc(a + kk * 2048, B_BOX, 1024) : desc(a + kk * 32, 16, 1024);
+        const uint64_t db = BKM ? desc(b + kk * 32, 16, 1024) : desc(b + kk * 2048, B_BOX, 1024);
+        wgmma_m64n128k16<AT ? 1 : 0, BKM ? 0 : 1>(d, da, db);
       }
       wgmma_commit();
       wgmma_wait<1>();                               // the previous tile's products are done
@@ -477,7 +504,7 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int rows, int c
          CUDA_SUCCESS;
 }
 
-template <typename Out>
+template <typename Out, bool AT, bool BKM>
 cudaError_t launch(int device, dim3 grid, int k_tiles, int scratch_bytes, cudaStream_t stream,
                    const void* a, const void* b, void* c, int m, int n, int k, long long lda,
                    long long ldb, long long ldc) {
@@ -485,9 +512,12 @@ cudaError_t launch(int device, dim3 grid, int k_tiles, int scratch_bytes, cudaSt
   EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap ta, tb;
-  if (!encode(enc, &ta, a, m, k, lda, BM, BK) || !encode(enc, &tb, b, k, n, ldb, BK, 64))
-    return cudaErrorInvalidValue;
-  auto kernel = matmul_wgmma<Out>;
+  const bool a_ok = AT ? encode(enc, &ta, a, k, m, lda, BK, 64)
+                       : encode(enc, &ta, a, m, k, lda, BM, BK);
+  const bool b_ok = BKM ? encode(enc, &tb, b, n, k, ldb, BN, BK)
+                        : encode(enc, &tb, b, k, n, ldb, BK, 64);
+  if (!a_ok || !b_ok) return cudaErrorInvalidValue;
+  auto kernel = matmul_wgmma<Out, AT, BKM>;
   cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, SMEM, stream>>>(ta, tb, static_cast<Out*>(c), m, n, ldc, k_tiles);
@@ -554,8 +584,15 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
   return v;
 }
-// four 8×8 bf16 matrices, transposed on the way: lanes 8i .. 8i+7 give the
-// row addresses of matrix i, which lands in r[i]
+// four 8×8 bf16 matrices: lanes 8i .. 8i+7 give the row addresses of matrix
+// i, which lands in r[i]
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// the same, transposed on the way
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -575,7 +612,10 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
 // Cᵀ = Bᵀ·Aᵀ: the weight columns fill the 16 rows of m16n8k16, the ≤ 8·NT
 // activation rows its N side. Block (rank, j) of a cluster of `splits`
 // along x streams K tiles [rank·per, rank·per + per) of column tile j.
-template <int NT, typename Out>
+// BKM: B is given as (n, k) rows (a stage's box bx holds weight columns
+// n0 + 64·bx .. +64 as 64 rows of 64 k); else as (k, n) rows (box bx holds
+// 64 k-rows of those 64 columns).
+template <int NT, typename Out, bool BKM>
 __global__ void __launch_bounds__(kThreads)
 matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ a,
               Out* __restrict__ c, int m, int n, int k, long long lda, long long ldc,
@@ -616,9 +656,14 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
         if (t >= STAGES) wg::mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
         wg::mbar_expect_tx(full + 8 * s, STAGE_BYTES);
 #pragma unroll
-        for (int bx = 0; bx < NB; ++bx)
-          wg::tma_load(ring + s * STAGE_BYTES + bx * BOX_BYTES, &tb, full + 8 * s,
-                       n0 + 64 * bx, k0 + t * BK);
+        for (int bx = 0; bx < NB; ++bx) {
+          if (BKM)
+            wg::tma_load(ring + s * STAGE_BYTES + bx * BOX_BYTES, &tb, full + 8 * s,
+                         k0 + t * BK, n0 + 64 * bx);
+          else
+            wg::tma_load(ring + s * STAGE_BYTES + bx * BOX_BYTES, &tb, full + 8 * s,
+                         n0 + 64 * bx, k0 + t * BK);
+        }
       }
     }
   } else {
@@ -637,14 +682,21 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
     // (l / 8) % 2: the four transposed 8×8 matrices are a0..a3 of the
     // weight fragment. A box is 128-byte swizzled: chunk c of row r sits at
     // c ^ (r % 8), and r % 8 = l % 8.
+    // BKM: the group's 16 weight columns are box rows 16·(gc % 4) .. +16;
+    // lane l addresses row 16·(gc % 4) + (l & 7) + 8·((l / 8) % 2) at k
+    // chunk 2·kq + l / 16, untransposed: the same four matrices a0..a3.
     const int g = lane / 4, q = lane % 4;
-    const int lrow = (lane & 7) + ((lane >> 4) << 3);
+    const int lrow = BKM ? (lane & 7) + (((lane >> 3) & 1) << 3) : (lane & 7) + ((lane >> 4) << 3);
     uint32_t loff[CG];
 #pragma unroll
     for (int j = 0; j < CG; ++j) {
       const int gc = warp * CG + j;
-      const uint32_t chunk = (2 * (gc % 4) + ((lane >> 3) & 1)) ^ (lane & 7);
-      loff[j] = (gc / 4) * BOX_BYTES + lrow * 128 + (chunk << 4);
+      if (BKM) {
+        loff[j] = (gc / 4) * BOX_BYTES + (16 * (gc % 4) + lrow) * 128;
+      } else {
+        const uint32_t chunk = (2 * (gc % 4) + ((lane >> 3) & 1)) ^ (lane & 7);
+        loff[j] = (gc / 4) * BOX_BYTES + lrow * 128 + (chunk << 4);
+      }
     }
     const raw16* arow[NT];
     bool live[NT];
@@ -670,7 +722,10 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
 #pragma unroll
         for (int j = 0; j < CG; ++j) {
           uint32_t w[4];
-          ldsm_x4_t(w, st + loff[j] + kq * 16 * 128);
+          if (BKM)
+            ldsm_x4(w, st + loff[j] + (((2 * kq + (lane >> 4)) ^ (lane & 7)) << 4));
+          else
+            ldsm_x4_t(w, st + loff[j] + kq * 16 * 128);
 #pragma unroll
           for (int u = 0; u < NT; ++u) mma16816(d[j][u], w, b[u][0], b[u][1]);
         }
@@ -713,7 +768,7 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
   cluster_sync();                                            // no block leaves while read
 }
 
-template <int NT, typename Out>
+template <int NT, typename Out, bool BKM>
 cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream_t stream,
                    const void* a, const void* b, void* c, int m, int n, int k, long long lda,
                    long long ldb, long long ldc) {
@@ -728,8 +783,10 @@ cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream
   wg::EncodeTiled enc = wg::encoder();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap tb;
-  if (!wg::encode(enc, &tb, b, k, n, ldb, BK, 64)) return cudaErrorInvalidValue;
-  auto kernel = matmul_decode<NT, Out>;
+  const bool b_ok = BKM ? wg::encode(enc, &tb, b, n, k, ldb, 64, BK)
+                        : wg::encode(enc, &tb, b, k, n, ldb, BK, 64);
+  if (!b_ok) return cudaErrorInvalidValue;
+  auto kernel = matmul_decode<NT, Out, BKM>;
   cudaError_t err = bsps::prepare_smem(kernel, device, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -754,21 +811,47 @@ cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream
 
 // the variant codes of the wrapper's VARIANTS, in its order
 enum Variant { kDecode = 0, kWgmma = 1, kWmma = 2, kDecodeWmma = 3 };
+// the operand layout bits of the wrapper's b_layout / a_layout
+enum Layout { kBRowsN = 1, kAColMajor = 2 };
+
+template <typename Out, bool BKM>
+cudaError_t decode(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
+                   const void* a, const void* b, void* c, int m, int n, int k, long long lda,
+                   long long ldb, long long ldc) {
+  if (m <= 8)
+    return gv::launch<1, Out, BKM>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n,
+                                   k, lda, ldb, ldc);
+  return gv::launch<2, Out, BKM>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
+                                 lda, ldb, ldc);
+}
 
 template <typename Out>
 cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
                      const void* a, const void* b, void* c, float* partials, int m, int n,
-                     int k, long long lda, long long ldb, long long ldc, int variant) {
+                     int k, long long lda, long long ldb, long long ldc, int variant,
+                     int layout) {
+  // the wmma variants and the decode variant's A take the default layouts
+  // only; the wgmma variant takes either layout of one operand, not both
+  if (layout & ~(kBRowsN | kAColMajor) || layout == (kBRowsN | kAColMajor) ||
+      ((layout & kAColMajor) && variant != kWgmma) ||
+      (layout && (variant == kWmma || variant == kDecodeWmma)))
+    return cudaErrorInvalidValue;
   switch (variant) {
     case kDecode:
-      if (m <= 8)
-        return gv::launch<1, Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n,
-                                  k, lda, ldb, ldc);
-      return gv::launch<2, Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
+      if (layout == kBRowsN)
+        return decode<Out, true>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
+                                 lda, ldb, ldc);
+      return decode<Out, false>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
                                 lda, ldb, ldc);
     case kWgmma:
-      return wg::launch<Out>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
-                             lda, ldb, ldc);
+      if (layout == kBRowsN)
+        return wg::launch<Out, false, true>(device, grid, k_steps, scratch_bytes, stream, a, b,
+                                            c, m, n, k, lda, ldb, ldc);
+      if (layout == kAColMajor)
+        return wg::launch<Out, true, false>(device, grid, k_steps, scratch_bytes, stream, a, b,
+                                            c, m, n, k, lda, ldb, ldc);
+      return wg::launch<Out, false, false>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
+                                           m, n, k, lda, ldb, ldc);
     case kWmma:
       return launch<64, 64, 32, 2, 2, Out>(device, grid, k_steps, scratch_bytes, stream, a, b,
                                            c, partials, m, n, k, lda, ldb, ldc);
@@ -783,7 +866,10 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
 }  // namespace
 
 // C = A·B, A (m, k) and B (k, n) bf16 with row strides lda, ldb; C (m, n) of
-// `out_dtype` with row stride ldc. `variant` (enum Variant) picks the kernel:
+// `out_dtype` with row stride ldc. `layout` (enum Layout bits): kBRowsN — B
+// is given as its (n, k) transpose, rows ldb apart (decode and wgmma);
+// kAColMajor — A is given as its (k, m) transpose, rows lda apart (wgmma).
+// `variant` (enum Variant) picks the kernel:
 // decode — grid (splits, n tiles), one cluster of `splits` per column tile,
 // loop = K tiles per split, B TMA-describable; wgmma — grid (n tiles, m
 // tiles), loop = K tiles, A and B TMA-describable; wmma and decode_wmma —
@@ -792,7 +878,8 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
 BSPS_EXPORT int bsps_matmul(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                             void* stream, const void* a, const void* b, void* c,
                             float* partials, int m, int n, int k, long long lda,
-                            long long ldb, long long ldc, int variant, int out_dtype) {
+                            long long ldb, long long ldc, int variant, int layout,
+                            int out_dtype) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (gx < 1 || gy < 1 || gz < 1 || loop < 1 || (gz > 1 && partials == nullptr))
@@ -801,9 +888,9 @@ BSPS_EXPORT int bsps_matmul(int device, int gx, int gy, int gz, int loop, int sc
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == bsps::kBFloat16)
     return dispatch<__nv_bfloat16>(device, grid, loop, scratch_bytes, s, a, b, c, partials, m,
-                                   n, k, lda, ldb, ldc, variant);
+                                   n, k, lda, ldb, ldc, variant, layout);
   if (out_dtype == bsps::kFloat32)
     return dispatch<float>(device, grid, loop, scratch_bytes, s, a, b, c, partials, m, n, k,
-                           lda, ldb, ldc, variant);
+                           lda, ldb, ldc, variant, layout);
   return cudaErrorInvalidValue;
 }

@@ -124,7 +124,8 @@ def flash_attention(
     *,
     causal: bool = True,
     sm_scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Streaming attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D).
 
     Hq must be a multiple of Hkv (GQA). When Sq < Skv the queries are placed
@@ -133,7 +134,8 @@ def flash_attention(
     contiguous head dim; bf16 rows 16-byte aligned); CPU tensors to
     :func:`repro_torch.kernels.ref.attention_ref`. The result on the card is
     a (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, the layout the model
-    reads it back in.
+    reads it back in. ``return_lse=True`` also returns each row's
+    log-sum-exp, (B, Hq, Sq) fp32 (:func:`ref.attention_ref_lse` on the CPU).
     """
     b, hq, sq, d = q.shape
     bk_, hkv, skv, dk = k.shape
@@ -144,7 +146,8 @@ def flash_attention(
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     sm_scale = sm_scale if sm_scale is not None else d ** -0.5
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        out, lse = ref.attention_ref_lse(q, k, v, causal=causal, sm_scale=sm_scale)
+        return (out, lse) if return_lse else out
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -159,17 +162,20 @@ def flash_attention(
                          "batch, head and sequence strides must be multiples of 16 bytes")
     q_offset = skv - sq  # decode: queries are the last sq positions
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0 or sq == 0:
-        return o
+        return (o, lse) if return_lse else o
     launch = pipeline.lower(_plan(b, hq, hkv, sq, skv, d, causal, q_offset, q.dtype),
                             "bsps_flash", q.device)
     strides = torch.tensor([t.stride(i) for t in (q, k, v, o) for i in range(3)],
                            dtype=torch.int64)
     pipeline.launch(launch, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), hq, hkv, sq, skv, d, q_offset, int(causal),
-                    float(sm_scale), _DTYPES[q.dtype], strides.data_ptr())
+                    float(sm_scale), _DTYPES[q.dtype], strides.data_ptr(),
+                    None if lse is None else lse.data_ptr())
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0

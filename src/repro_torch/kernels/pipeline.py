@@ -63,8 +63,8 @@ _PREFIX = [_I, _I, _I, _I, _I, _I, _P]   # device, gx, gy, gz, loop, scratch, st
 # argument types after the launch prefix, per C entry point
 ENTRIES: dict[str, list[Any]] = {
     "bsps_dot": [_P, _P, _LL, _I, _I, _P, _P],
-    "bsps_matmul": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I],
-    "bsps_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "bsps_matmul": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I],
+    "bsps_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P],
     "bsps_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
 }
 

@@ -12,11 +12,17 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["matmul_ref", "dot_ref", "attention_ref", "ssm_scan_ref"]
+__all__ = ["matmul_ref", "dot_ref", "attention_ref", "attention_ref_lse", "ssm_scan_ref"]
 
 
-def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None, *, a_layout: str = "mk",
+               b_layout: str = "kn") -> torch.Tensor:
+    """C = A·B in fp32, cast once. ``a_layout="km"`` takes A as its (k, m)
+    transpose, ``b_layout="nk"`` B as its (n, k) transpose, as the kernel
+    reads them."""
     out_dtype = out_dtype or a.dtype
+    a = a.T if a_layout == "km" else a
+    b = b.T if b_layout == "nk" else b
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
@@ -37,6 +43,21 @@ def attention_ref(
     When Sq < Skv the queries are the last Sq positions (decode semantics):
     ``q_offset = Skv - Sq``.
     """
+    return attention_ref_lse(q, k, v, causal=causal, sm_scale=sm_scale)[0]
+
+
+def attention_ref_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention_ref` and each row's log-sum-exp of its scaled,
+    masked scores (natural log, (B, Hq, Sq) fp32) — what the flash kernel's
+    ``return_lse`` writes and the backward pass recomputes the
+    probabilities from."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     group = hq // hkv
@@ -48,8 +69,9 @@ def attention_ref(
         q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
         k_pos = torch.arange(skv, device=q.device)[None, :]
         s = s.masked_fill(q_pos < k_pos, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype), lse
 
 
 def ssm_scan_ref(

@@ -34,8 +34,21 @@ The kernel has four variants (``csrc/streamed_matmul.cu``), and
 * ``"decode_wmma"`` — m ≤ 16 otherwise: a 16×64×64 ``wmma`` tile with split K
   (:func:`split_for`) and a second launch that sums the splits.
 
+Operand layouts. ``b_layout="nk"`` takes B as its (n, k) transpose, k
+contiguous: the tied LM head x·Eᵀ reads the (V, d) embedding so, and the
+input gradient dC·Wᵀ reads a (k, n) weight so, with no copy. The decode
+variant streams such a B by TMA boxes over its rows and reads them with
+``ldmatrix`` untransposed; ``wgmma`` takes it as the K-major operand.
+``a_layout="km"`` takes A as its (k, m) transpose, m contiguous — the
+weight gradient Aᵀ·dC reads the activations so — on ``wgmma`` only, as its
+M-major operand. One operand at a time is transposed. A transposed operand
+needs TMA (16-byte base and row stride); the ``wmma`` variants take the
+default layouts only, and a call they would get raises. The plans describe
+the same tokens in every layout: only their order in memory differs.
+
 A build, encode or launch that fails raises; nothing falls back to another
-variant. ``streamed_matmul.launches_by_variant`` counts launches per variant.
+variant. ``streamed_matmul.launches_by_variant`` counts launches per variant,
+``streamed_matmul.launches_by_layout`` per (a_layout, b_layout).
 """
 
 from __future__ import annotations
@@ -49,9 +62,11 @@ from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.kernels import pipeline, ref
 
 __all__ = ["streamed_matmul", "matmul_plan", "decode_plan", "variant_for", "split_for",
-           "decode_split", "decode_fits", "VARIANTS"]
+           "decode_split", "decode_fits", "VARIANTS", "LAYOUTS"]
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the (a_layout, b_layout) pairs the kernel takes, and their code on the C side
+LAYOUTS = {("mk", "kn"): 0, ("mk", "nk"): 1, ("km", "kn"): 2}
 #: (block_m, block_n, block_k) of each kernel variant, in the C side's code
 #: order; the decode variant's block_m is the most rows it takes
 VARIANTS = {"decode": (16, 128, 64), "wgmma": (128, 128, 64), "wmma": (64, 64, 32),
@@ -181,10 +196,20 @@ def _a_share_bytes(m: int, k_tiles: int, split: int) -> int:
     return m * (-(-k_tiles // split) * bk + _DECODE_A_PAD) * 2
 
 
+def _rows(m: int) -> int:
+    """The rows the decode variant's choices are made for: m rounded up to
+    its 8-row mma side. Every m of one kernel instance (1-8 or 9-16) gets
+    one K split, so one summation order: a packed step's rows round as the
+    same rows would alone."""
+    return 8 * -(-m // 8)
+
+
 def decode_fits(m: int, k: int) -> bool:
-    """Whether A's K share fits one decode block at the widest cluster."""
+    """Whether A's K share, sized for :func:`_rows` of m, fits one decode
+    block at the widest cluster: one answer for every m of an instance, so
+    m = 1 .. 8 all take the decode variant or all take ``decode_wmma``."""
     k_tiles = -(-k // VARIANTS["decode"][2])
-    return _a_share_bytes(m, k_tiles, min(DECODE_MAX_SPLIT, k_tiles)) <= DECODE_A_MAX
+    return _a_share_bytes(_rows(m), k_tiles, min(DECODE_MAX_SPLIT, k_tiles)) <= DECODE_A_MAX
 
 
 def _decode_blocks_per_sm(m: int, k_tiles: int, split: int) -> int:
@@ -202,13 +227,16 @@ def decode_split(m: int, n: int, k: int, sms: int) -> int:
     trails (7/8: a cluster must fit inside one GPC); 1 when the column tiles
     alone overfill the card. A split whose A share overflows a block is
     never taken. Then trimmed so no block of the cluster gets an empty
-    share."""
+    share. The A share is sized at :func:`_rows` of m, so that m = 1 and
+    m = 8 take one split (one summation order); where no split holds that
+    many rows' share (:func:`decode_fits` is false) it raises."""
     _, bn, bk = VARIANTS["decode"]
     tiles, k_tiles = -(-n // bn), -(-k // bk)
+    m = _rows(m)
     fits = [s for s in range(1, min(DECODE_MAX_SPLIT, k_tiles) + 1)
             if _a_share_bytes(m, k_tiles, s) <= DECODE_A_MAX]
     if not fits:
-        raise ValueError(f"A's K share of a {m} x {k} product overflows a decode block")
+        raise ValueError(f"A's K share of {m} rows at k = {k} overflows a decode block")
     split = fits[0]
     for s in fits:
         if 8 * tiles * s <= 7 * sms * _decode_blocks_per_sm(m, k_tiles, s):
@@ -216,24 +244,38 @@ def decode_split(m: int, n: int, k: int, sms: int) -> int:
     return -(-k_tiles // -(-k_tiles // split))
 
 
-def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int) -> str:
+def _check_layouts(a_layout: str, b_layout: str) -> None:
+    if (a_layout, b_layout) not in LAYOUTS:
+        raise ValueError(f"layouts a={a_layout!r}, b={b_layout!r}: the kernel takes "
+                         f"{sorted(LAYOUTS)}")
+
+
+def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
+                a_layout: str = "mk", b_layout: str = "kn") -> str:
     """The kernel variant for C = A·B with m rows and depth k, bf16 A at
     address ``a_addr`` with row stride ``lda`` elements and B at ``b_addr``
-    with row stride ``ldb``.
+    with row stride ``ldb``, each the stride between the rows of the operand
+    as it is stored ((m, k) or (k, m) for A, (k, n) or (n, k) for B).
 
     TMA can describe an operand whose base address is 16-byte aligned and
     whose row stride (``lda·2``, ``ldb·2`` bytes) is a multiple of 16. m ≤ 16
     is ``"decode"`` when TMA can describe B and A's K share fits a block
     (:func:`decode_fits`; A is read with plain loads), ``"decode_wmma"``
     when not; m > 16 is ``"wgmma"`` when TMA can describe both operands and
-    ``"wmma"`` when not.
+    ``"wmma"`` when not. A (k, m) A always takes ``"wgmma"``. A transposed
+    operand that the chosen variant cannot read raises ``ValueError``.
     """
+    _check_layouts(a_layout, b_layout)
     b_tma = b_addr % _TMA_ALIGN == 0 and 2 * ldb % _TMA_ALIGN == 0
-    if m <= VARIANTS["decode"][0]:
-        return "decode" if b_tma and decode_fits(m, k) else "decode_wmma"
-    if b_tma and a_addr % _TMA_ALIGN == 0 and 2 * lda % _TMA_ALIGN == 0:
-        return "wgmma"
-    return "wmma"
+    a_tma = a_addr % _TMA_ALIGN == 0 and 2 * lda % _TMA_ALIGN == 0
+    if a_layout == "km" or m > VARIANTS["decode"][0]:
+        variant = "wgmma" if a_tma and b_tma else "wmma"
+    else:
+        variant = "decode" if b_tma and decode_fits(m, k) else "decode_wmma"
+    if variant in ("wmma", "decode_wmma") and (a_layout, b_layout) != ("mk", "kn"):
+        raise ValueError(f"a={a_layout!r}, b={b_layout!r} operands need TMA: 16-byte "
+                         f"aligned bases and row strides (lda {lda}, ldb {ldb} elements)")
+    return variant
 
 
 def split_for(tiles: int, k_tiles: int, sms: int) -> int:
@@ -258,20 +300,30 @@ def _plan(m: int, k: int, n: int, tile: tuple[int, int, int], out_dtype: torch.d
 
 
 def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
-                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """C = A @ B with BSPS block streaming. Shapes (m, k) x (k, n) -> (m, n).
+                    out_dtype: torch.dtype | None = None, a_layout: str = "mk",
+                    b_layout: str = "kn") -> torch.Tensor:
+    """C = A @ B with BSPS block streaming: (m, k) x (k, n) -> (m, n), A given
+    as (m, k) (``a_layout="mk"``) or as its (k, m) transpose (``"km"``), B as
+    (k, n) (``b_layout="kn"``) or as its (n, k) transpose (``"nk"``).
 
     CUDA tensors go to the kernel, in the variant :func:`variant_for` names:
-    bf16 operands whose rows are contiguous, output bf16 or float32. CPU
-    tensors go to :func:`repro_torch.kernels.ref.matmul_ref`.
+    bf16 operands whose stored rows are contiguous, output bf16 or float32
+    (rows n elements apart, n odd or even). CPU tensors go to
+    :func:`repro_torch.kernels.ref.matmul_ref`.
     """
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    _check_layouts(a_layout, b_layout)
+    if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"bad matmul shapes {tuple(a.shape)} x {tuple(b.shape)}")
+    m, k = a.shape if a_layout == "mk" else a.shape[::-1]
+    kb, n = b.shape if b_layout == "kn" else b.shape[::-1]
+    if k != kb:
+        raise ValueError(f"bad matmul shapes {tuple(a.shape)} ({a_layout}) x "
+                         f"{tuple(b.shape)} ({b_layout})")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
-        return ref.matmul_ref(a, b, out_dtype=out_dtype)
+        return ref.matmul_ref(a, b, out_dtype=out_dtype, a_layout=a_layout, b_layout=b_layout)
     if a.device.type != "cuda":
         raise ValueError(f"streamed_matmul runs on CUDA or CPU tensors, not {a.device}")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
@@ -280,12 +332,11 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
         raise TypeError(f"streamed_matmul writes bfloat16 or float32, not {out_dtype}")
     if a.stride(1) != 1 or b.stride(1) != 1:
         raise ValueError("streamed_matmul needs operands with contiguous rows")
-    m, k = a.shape
-    n = b.shape[1]
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return c.zero_()
-    variant = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k)
+    variant = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k,
+                          a_layout=a_layout, b_layout=b_layout)
     partials = None
     if variant == "decode":
         split = decode_split(m, n, k, pipeline.sm_count(a.device))
@@ -303,11 +354,13 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     pipeline.launch(launch, a.device, a.data_ptr(), b.data_ptr(), c.data_ptr(),
                     None if partials is None else partials.data_ptr(),
                     m, n, k, a.stride(0), b.stride(0), n, _CODES[variant],
-                    _OUT_DTYPES[out_dtype])
+                    LAYOUTS[a_layout, b_layout], _OUT_DTYPES[out_dtype])
     streamed_matmul.launches += 1
     streamed_matmul.launches_by_variant[variant] += 1
+    streamed_matmul.launches_by_layout[a_layout, b_layout] += 1
     return c
 
 
 streamed_matmul.launches = 0
 streamed_matmul.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+streamed_matmul.launches_by_layout = dict.fromkeys(LAYOUTS, 0)

@@ -1,15 +1,22 @@
-"""Where a decode step's time goes: torch.profiler over the serve path.
+"""Where a decode step's or a train step's time goes: torch.profiler over
+the serve path, or over the train step with ``--train``.
 
-``python -m repro_torch.launch.profile_serve [--arch minicpm-2b] [--steps 4]``
+``python -m repro_torch.launch.profile_serve [--arch minicpm-2b] [--steps 4] [--context N]``
+``python -m repro_torch.launch.profile_serve --train [--batch 4 --prompt-len 256]``
 
 Serves ``--arch`` at full width on the CUDA card (random weights from a seed;
 at the depth one card holds, ``configs.card_config``),
 prefills a ``--batch`` × ``--prompt-len`` prompt at the autotuned block,
 then profiles ``--steps`` greedy decode steps and one full-sequence forward
-(``make_prefill_step`` over the prompt). For each it prints the host wall
-time, the device's busy share of it, and the operators and kernels that take
-the most host and device time. Run it on the card; it refuses to run
-without one.
+(``make_prefill_step`` over the prompt); the decode's CUDA-event time and
+its peak memory above the resident tensors are printed beside. With
+``--context N`` the cache holds N positions and the decode steps run at its
+end. With ``--train`` it instead takes ``--steps`` AdamW steps of
+``make_train_step`` on one ``--batch`` × ``--prompt-len`` batch (after a
+warm-up step), times the loss and its gradients apart from the optimizer
+update (CUDA events), and profiles one step. For each it prints the host wall time, the device's busy share of
+it, and the operators and kernels that take the most host and device time.
+Run it on the card; it refuses to run without one.
 """
 
 from __future__ import annotations
@@ -40,6 +47,54 @@ def _report(name: str, prof, wall: float, calls: int, rows: int) -> None:
     print(events.table(sort_by="self_device_time_total", row_limit=rows))
 
 
+def _device_ms(fn) -> tuple[float, object]:
+    """``fn()``'s result and the CUDA-event ms from its first launch to its
+    last (idle gaps included), after a synchronise."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def profile_train(cfg, args) -> None:
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.steps import make_grad_fn, make_train_step
+
+    params = M.init_params(cfg, 0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len + 1),
+                         generator=torch.Generator().manual_seed(1)).to("cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamW(wsd(peak_lr=2e-3, warmup=4, total=100))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, device="cuda")
+    params, state, _ = step(params, state, batch)                 # warm-up
+    name = (f"{args.arch} ({cfg.num_layers} layers, remat {cfg.remat}) train step over "
+            f"{args.batch} x {args.prompt_len}")
+    walls = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        ms, (params, state, _) = _device_ms(lambda: step(params, state, batch))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"[profile] {name}: wall {walls[-1]:.1f} ms, CUDA events {ms:.1f} ms")
+
+    grads_of = make_grad_fn(cfg, device="cuda")
+    grad_ms, (g, _) = _device_ms(lambda: grads_of(params, batch))
+    opt_ms, _ = _device_ms(lambda: opt.update(g, state, params))
+    print(f"[profile] {name}: loss and gradients {grad_ms:.1f} ms, AdamW update "
+          f"{opt_ms:.1f} ms (CUDA events, run apart)")
+    del g
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(name, prof, wall, 1, args.rows)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="minicpm-2b")
@@ -47,17 +102,30 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--rows", type=int, default=25)
+    ap.add_argument("--context", type=int, default=0,
+                    help="cache positions: the decode steps run at the end of a cache this "
+                         "long (default: the prompt and the steps)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile make_train_step instead of the serve path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
 
     cfg = card_config(args.arch)
+    if args.train:
+        profile_train(cfg, args)
+        return
     params = M.init_params(cfg, 0, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=torch.Generator().manual_seed(1)).to("cuda")
-    cache = M.init_cache(cfg, args.batch, args.prompt_len + 2 * args.steps + 2, device="cuda")
+    max_len = max(args.context, args.prompt_len + 2 * args.steps + 2)
+    cache = M.init_cache(cfg, args.batch, max_len, device="cuda")
     block = prefill_block_size(cfg, args.batch, args.prompt_len, device="cuda")
     logits, cache = make_prefill(cfg, block, device="cuda")(params, cache, prompt)
+    if args.context:
+        # decode at the end of the long cache: the positions past the prompt
+        # hold zeros, and what the read costs does not depend on their values
+        cache["len"] = max_len - 2 * args.steps - 2
     _, decode_fn = compiled_serve_fns(cfg, 0.0, device="cuda")
     gen = torch.Generator(device="cuda")
     _, logits, cache, gen = decode_fn(params, logits, cache, gen)    # warm-up
@@ -72,13 +140,21 @@ def main() -> None:
     _report(f"{args.arch} ({cfg.num_layers} layers) batch {args.batch}, {args.steps} "
             "decode steps", prof, wall, args.steps, args.rows)
 
+    def decode_steps():
+        nonlocal logits, cache, gen
+        for _ in range(args.steps):
+            _, logits, cache, gen = decode_fn(params, logits, cache, gen)
+
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(args.steps):
-        _, logits, cache, gen = decode_fn(params, logits, cache, gen)
-    torch.cuda.synchronize()
+    ms, _ = _device_ms(decode_steps)
     print(f"[profile] without the profiler: "
-          f"{(time.perf_counter() - t0) / args.steps * 1e3:.2f} ms/step")
+          f"{(time.perf_counter() - t0) / args.steps * 1e3:.2f} ms/step, CUDA events "
+          f"{ms / args.steps:.3f} ms/step; cache of {max_len} positions, peak "
+          f"{(torch.cuda.max_memory_allocated() - resident) / 2**20:.1f} MiB above the "
+          f"{resident / 2**30:.2f} GiB resident")
 
     step = make_prefill_step(cfg, device="cuda")
     step(params, {"tokens": prompt})                              # warm-up

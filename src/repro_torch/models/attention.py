@@ -10,7 +10,10 @@ Q token, KV stream, online-softmax state):
 * ``dense``     — materialised S² reference (tests, short sequences).
 
 Decode reads the cache with :func:`dense_cache_attention`, torch ops, as the
-JAX package reads it with jnp.
+JAX package reads it with jnp. The projections run on the BSPS matmul (the
+kernel on the card), and the full-sequence forward's attention through
+:class:`repro_torch.models.flash.FlashAttention`, so a train step
+differentiates through both kernels.
 """
 
 from __future__ import annotations
@@ -20,12 +23,14 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import _dense_init, apply_rope
+from repro_torch.kernels import ref
+from repro_torch.models.flash import flash_attention
+from repro_torch.models.layers import _dense_init, apply_rope, ops_matmul
 
 Params = dict[str, Any]
 
 _NEG = -1e30
+DECODE_CHUNK = 8192     # cache positions a single-token read forms its products over at once
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
@@ -39,13 +44,14 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Par
 
 
 def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
-    # plain products: the JAX package leaves these einsums to XLA, outside
-    # any Pallas kernel
+    # on the kernel, where the JAX package leaves these einsums to XLA: one
+    # summation order for every m ≤ 8, so a packed decode lane rounds as
+    # the request would alone
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = torch.matmul(x, p["wq"]).reshape(b, s, h, hd)
-    k = torch.matmul(x, p["wk"]).reshape(b, s, hkv, hd)
-    v = torch.matmul(x, p["wv"]).reshape(b, s, hkv, hd)
+    q = ops_matmul(x, p["wq"]).reshape(b, s, h, hd)
+    k = ops_matmul(x, p["wk"]).reshape(b, s, hkv, hd)
+    v = ops_matmul(x, p["wv"]).reshape(b, s, hkv, hd)
     if cfg.rope_type in ("rope", "mrope"):
         q = apply_rope(cfg, q, positions)
         k = apply_rope(cfg, k, positions)
@@ -125,12 +131,26 @@ def dense_cache_attention(
     ``kv_valid_len`` may be an int (every lane at the same position — the
     single-request serve path) or a ``(B,)`` tensor (a packed batch of
     requests at mixed positions).
+
+    A single-token step (Sq = 1) takes both products as elementwise products
+    summed over their last, contiguous axis, whose reduction has one block
+    shape for any batch (more than 16 rows): a packed lane gets the bits it
+    gets alone, where a batched library product may pick another algorithm
+    by the batch. The products are formed :data:`DECODE_CHUNK` cache
+    positions at a time, and the output's partial sums added chunk by chunk
+    in order, so the fp32 temporaries stay B·Hq·D·DECODE_CHUNK·4 bytes at
+    any context; a cache of at most one chunk is summed in one reduction.
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     g = hq // hkv
     qg = q.reshape(b, hkv, g, sq, d).float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * d ** -0.5
+    chunks = [(c, min(c + DECODE_CHUNK, skv)) for c in range(0, skv, DECODE_CHUNK)]
+    if sq == 1:
+        parts = [(qg[..., None, :] * k[:, :, None, None, c0:c1]).sum(-1) for c0, c1 in chunks]
+        s = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)) * d ** -0.5
+    else:
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * d ** -0.5
     k_pos = torch.arange(skv, device=q.device)
     mask = _valid_mask(kv_valid_len, k_pos)               # (B|1, 1, Skv)
     if sq > 1:
@@ -139,7 +159,19 @@ def dense_cache_attention(
     mask = mask.expand(b, sq, skv)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, _NEG))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    if sq == 1:
+        out = None
+        vt = v.transpose(-1, -2)[:, :, None, None]        # (B, Hkv, 1, 1, D, Skv)
+        for c0, c1 in chunks:
+            # the products laid out (…, d, chunk), so the sum runs along memory
+            prod = torch.empty((b, hkv, g, sq, d, c1 - c0), dtype=torch.float32,
+                               device=q.device)
+            torch.mul(p[..., None, c0:c1], vt[..., c0:c1], out=prod)
+            part = prod.sum(-1)
+            del prod                # freed before the next chunk's is made
+            out = part if out is None else out + part
+    else:
+        out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
@@ -155,14 +187,15 @@ def attention_core(
     """(B, S, H, D)-layout wrapper choosing the inner implementation.
 
     ``auto`` takes the flash kernel for the full-sequence forward
-    (``kv_valid_len is None``), as the JAX package does on its TPU, and the
-    blockwise stream over a partially filled cache.
+    (``kv_valid_len is None``), as the JAX package does on its TPU — through
+    :class:`~repro_torch.models.flash.FlashAttention`, differentiable on both
+    devices — and the blockwise stream over a partially filled cache.
     """
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # -> (B, H, S, D)
     if impl == "auto":
         impl = "kernel"
     if impl == "kernel" and kv_valid_len is None:
-        out = ops.attention(qt, kt, vt, causal=causal)
+        out = flash_attention(qt, kt, vt, causal=causal)
     elif impl == "dense":
         if kv_valid_len is not None:
             raise ValueError("dense impl does not support cache masking")
@@ -185,7 +218,7 @@ def attention_forward(
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions)
     out = attention_core(cfg, q, k, v, causal=True, impl=impl)
-    return torch.matmul(out.reshape(b, s, -1), p["wo"])
+    return ops_matmul(out.reshape(b, s, -1), p["wo"])
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Params:
@@ -245,5 +278,5 @@ def attention_decode(
     else:
         out = attention_core(cfg, q, ck, cv, causal=s > 1, kv_valid_len=valid,
                              q_offset=q_offset, impl=impl)
-    y = torch.matmul(out.reshape(b, s, -1), p["wo"])
+    y = ops_matmul(out.reshape(b, s, -1), p["wo"])
     return y, {"k": ck, "v": cv}

@@ -31,10 +31,27 @@ def init_norm(cfg: ModelConfig, dtype, device) -> Params:
     return p
 
 
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last axis, the same bits whatever the rows.
+
+    One reduction over a whole row of a few thousand takes a launch shape
+    that follows the number of rows (PyTorch's CUDA reduction sizes its
+    blocks by both), so a row summed alone and in a batch of 8 round
+    differently. Summed as rows of 64 and then over those partial sums, each
+    reduction has a fixed block shape whatever the rows (64 values, or at
+    most 32 per warp), so a decode lane's norm is the one it gets served
+    alone."""
+    d = xf.shape[-1]
+    sq = xf.square()
+    if d % 64 or d == 64:
+        return sq.mean(dim=-1, keepdim=True)
+    return sq.unflatten(-1, (d // 64, 64)).sum(-1).sum(-1, keepdim=True) / d
+
+
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     if cfg.norm_type == "rmsnorm":
-        var = xf.square().mean(dim=-1, keepdim=True)
+        var = _mean_square(xf)
         out = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
     elif cfg.norm_type == "layernorm":
         mean = xf.mean(dim=-1, keepdim=True)
@@ -118,12 +135,19 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return ops_matmul(h, p["w_down"])
 
 
-def ops_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Batched (..., d) @ (d, f) through the BSPS matmul: the CUDA kernel for
-    CUDA tensors, its plain version for CPU tensors."""
+def ops_matmul(x: torch.Tensor, w: torch.Tensor, *, b_layout: str = "kn") -> torch.Tensor:
+    """Batched (..., d) @ (d, f) — or, with ``b_layout="nk"``, (..., d) @ wᵀ
+    for w stored (f, d) — through the BSPS matmul: the CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors. Where a gradient is wanted
+    it goes through :class:`repro_torch.kernels.ops.Matmul`, whose backward
+    runs both products on the kernel too."""
     lead = x.shape[:-1]
-    out = ops.matmul(x.reshape(-1, x.shape[-1]), w, out_dtype=x.dtype)
-    return out.reshape(*lead, w.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = ops.Matmul.apply(x2, w, b_layout, x.dtype)
+    else:
+        out = ops.matmul(x2, w, out_dtype=x.dtype, b_layout=b_layout)
+    return out.reshape(*lead, out.shape[-1])
 
 
 # -- embeddings ----------------------------------------------------------------
@@ -144,6 +168,8 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        # a plain product, as the JAX package leaves this einsum to XLA
-        return torch.matmul(x, p["tokens"].T)
+        # x·Eᵀ on the kernel, the (V, d) embedding read as its (n, k) B: a
+        # packed decode step's rows round as each would alone (a library
+        # product picks its algorithm by the rows), and no (d, V) copy exists
+        return ops_matmul(x, p["tokens"], b_layout="nk")
     return ops_matmul(x, p["head"])

@@ -1,4 +1,4 @@
-"""Top-level LM: init, forward, decode — the port's public model API.
+"""Top-level LM: init, forward, loss, decode — the port's public model API.
 
 Parameters are plain dicts of tensors with the JAX package's key names
 (``embed``/``stack``/``final_norm``), the stack in the per-layer layout (see
@@ -28,8 +28,9 @@ from repro_torch.models.layers import (
 
 Params = dict[str, Any]
 
-__all__ = ["init_params", "params_from_numpy", "count_params", "forward",
-           "init_cache", "cache_bytes", "decode_step", "default_positions", "torch_dtype"]
+__all__ = ["init_params", "params_from_numpy", "opt_state_from_numpy", "count_params",
+           "forward", "loss_fn", "init_cache", "cache_bytes", "decode_step",
+           "default_positions", "torch_dtype"]
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -97,6 +98,12 @@ def params_from_numpy(cfg: ModelConfig, tree: Params, device: Any = None) -> Par
         to = torch.float32 if key in FP32_LEAVES else dtype
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device, to)
 
+    return _from_numpy(cfg, tree, conv)
+
+
+def _from_numpy(cfg: ModelConfig, tree: Params, conv) -> Params:
+    """A parameter-shaped numpy tree in the port's layout, each leaf through
+    ``conv(array, key)``; a period-stacked stack is unstacked."""
     stack = tree["stack"]
     if cfg.scan_layers:
         stack = [[_tree_map(lambda a, _k, i=i: np.asarray(a, np.float32)[i], stack[j])
@@ -110,6 +117,21 @@ def params_from_numpy(cfg: ModelConfig, tree: Params, device: Any = None) -> Par
         "stack": _tree_map(conv, stack),
         "final_norm": _tree_map(conv, tree["final_norm"]),
     }
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state: dict[str, Any],
+                         device: Any = None) -> dict[str, Any]:
+    """The port's AdamW state from the JAX package's (``AdamW.init`` or a
+    stepped state) as numpy arrays: the fp32 moments in the parameters'
+    layout and the int step (:class:`repro_torch.optim.adamw.AdamW`)."""
+    device = resolve_device(device)
+
+    def conv(a: Any, _key: str | None) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return {"m": _from_numpy(cfg, state["m"], conv), "v": _from_numpy(cfg, state["v"], conv),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=device)}
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -148,8 +170,8 @@ def forward(
     *,
     positions: torch.Tensor | None = None,
     device: Any = None,
-) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, V)."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), moe_aux)."""
     _check_rope(cfg)
     device = _on(params, device)
     tokens = torch.as_tensor(tokens, device=device)
@@ -157,9 +179,41 @@ def forward(
     b, s, _ = x.shape
     if positions is None:
         positions = default_positions(b, s, device)
-    x = tf.apply_stack(cfg, params["stack"], x, positions)
+    x, aux = tf.apply_stack(cfg, params["stack"], x, positions)
     x = apply_norm(cfg, params["final_norm"], x)
-    return lm_head(cfg, params["embed"], x)
+    return lm_head(cfg, params["embed"], x), aux
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    positions: torch.Tensor | None = None,
+    aux_weight: float = 0.01,
+    device: Any = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Causal-LM cross entropy (+ MoE aux). labels = next-token ids, -1 = pad.
+
+    The JAX package's arithmetic: fp32 logits, CE per position as
+    logsumexp minus the true logit, averaged over the labelled positions,
+    and ``ce + aux_weight·aux``. The true logit is gathered, where the
+    reference contracts with a one-hot (the same value: one product of 1.0,
+    the rest of 0.0). Returns ``(total, {"loss", "ce", "moe_aux"})``.
+    """
+    logits, aux = forward(cfg, params, tokens, positions=positions, device=device)
+    logits = logits.float()
+    labels = torch.as_tensor(labels, device=logits.device)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = logits.gather(-1, safe[..., None])[..., 0]
+    nll = lse - true_logit
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
+    total = ce + aux_weight * aux
+    return total, {"loss": total, "ce": ce, "moe_aux": aux}
 
 
 # -- decoding -------------------------------------------------------------------

@@ -17,8 +17,9 @@ updates — with no atomics, so two runs on the card agree bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any
+from typing import Any, Callable, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +29,25 @@ from repro_torch.models.layers import _dense_init
 
 Params = dict[str, Any]
 
-__all__ = ["init_moe", "moe_forward", "moe_forward_dense"]
+__all__ = ["init_moe", "moe_forward", "moe_forward_dense", "route_hook"]
+
+_route_hook: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None
+
+
+@contextlib.contextmanager
+def route_hook(fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]) -> Iterator[None]:
+    """Within the block, every routing calls ``fn(probs, top_e)`` with the
+    router's probabilities (T, E) and its top-k expert ids (T, k), and routes
+    each token to the ids ``fn`` returns, at their probabilities. A hook
+    that returns ``top_e`` records the routes a path takes; one that returns
+    recorded ids replays them on another path, so that two paths that round
+    differently can be compared without a near tie choosing other experts."""
+    global _route_hook
+    prev, _route_hook = _route_hook, fn
+    try:
+        yield
+    finally:
+        _route_hook = prev
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Params:
@@ -69,6 +88,9 @@ def _route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
     e, k = cfg.moe_experts, cfg.moe_top_k
     probs = torch.softmax(torch.matmul(xt.float(), router), dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)
+    if _route_hook is not None:
+        top_e = _route_hook(probs, top_e)
+        top_p = torch.gather(probs, -1, top_e)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     counts = torch.bincount(top_e.reshape(-1), minlength=e).float()
     aux = e * torch.sum((counts / (xt.shape[0] * k)) * probs.mean(0))

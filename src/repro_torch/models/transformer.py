@@ -3,8 +3,11 @@
 A block is (pre-norm → mixer → residual, pre-norm → mlp → residual) with the
 mixer/mlp kinds taken from the config's repeating pattern. The port runs
 attention and Mamba mixers with dense, MoE or no MLPs; the xLSTM mixers are
-not ported yet. The MoE load-balancing loss is dropped here: the port has
-no training step to add it to yet.
+not ported yet. The full-sequence stack returns the MoE load-balancing
+loss summed over its blocks in fp32, beside the activations, as the JAX
+package's does; under ``remat="full"`` each period is recomputed in the
+backward pass (``torch.utils.checkpoint``), the JAX package's
+``jax.checkpoint`` per period.
 
 The stack's parameters are always the per-layer layout of the JAX package's
 ``scan_layers=False``: ``stack[i][j]`` is period i, position j. The JAX
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import Block, ModelConfig
 from repro_torch.models import attention as attn
@@ -47,18 +51,21 @@ def init_block(cfg: ModelConfig, blk: Block, gen: torch.Generator, dtype, device
     return p
 
 
-def _apply_mlp(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _apply_mlp(cfg: ModelConfig, blk: Block, p: Params,
+               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(x + mlp(norm(x)), the MoE aux loss or None)."""
     if blk.mlp == "none":
-        return x
+        return x, None
     h = apply_norm(cfg, p["ln2"], x)
     if blk.mlp == "dense":
-        return x + apply_mlp(cfg, p["mlp"], h)
-    return x + moe_mod.moe_forward(cfg, p["mlp"], h)[0]
+        return x + apply_mlp(cfg, p["mlp"], h), None
+    y, aux = moe_mod.moe_forward(cfg, p["mlp"], h)
+    return x + y, aux
 
 
 def apply_block(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence (train/prefill) block."""
+                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Full-sequence (train/prefill) block: (x, its MoE aux loss or None)."""
     _check_block(blk)
     h = apply_norm(cfg, p["ln1"], x)
     if blk.mixer == "attn":
@@ -76,7 +83,7 @@ def apply_block_decode(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
         h, cache = attn.attention_decode(cfg, p["mixer"], h, cache, cache_len)
     else:
         h, cache = mb.mamba_decode(cfg, p["mixer"], h, cache)
-    return _apply_mlp(cfg, blk, p, x + h), cache
+    return _apply_mlp(cfg, blk, p, x + h)[0], cache
 
 
 def init_block_cache(cfg: ModelConfig, blk: Block, batch: int, max_len: int, dtype,
@@ -93,12 +100,41 @@ def init_stack(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> list[li
             for _ in range(cfg.n_periods)]
 
 
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the config's rematerialisation: ``"full"`` recomputes
+    it in the backward pass, saving only its inputs, where a gradient is
+    being taken; ``"none"`` calls it."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported: the port "
+                                  "recomputes whole periods ('full') or nothing ('none')")
+
+    def run(x, aux, per):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return torch.utils.checkpoint.checkpoint(fn, x, aux, per, use_reentrant=False)
+        return fn(x, aux, per)
+
+    return run
+
+
 def apply_stack(cfg: ModelConfig, stack: list[list[Params]], x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    for per in stack:
+                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """All layers, one period at a time. Returns (x, the MoE aux losses
+    summed in fp32)."""
+
+    def one_period(h, aux, per):
         for j, p in enumerate(per):
-            x = apply_block(cfg, cfg.pattern[j], p, x, positions)
-    return x
+            h, a = apply_block(cfg, cfg.pattern[j], p, h, positions)
+            if a is not None:
+                aux = aux + a
+        return h, aux
+
+    body = _remat(cfg, one_period)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for per in stack:
+        x, aux = body(x, aux, per)
+    return x, aux
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -337,3 +337,50 @@ def test_engine_without_evidence_emits_bsps222(tiny, virtual_clock):
     assert codes.get("BSPS220", 0) >= 1 and codes.get("BSPS222", 0) >= 1
     assert codes.get("BSPS221", 0) == 0
     assert eng.active_machine is eng.machine
+
+
+def test_engine_drift_refit_at_the_reference_geometry(tiny, virtual_clock):
+    """The reference drill's geometry (``tests/test_calibstore.py::
+    test_engine_drift_refit_reprice``: 2 lanes, a 96-position pool, 4-step
+    segments, two 4-token prompts of 64 new tokens, a 10 ms DMA stall on
+    every hyperstep from segment 4 on), where the KV stream is small beside
+    the params. The refit regresses a stalled segment's wall on link words
+    that hold the resident params and all S KV arrivals, while Eq. 1 charges
+    S - 1 of them, so the refit pack prices the next stalled segment at
+    (S-1)·kv / (params + S·kv) of its wall — about 0.34, outside [0.5, 2]:
+    the defect the port shares with the reference (ROADMAP Queue 3). The
+    virtual clock gives each hyperstep 0.1 ms of compute (a clean segment's
+    wall must not be 0), far below the stall."""
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    from repro_torch.launch.engine import ServeEngine
+
+    tc, tp = tiny
+    seg, lanes, stall = 4, 2, 0.01
+    faults = FaultPlan([FaultSpec("straggler", at=tuple(range(400)), delay_s=1e-4),
+                        FaultSpec("dma_stall", at=tuple(range(4 * seg, 400)),
+                                  delay_s=stall)]).replay()
+    store = tcs.CalibrationStore()
+    eng = ServeEngine(tc, tp, max_lanes=lanes, pool_seq=96, segment_len=seg,
+                      machine=TPack(**PACK), faults=faults, calibstore=store,
+                      device="cpu")
+    for i in range(2):
+        eng.submit(np.full(4, 7, np.int32), 64, seed=i)
+    eng.run_until_drained()
+    codes = eng.health.rollup()["count_by_code"]
+    assert codes.get("BSPS220", 0) == 1 and codes.get("BSPS221", 0) == 1, codes
+    assert eng.stats()["machine_pack"] == "refit"
+
+    recs = store.records()
+    ratios = [r.predicted_seconds / r.measured_seconds for r in recs]
+    # the refit is adopted at the first segment whose ratio it moved
+    refit_at = next(i for i in range(5, len(recs)) if ratios[i] > 3 * ratios[i - 1])
+    params = eng._param_words
+
+    def kv(rec):            # KV words per hyperstep: link words less params and ids up
+        return (rec.link_words - params - seg * lanes) / seg
+
+    fitted = float(np.mean([kv(r) for r in recs[4:refit_at]]))
+    want = (seg - 1) * kv(recs[refit_at]) / (params + seg * fitted)
+    assert 0.30 < want < 0.38
+    assert ratios[refit_at] == pytest.approx(want, rel=0.02), (ratios, want)
+    assert not 0.5 <= ratios[refit_at] <= 2.0, ratios

@@ -510,3 +510,236 @@ def test_engine_segment_makes_no_host_sync_on_the_card(cuda, engine_cut):
         eng.submit(p, n)
     eng.run_until_drained()
     assert len(calls) == eng.stats()["segments"] >= 3
+
+
+# -- operand layouts, the flash lse and the backward passes ---------------------------
+
+
+def _plain(a, b, out_dtype, a_layout="mk", b_layout="kn"):
+    return ref.matmul_ref(a, b, out_dtype=out_dtype, a_layout=a_layout, b_layout=b_layout)
+
+
+# B given as its (n, k) transpose: the decode variant (weights by TMA boxes
+# over rows of k, ldmatrix untransposed) and wgmma (the K-major operand), at
+# minicpm-2b's tied head (n = 122753: an odd output row stride), a ragged odd
+# n, and the input gradients of an MLP product
+@pytest.mark.parametrize("m,k,n,variant", [
+    (1, 2304, 122753, "decode"), (8, 2304, 122753, "decode"), (16, 1000, 1033, "decode"),
+    (4, 5760, 2304, "decode"),
+    (1024, 2304, 122753, "wgmma"), (300, 264, 1033, "wgmma"), (1024, 5760, 2304, "wgmma"),
+    (17, 64, 8, "wgmma"),
+])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_matmul_nk_layout_matches_plain(cuda, m, k, n, variant, out_dtype):
+    a = _rand((m, k), torch.bfloat16, cuda, 31)
+    b = _rand((n, k), torch.bfloat16, cuda, 32) * k ** -0.5
+    before = ops.matmul_variant_counts()[variant]
+    got = streamed_matmul(a, b, out_dtype=out_dtype, b_layout="nk")
+    want = _plain(a, b, out_dtype, b_layout="nk")
+    torch.cuda.synchronize()
+    assert ops.matmul_variant_counts()[variant] == before + 1
+    assert got.shape == (m, n) and got.stride() == (n, 1)
+    tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# A given as its (k, m) transpose (the weight gradient Aᵀ·dC): wgmma's
+# M-major operand, at an MLP product's dW shapes and ragged m, n and k
+@pytest.mark.parametrize("m,k,n", [(2304, 1024, 5760), (5760, 1024, 2304), (1000, 264, 136),
+                                   (16, 64, 128)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_matmul_km_layout_matches_plain(cuda, m, k, n, out_dtype):
+    a = _rand((k, m), torch.bfloat16, cuda, 33)
+    b = _rand((k, n), torch.bfloat16, cuda, 34) * k ** -0.5
+    before = ops.matmul_variant_counts()["wgmma"]
+    got = streamed_matmul(a, b, out_dtype=out_dtype, a_layout="km")
+    want = _plain(a, b, out_dtype, a_layout="km")
+    torch.cuda.synchronize()
+    assert ops.matmul_variant_counts()["wgmma"] == before + 1
+    tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_matmul_layouts_need_tma(cuda):
+    """A transposed operand the TMA cannot describe raises; nothing falls
+    back to a variant that would read it in the default layout."""
+    a = _rand((8, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        streamed_matmul(a, _rand((9, 67), torch.bfloat16, cuda)[:, :64], b_layout="nk")
+    with pytest.raises(ValueError, match="TMA"):
+        streamed_matmul(_rand((64, 37), torch.bfloat16, cuda), _rand((64, 64), torch.bfloat16,
+                                                                    cuda), a_layout="km")
+
+
+# the tied head (n = 122753) is (n, k) only: a (k, n) copy has an odd row stride
+@pytest.mark.parametrize("b_layout,k,n", [
+    (layout, k, n) for layout in ("kn", "nk")
+    for k, n in ((2304, 2304), (2304, 5760), (5760, 2304))] + [("nk", 2304, 122753)])
+def test_decode_rows_are_batch_invariant(cuda, b_layout, k, n):
+    """Rows 1..8 take one K split and one kernel instance: a row alone gives
+    the bits it gives among 8 (a packed decode lane against batch 1)."""
+    a = _rand((8, k), torch.bfloat16, cuda, 35)
+    b = _rand((k, n) if b_layout == "kn" else (n, k), torch.bfloat16, cuda, 36) * k ** -0.5
+    full = streamed_matmul(a, b, b_layout=b_layout)
+    for i in (0, 3, 7):
+        assert torch.equal(streamed_matmul(a[i:i + 1], b, b_layout=b_layout), full[i:i + 1])
+    assert torch.equal(streamed_matmul(a[:4], b, b_layout=b_layout), full[:4])
+
+
+@pytest.mark.parametrize("hq,hkv,d,skv", [(36, 36, 64, 512), (32, 8, 128, 20000)])
+def test_cache_read_lanes_are_batch_invariant(cuda, hq, hkv, d, skv):
+    """The single-token cache read, over one chunk of positions (minicpm's
+    heads) and over three, the last partial (jamba's): a lane read alone at
+    its own length gives the bits it gives among 8 lanes at mixed lengths."""
+    from repro_torch.models.attention import dense_cache_attention
+
+    q = _rand((8, hq, 1, d), torch.bfloat16, cuda, 40)
+    # the cache as decode stores it, (B, S, Hkv, D), read as (B, Hkv, S, D)
+    k = _rand((8, skv, hkv, d), torch.bfloat16, cuda, 41).transpose(1, 2)
+    v = _rand((8, skv, hkv, d), torch.bfloat16, cuda, 42).transpose(1, 2)
+    lens = torch.tensor([skv, 3, skv // 2, 1, skv - 7, 100, 17, skv], device=cuda)
+    full = dense_cache_attention(q, k, v, kv_valid_len=lens)
+    for i in (0, 2, 4, 7):
+        alone = dense_cache_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                      kv_valid_len=int(lens[i]))
+        assert torch.equal(alone, full[i:i + 1])
+
+
+@pytest.mark.parametrize("b_layout", ["kn", "nk"])
+@pytest.mark.parametrize("m,k,n", [(1024, 2304, 5760), (1024, 2304, 1033), (8, 2304, 5760)])
+def test_matmul_function_grads_on_the_card(cuda, b_layout, m, k, n):
+    """The Function's backward on the kernel (dA with B in the other layout,
+    dB with A or dC read as a (k, m) transpose; an odd n copied to padded
+    rows) against fp32 CPU autograd through the plain version: bf16 inputs
+    and outputs, fp32 sums, bounded at 2% of the largest gradient."""
+    a = _rand((m, k), torch.bfloat16, cuda, 37).requires_grad_(True)
+    b = (_rand((k, n) if b_layout == "kn" else (n, k), torch.bfloat16, cuda, 38)
+         * k ** -0.5).requires_grad_(True)
+    dc = _rand((m, n), torch.bfloat16, cuda, 39)
+    before = ops.launch_counts()["streamed_matmul"]
+    out = ops.Matmul.apply(a, b, b_layout, torch.bfloat16)
+    da, db = torch.autograd.grad(out, (a, b), dc)
+    assert ops.launch_counts()["streamed_matmul"] == before + 3
+    ca, cb = (t.detach().float().cpu().requires_grad_(True) for t in (a, b))
+    cout = ops.Matmul.apply(ca, cb, b_layout, torch.float32)
+    wa, wb = torch.autograd.grad(cout, (ca, cb), dc.float().cpu())
+    for got, want in ((out, cout), (da, wa), (db, wb)):
+        assert got.dtype == torch.bfloat16
+        err = (got.float().cpu() - want).abs().max()
+        assert err <= 0.02 * want.abs().max(), err
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    (4, 36, 36, 256, 256, 64, True),           # minicpm-2b
+    (4, 32, 8, 256, 256, 128, True),           # jamba (GQA 32/8)
+    (2, 8, 2, 100, 100, 64, True),             # GQA, ragged
+    (1, 4, 4, 100, 300, 128, True),            # ragged queries at the end
+    (2, 4, 2, 70, 70, 64, False),              # non-causal, ragged
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dtype):
+    """The rows' log-sum-exp: the bf16 kernel's from its log2-domain state,
+    the fp32 kernel's natural; fp32 sums on both sides, 1e-3 absolute (the
+    scores are O(1))."""
+    q = _rand((b, hq, sq, d), dtype, cuda, 40)
+    k = _rand((b, hkv, skv, d), dtype, cuda, 41)
+    v = _rand((b, hkv, skv, d), dtype, cuda, 42)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    want_out, want = ref.attention_ref_lse(q, k, v, causal=causal)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-3)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 36, 36, 256, 64), (2, 32, 8, 256, 128),
+                                          (1, 8, 2, 100, 64)])
+def test_flash_function_grads_on_the_card(cuda, b, hq, hkv, s, d):
+    """FlashAttention's (dq, dk, dv): the kernel forward and the torch-op
+    backward on bf16 card tensors, against fp32 CPU autograd through the
+    plain version; bounded at 2% of the largest gradient (bf16 inputs, P
+    rounded to bf16 in the forward)."""
+    from repro_torch.models.flash import FlashAttention
+
+    qkv = [_rand(shape, torch.bfloat16, cuda, 43 + i).requires_grad_(True)
+           for i, shape in enumerate(((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))]
+    do = _rand((b, hq, s, d), torch.bfloat16, cuda, 46)
+    before = ops.launch_counts()["flash_attention"]
+    got = torch.autograd.grad(FlashAttention.apply(*qkv, True), qkv, do)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    cpu = [t.detach().float().cpu().requires_grad_(True) for t in qkv]
+    want = torch.autograd.grad(FlashAttention.apply(*cpu, True), cpu, do.float().cpu())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert (g.float().cpu() - w).abs().max() <= 0.02 * w.abs().max()
+
+
+def test_packed_lane_logits_equal_batch1_bitwise(cuda, engine_cut):
+    """A decode step at m = 8 (lanes at mixed positions) and the same lane
+    alone at m = 1 give the same logits bit for bit: every product on the
+    decode kernel with one K split, the norms and the cache reads with
+    reductions whose shape does not follow the batch."""
+    from repro_torch.models import model as M
+
+    cfg, params = engine_cut
+    rng = np.random.default_rng(5)
+    lens = [30, 7, 64, 1, 99, 12, 45, 80]
+    cache = M.init_cache(cfg, 8, 128, device="cuda")
+    for per in cache["layers"]:
+        for layer in per:
+            for key in ("k", "v"):
+                layer[key].copy_(_rand(tuple(layer[key].shape), torch.bfloat16, cuda, 47))
+    cache["len"] = torch.tensor(lens, device=cuda)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 1)), dtype=torch.int32,
+                           device=cuda)
+    alone = []
+    for i in range(8):
+        one = M.init_cache(cfg, 1, 128, device="cuda")
+        for per, per1 in zip(cache["layers"], one["layers"]):
+            for layer, layer1 in zip(per, per1):
+                for key in ("k", "v"):
+                    layer1[key].copy_(layer[key][i:i + 1])
+        one["len"] = lens[i]
+        alone.append(M.decode_step(cfg, params, one, toks[i:i + 1], device="cuda")[0])
+    packed, _ = M.decode_step(cfg, params, cache, toks, device="cuda")
+    for i in range(8):
+        assert torch.equal(packed[i:i + 1], alone[i]), (
+            i, float((packed[i:i + 1].float() - alone[i].float()).abs().max()))
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """One bf16 train step of a 2-layer full-width minicpm-2b cut on the
+    card (every product, forward and backward, on the matmul kernel; the
+    flash kernel forward) against the same step in fp32 on the CPU through
+    the plain versions: the loss within 2%, the gradient norm within 5%,
+    and every parameter moved."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW, leaves
+    from repro_torch.optim.compress import tree_map
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2, remat="none")
+    params = M.init_params(cfg, 0, device="cuda")
+    cpu = tree_map(lambda t: t.float().cpu(), params)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab_size, (2, 129))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+    # bf16 parameters move only by more than half an ulp: at 3e-3 the norm
+    # scales (1.0, an ulp of 2^-8 below) move too
+    opt = AdamW(constant(3e-3))
+    before = [p.clone() for p in leaves(params)]
+    ops.reset_launch_counts()
+    _, _, got = make_train_step(cfg, opt, device="cuda")(
+        params, opt.init(params), {k: v.cuda() for k, v in batch.items()})
+    counts = ops.launch_counts()
+    assert counts["streamed_matmul"] == 3 * (7 * cfg.num_layers + 1)
+    assert counts["flash_attention"] == cfg.num_layers
+    _, _, want = make_train_step(dataclasses.replace(cfg, dtype="float32"), opt,
+                                 device="cpu")(cpu, opt.init(cpu), batch)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 0.02 * float(want["loss"])
+    assert abs(float(got["grad_norm"]) - float(want["grad_norm"])) <= 0.05 * float(
+        want["grad_norm"])
+    assert all(not torch.equal(a, b) for a, b in zip(before, leaves(params)))

@@ -192,13 +192,15 @@ def test_variant_for(case, want):
 
 
 # (m, k, n) -> cluster size on 132 SMs: the largest split whose blocks fill
-# at most 7/8 of the card's slots at once, raised until A's K share fits
+# at most 7/8 of the card's slots at once, raised until A's K share fits —
+# the share of 8 rows for every m ≤ 8, so that m = 1 .. 8 take one split
 @pytest.mark.parametrize("m,k,n,split", [
     (4, 2304, 5760, 6),        # minicpm up/gate: 45 column tiles, 36 K tiles, 3 blocks an SM
     (4, 5760, 2304, 8),        # minicpm down: 18 tiles
     (4, 4096, 14336, 2),       # jamba up/gate: 112 tiles, 2 blocks an SM
     (4, 14336, 4096, 7),       # jamba down: 32 tiles
-    (4, 4096, 65536, 1),       # jamba's LM head: 512 tiles overfill the card
+    (4, 4096, 65536, 2),       # jamba's LM head: 512 tiles overfill the card, and 8
+                               # rows' share of all 64 K tiles (65,664 B) overflows
     (16, 4096, 14336, 3),      # 16 rows: 1 or 2 shares would hold 131 or 66 KB of A
     (16, 14336, 4096, 8),
     (16, 1000, 1032, 8),       # ragged: 16 K tiles, two each
@@ -215,7 +217,79 @@ def test_decode_split(m, k, n, split):
 
 def test_decode_fits_bounds_the_a_share():
     assert decode_fits(16, 8 * 15 * 128) and not decode_fits(16, 8 * 16 * 128)
-    assert decode_fits(4, 61440) and not decode_fits(4, 65536)
+    # sized for 8 rows whatever m ≤ 8: 63 K tiles a block fit, 64 do not
+    assert decode_fits(4, 8 * 63 * 64) and not decode_fits(4, 8 * 63 * 64 + 64)
+    assert {decode_fits(m, 32320) for m in range(1, 9)} == {False}
+
+
+def test_decode_past_the_a_share_takes_one_variant():
+    """Where 8 rows' K share fits no split, every m ≤ 8 takes decode_wmma
+    (one summation order for all of them) and decode_split raises."""
+    k = 8 * 63 * 64 + 64
+    assert {variant_for(m, 0, k, 0, 4096, k) for m in range(1, 9)} == {"decode_wmma"}
+    with pytest.raises(ValueError, match="overflows a decode block"):
+        decode_split(1, 4096, k, 132)
+
+
+@pytest.mark.parametrize("k,n", [(2304, 2304), (2304, 5760), (5760, 2304), (2304, 122753),
+                                 (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                                 (4096, 65536)])
+def test_decode_split_is_one_for_rows_1_to_8(k, n):
+    """A packed decode step's rows sum in the order each row alone does:
+    m = 1 .. 8 take one K split (and m = 9 .. 16 one of their own)."""
+    assert len({decode_split(m, n, k, 132) for m in range(1, 9)}) == 1
+    assert len({decode_split(m, n, k, 132) for m in range(9, 17)}) == 1
+
+
+@pytest.mark.parametrize("m,k,n,a_layout,b_layout,ldb,want", [
+    (8, 2304, 122753, "mk", "nk", 2304, "decode"),      # the tied head in decode
+    (1024, 2304, 122753, "mk", "nk", 2304, "wgmma"),    # the tied head's forward
+    (1024, 5760, 2304, "mk", "nk", 5760, "wgmma"),      # dX = dC·Wᵀ
+    (2304, 1024, 5760, "km", "kn", 5760, "wgmma"),      # dW = Xᵀ·dC
+    (8, 2304, 5760, "km", "kn", 5760, "wgmma"),         # a (k, m) A at any m
+    (8, 64, 9, "mk", "nk", 67, ValueError),             # B's rows 134 bytes apart
+    (300, 64, 9, "mk", "nk", 67, ValueError),
+    (64, 37, 64, "km", "kn", 64, ValueError),           # A's rows 74 bytes apart
+    (64, 64, 64, "km", "nk", 64, ValueError),           # one transposed operand at a time
+])
+def test_variant_for_layouts(m, k, n, a_layout, b_layout, ldb, want):
+    """A transposed operand takes a TMA variant (decode for an (n, k) B at
+    m ≤ 16, wgmma otherwise) or raises: the wmma variants read the default
+    layouts only. ``lda``/``ldb`` are the stored rows' strides."""
+    lda = 37 if (m, k) == (64, 37) else (k if a_layout == "mk" else m)
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            variant_for(m, 0, lda, 0, ldb, k, a_layout=a_layout, b_layout=b_layout)
+    else:
+        assert variant_for(m, 0, lda, 0, ldb, k, a_layout=a_layout, b_layout=b_layout) == want
+
+
+@pytest.mark.parametrize("a_layout,b_layout", [("mk", "kn"), ("mk", "nk"), ("km", "kn")])
+def test_matmul_layouts_on_the_cpu(rng, a_layout, b_layout):
+    """The CPU path (the plain version) reads each stored operand in its
+    layout, and the wrapper takes the shapes from the layouts."""
+    m, k, n = 5, 7, 3
+    a = torch.as_tensor(rng.standard_normal((m, k) if a_layout == "mk" else (k, m)),
+                        dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal((k, n) if b_layout == "kn" else (n, k)),
+                        dtype=torch.float32)
+    want = (a if a_layout == "mk" else a.T) @ (b if b_layout == "kn" else b.T)
+    got = ops.matmul(a, b, a_layout=a_layout, b_layout=b_layout)
+    torch.testing.assert_close(got, want)
+    with pytest.raises(ValueError):      # B read in the other layout: k does not match
+        ops.matmul(a, b, a_layout=a_layout, b_layout="nk" if b_layout == "kn" else "kn")
+
+
+def test_tma_rows_pads_only_what_tma_cannot_read():
+    """The backward's staging: rows 122,753 bf16 apart are copied to rows
+    122,760 apart (a view of the first 122,753), aligned ones pass as they
+    are."""
+    odd = torch.randn(3, 122753).to(torch.bfloat16)
+    padded = ops._tma_rows(odd)
+    assert padded.shape == odd.shape and padded.stride() == (122760, 1)
+    assert torch.equal(padded, odd)
+    even = torch.randn(3, 64).to(torch.bfloat16)
+    assert ops._tma_rows(even) is even
 
 
 def test_decode_plan_geometry():

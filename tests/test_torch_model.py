@@ -80,8 +80,10 @@ def test_count_params_from_the_config(name):
 def test_forward_logits(models, rng):
     jc, tc, jp, tp = models
     toks = rng.integers(0, jc.vocab_size, (2, 12)).astype(np.int32)
-    want, _ = JM.forward(jc, jp, jnp.asarray(toks))
-    _close(TM.forward(tc, tp, torch.as_tensor(toks), device="cpu"), want)
+    want, jaux = JM.forward(jc, jp, jnp.asarray(toks))
+    got, aux = TM.forward(tc, tp, torch.as_tensor(toks), device="cpu")
+    _close(got, want)
+    assert aux.dtype == torch.float32 and float(aux) == float(jaux) == 0.0
 
 
 def test_decode_step_scalar_len(models, rng):
@@ -128,7 +130,7 @@ def test_scan_layers_params_carry_over(rng):
     assert np.asarray(jp["stack"][0]["mixer"]["wq"]).ndim == 3
     toks = rng.integers(0, jc.vocab_size, (2, 6)).astype(np.int32)
     want, _ = JM.forward(jc, jp, jnp.asarray(toks))
-    _close(TM.forward(tc, tp, torch.as_tensor(toks), device="cpu"), want)
+    _close(TM.forward(tc, tp, torch.as_tensor(toks), device="cpu")[0], want)
 
 
 def test_bf16_weights_carry_over_exactly():
@@ -148,11 +150,11 @@ def test_bf16_forward_runs_on_the_cpu(rng):
     tc = t_config("minicpm-2b", smoke=True)
     tp = TM.init_params(tc, 0, device="cpu")
     toks = torch.as_tensor(rng.integers(0, tc.vocab_size, (1, 8)))
-    got = TM.forward(tc, tp, toks, device="cpu")
+    got = TM.forward(tc, tp, toks, device="cpu")[0]
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
     t32 = dataclasses.replace(tc, dtype="float32")
     p32 = jax.tree_util.tree_map(lambda t: t.float(), tp)
-    want = TM.forward(t32, p32, toks, device="cpu")
+    want = TM.forward(t32, p32, toks, device="cpu")[0]
     assert (got.float() - want).abs().max() <= 0.05 * want.abs().max()
 
 
@@ -187,6 +189,30 @@ def test_blockwise_attention_matches_reference(rng, valid, causal, sq, q_offset)
     got = t_blockwise(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
                       causal=causal, q_offset=q_offset, block_kv=16,
                       kv_valid_len=torch.as_tensor(lens) if valid == "per_lane" else lens)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("chunk", [8192, 16])
+@pytest.mark.parametrize("valid", [37, "per_lane"])
+@pytest.mark.parametrize("sq,q_offset", [(1, 0), (4, 60)])
+def test_dense_cache_attention_matches_reference(rng, monkeypatch, chunk, valid, sq,
+                                                 q_offset):
+    """The decode cache read, in one chunk of positions or in several (the
+    last one partial), against the JAX package's."""
+    from repro.models.attention import dense_cache_attention as j_dense
+    from repro_torch.models import attention as tattn
+
+    monkeypatch.setattr(tattn, "DECODE_CHUNK", chunk)
+    b, hq, hkv, skv, d = 2, 4, 2, 70, 16
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
+    lens = np.array([37, 64], np.int32) if valid == "per_lane" else valid
+    want = j_dense(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   kv_valid_len=jnp.asarray(lens), q_offset=q_offset)
+    got = tattn.dense_cache_attention(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), q_offset=q_offset,
+        kv_valid_len=torch.as_tensor(lens) if valid == "per_lane" else lens)
     _close(got, want, 2e-5)
 
 
@@ -339,11 +365,38 @@ def test_moe_forward_dense_matches_reference(rng, shared):
     _close(tmoe.moe_forward(tc, tpm, torch.as_tensor(x))[0], jy, 1e-5)
 
 
+def test_route_hook_records_and_replays(rng):
+    """``moe.route_hook``: a hook that returns the router's own ids changes
+    no bit; one that returns other ids routes every token to them, at their
+    probabilities, in the dispatch and in the dense oracle alike."""
+    from repro_torch.models import moe as tmoe
+
+    _, tc, _, tp = _pair(JAMBA, moe_capacity_factor=8.0)
+    tpm = tp["stack"][0][1]["mlp"]
+    x = torch.as_tensor(rng.standard_normal((2, 12, tc.d_model)).astype(np.float32))
+    want, want_aux = tmoe.moe_forward(tc, tpm, x)
+    seen = []
+    with tmoe.route_hook(lambda probs, top_e: seen.append(top_e) or top_e):
+        got, aux = tmoe.moe_forward(tc, tpm, x)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+    assert len(seen) == 1 and tuple(seen[0].shape) == (24, tc.moe_top_k)
+    other = (seen[0] + 1) % tc.moe_experts
+    with tmoe.route_hook(lambda probs, top_e: other):
+        moved, _ = tmoe.moe_forward(tc, tpm, x)
+        oracle, _ = tmoe.moe_forward_dense(tc, tpm, x)
+    _close(moved, oracle.detach().numpy(), 1e-5)
+    assert (moved - want).abs().max() > 1e-3
+    assert tmoe._route_hook is None
+
+
 def test_hybrid_forward_logits(jamba, rng):
     jc, tc, jp, tp = jamba
     toks = rng.integers(0, jc.vocab_size, (2, 12)).astype(np.int32)
-    want, _ = JM.forward(jc, jp, jnp.asarray(toks))
-    _close(TM.forward(tc, tp, torch.as_tensor(toks), device="cpu"), want)
+    want, jaux = JM.forward(jc, jp, jnp.asarray(toks))
+    got, aux = TM.forward(tc, tp, torch.as_tensor(toks), device="cpu")
+    _close(got, want)
+    # the MoE layers' load-balancing losses, summed over the stack in fp32
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-5)
 
 
 def test_hybrid_decode_steps(jamba, rng):
