@@ -10,13 +10,18 @@ layouts: the tied LM head's (V, d) B and a train step's backward products),
 times it beside the plain version and one library call where there is one,
 and checks 2-layer full-width cuts of minicpm-2b and jamba-v0.1-52b on the
 card against float32 on the CPU, the forward and, for minicpm-2b, the loss
-and every gradient. Then it drives three main paths, each with the launch
+and every gradient. Then it drives four main paths, each with the launch
 counts set to 0 before it and read after: the paper's §3.1 inner product
 through the hyperstep runner in both execution modes plus minicpm-2b served
 at full width and depth; minicpm-2b's train step at full width and depth
-(4 AdamW steps, the loss falling); and jamba-v0.1-52b served at full width
+(4 AdamW steps, the loss falling); jamba-v0.1-52b served at full width
 with its depth cut to one period of 8 layers (random weights from a seed),
-each served model through ``generate`` and ``make_prefill_step``. The
+each served model through ``generate`` and ``make_prefill_step``; and the
+paper's algorithms (``bsps``): the §3.1 inner product over 16 cores from
+cyclic streams, and two-level Cannon (Algorithm 2) at n = 16384, M = 4 on
+one core and on a 4 × 4 grid, fp32 (the matmul's ``simt_f32`` variant)
+and bf16 (``wgmma``), in both execution modes, each run beside its Eq. 2
+prediction and held against the fp64 product. The
 matmul's launches are also counted per variant: every product of the
 forward, of a multi-row prefill and of the train step must take the wgmma
 variant, every decode product the m ≤ 16 one. On minicpm-2b's weights the
@@ -55,11 +60,13 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import Block, card_config, get_config  # noqa: E402
-from repro_torch.core.calibrate import default_machine  # noqa: E402
+from repro_torch.core.calibrate import default_machine, measure_fetch_model  # noqa: E402
+from repro_torch.core.cost import cannon_k_equal, inner_product_cost  # noqa: E402
 from repro_torch.core.faults import FaultPlan, FaultSpec  # noqa: E402
 from repro_torch.core.hyperstep import HyperstepRunner  # noqa: E402
 from repro_torch.core.plan import host_plan  # noqa: E402
 from repro_torch.core.stream import StreamSet  # noqa: E402
+from repro_torch.distributed.cannon import gather_c, make_cannon_runner  # noqa: E402
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import LANE_CHOICES, lanes_for, ssm_scan  # noqa: E402
 from repro_torch.kernels.streamed_matmul import decode_split  # noqa: E402
@@ -205,7 +212,9 @@ def check_matmul(rows: dict) -> None:
               (4, 4096, 14336), (4, 14336, 4096), (1024, 4096, 14336), (1024, 14336, 4096),
               (4, 4096, 65536), (1024, 4096, 65536),
               # the wgmma variant at ragged m, n and k edges
-              (1000, 2304, 5768), (1024, 4096, 65544)]
+              (1000, 2304, 5768), (1024, 4096, 65544),
+              # two-level Cannon's bf16 local product (the bsps path)
+              (4096, 4096, 4096)]
     cases = [(m, k, n, "mk", "kn", False) for m, k, n in shapes] + [
         # minicpm-2b's tied head x·Eᵀ, E (122753, 2304) read as the (n, k) B:
         # decode at 1, 4 and 8 rows, the train step's forward at 1024 (an odd
@@ -264,6 +273,42 @@ def check_matmul(rows: dict) -> None:
         check(same, f"streamed_matmul 8x{k}x{n} b={bl}: a row alone differs from the batch")
     log("[kernel] streamed_matmul decode rows 1..8: each row alone equals its row among 8, "
         "bitwise (2304x2304, 2304x5760, 5760x2304 and the tied head 2304x122753)")
+
+
+def check_matmul_f32() -> float:
+    """The fp32 variant (``simt_f32``) against its plain version at ragged
+    shapes, at m ≤ 16 and at Cannon's local product (4096³, timed); returns
+    the timed product's rate in FLOP/s."""
+    # exact fp32 FMAs on both sides (TF32 off), sums in another order:
+    # bounded at 1e-5 of the largest output
+    rate = 0.0
+    for m, k, n in [(4096, 4096, 4096), (1000, 264, 1031), (4, 2304, 5760), (16, 37, 9)]:
+        sets = copies_past_l2(lambda i, m=m, k=k, n=n: (randn((m, k), torch.float32, 10 * i + 41),
+                                                         randn((k, n), torch.float32, 10 * i + 42)),
+                              (m * k + k * n) * 4)
+        a, b = sets[0]
+        got, variant = matmul_variant(lambda: ops.matmul(a, b))
+        want = ref.matmul_ref(a, b)
+        torch.cuda.synchronize()
+        check(variant == "simt_f32", f"fp32 streamed_matmul {m}x{k}x{n} took {variant}")
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item()
+        check(err <= tol, f"fp32 streamed_matmul {m}x{k}x{n}: max err {err} > {tol}")
+        if (m, k, n) != (4096, 4096, 4096):
+            log(f"[kernel] streamed_matmul {m}x{k}x{n} fp32 variant={variant}: "
+                f"max_abs_err={err:.3g} (tol {tol:.3g})")
+            continue
+        ms, enqueue = bench_ms(ops.matmul, sets, 20)
+        plain, _ = bench_ms(ref.matmul_ref, sets, 20)
+        lib, _ = bench_ms(torch.matmul, sets, 20)
+        nbytes, flops = (m * k + k * n + m * n) * 4, 2.0 * m * n * k
+        b_ms, b_by = bound(nbytes, flops, "fp32")
+        rate = flops / ms * 1e3
+        log(f"[kernel] streamed_matmul {m}x{k}x{n} fp32 variant={variant}: max_abs_err={err:.3g} "
+            f"(tol {tol:.3g}) ms={ms:.4f} ({rate / 1e12:.1f} TFLOP/s) enqueue_ms={enqueue:.4f} "
+            f"plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} (TF32 off) bound_ms={b_ms:.4f} "
+            f"({b_by})")
+    return rate
 
 
 def check_dot(rows: dict) -> None:
@@ -474,6 +519,210 @@ def inner_product(machine) -> None:
               f"inner product words {row}")
         log(f"[inner_product] mode={'compiled' if compiled else 'measure'} n={n} C={c} "
             f"alpha={got:.6g} ref={want:.6g} row={json.dumps(row)}")
+
+
+# -- the bsps path: the paper's §3.1 and §3.2 algorithms ---------------------------------
+
+
+def cyclic_inner_product() -> None:
+    """Algorithm 1 on p = 16 cores (Epiphany-III's count): each vector of
+    2^26 fp32 dealt out cyclically (``create_cyclic``), 2^22 components a
+    core in 16 tokens of 2^18; each hyperstep sums ``ops.dot`` over the 16
+    cores' tokens. Both execution modes, priced on the calibrated 16-core
+    pack."""
+    p, n, c = 16, 1 << 26, 1 << 18
+    machine = default_machine(p, device="cuda")
+    rng = np.random.default_rng(6)
+    v = rng.standard_normal(n, dtype=np.float32)
+    u = rng.standard_normal(n, dtype=np.float32)
+    want = float(np.dot(v.astype(np.float64), u.astype(np.float64)))
+    tol = 1e-6 * float(np.abs(v.astype(np.float64) * u).sum())
+    eq1 = machine.flops_to_seconds(inner_product_cost(machine, n, c))
+    for compiled in (False, True):
+        ss = StreamSet()
+        vs, us = ss.create_cyclic(v, p, c, name="v"), ss.create_cyclic(u, p, c, name="u")
+        per_core = [[vs[s], us[s]] for s in range(p)]
+        runner = HyperstepRunner(
+            lambda acc, t: acc + sum(ops.dot(t[0][s], t[1][s]) for s in range(p)), per_core,
+            cores=p, plan=host_plan(per_core[0], flops_per_hyperstep=2.0 * c, name="cyclic_ip"),
+            machine=machine)
+        got = float(runner.run(torch.zeros((), device="cuda"), compiled=compiled))
+        row = runner.predicted_vs_measured()
+        mode = "compiled" if compiled else "measure"
+        check(abs(got - want) <= tol, f"cyclic inner product ({mode}) {got} vs {want}")
+        check(row["fetch_words_planned"] == row["fetch_words_measured"],
+              f"cyclic inner product words {row}")
+        log(f"[bsps] cyclic inner product mode={mode} p={p} n={n} C={c} "
+            f"({vs[0].num_tokens} tokens a core): alpha={got:.6g} ref={want:.6g} (tol "
+            f"{tol:.3g}) inner_product_cost={eq1:.6g} s (Eq. 1) row={json.dumps(row)}")
+
+
+def cannon_reference(a: torch.Tensor, b: torch.Tensor, m_blocks: int):
+    """The fp64 product of the stored operands on the card (a check, not the
+    path), max(|A|·|B|), and for bf16 operands a bound on each element's
+    error in a bf16 run, from the magnitudes its roundings act on.
+
+    The run forms each of C's outer blocks as P_0 + P_1 + ... + P_{M-1}
+    (P_s = A_is·B_sj, s in the plan's order) with a bf16 accumulator: the
+    kernel sums each P_s's K terms in fp32 (within K·2^-23·(|A|·|B|)_s,
+    an ulp an addition, so a truncating adder is covered too) and rounds
+    it to bf16 (u·|P_s|, u = 2^-8), and the accumulator rounds each partial
+    sum S_s = P_0 + ... + P_s, s ≥ 1 (u·|S_s|). Carried through the M
+    additions, each element's error is at most
+    (1 + u)^(2M)·(u·(Σ_s |P_s| + Σ_{s≥1} |S_s|) + γ_K·Σ_s (|A|·|B|)_s),
+    γ_K = K·2^-23 / (1 - K·2^-23), with the P_s and S_s of that element."""
+    n = a.shape[0]
+    big = n // m_blocks
+    ad, bd = a.to("cuda", torch.float64), b.to("cuda", torch.float64)
+    want = torch.zeros((n, n), dtype=torch.float64, device="cuda")
+    absab = torch.zeros_like(want)
+    magnitudes = torch.zeros_like(want) if a.dtype == torch.bfloat16 else None
+    for s in range(m_blocks):
+        # every outer block (i, j) adds its P_s in the same order s = 0 .. M-1
+        cut = slice(s * big, (s + 1) * big)
+        part = ad[:, cut] @ bd[cut, :]
+        want += part
+        absab += ad[:, cut].abs() @ bd[cut, :].abs()
+        if magnitudes is not None:
+            magnitudes += part.abs_()
+            if s:
+                magnitudes += want.abs()
+        del part
+    del ad, bd
+    scale = absab.max().item()
+    if magnitudes is None:
+        return want, scale, None
+    u, gamma = 2.0**-8, big * 2.0**-23 / (1 - big * 2.0**-23)
+    bnd = magnitudes.mul_(u).add_(absab, alpha=gamma).mul_((1 + u) ** (2 * m_blocks))
+    return want, scale, bnd
+
+
+def cannon_runs(rate_f32: float) -> None:
+    """Two-level Cannon (Algorithm 2), n = 16384, M = 4 (K = 4096): N = 1
+    (the card as one core) and N = 4 (16 virtual cores, k = 1024), fp32 and
+    bf16, measure and compiled mode: 8 runs of 64 hypersteps, 8.8 TFLOP
+    each. A and B: standard normal fp32 from a seed (1 GiB each), in pinned
+    host memory, the bf16 runs on their rounded copies. C is held against
+    the fp64 product of the same operands (:func:`cannon_reference`): fp32
+    within 1e-4 of max(|A|·|B|), bf16 within each element's bound. A ninth
+    run repeats fp32 N = 1 in measure mode from the pageable numpy arrays,
+    to show what staging them costs the fetch."""
+    n, m_blocks = 16384, 4
+    rng = np.random.default_rng(7)
+    pageable = [rng.standard_normal((n, n), dtype=np.float32) for _ in range(2)]
+    host = {torch.float32: [torch.from_numpy(x).pin_memory() for x in pageable]}
+    host[torch.bfloat16] = [t.to(torch.bfloat16).pin_memory() for t in host[torch.float32]]
+    base = {}
+    for dtype, (a, b) in host.items():
+        want, scale, bnd = cannon_reference(a, b, m_blocks)
+        tol = 1e-4 * scale
+        for n_grid in (1, 4):
+            machine = default_machine(n_grid * n_grid, device="cuda")
+            for compiled in (False, True):
+                name = (f"{str(dtype)[6:]} N={n_grid} "
+                        f"{'compiled' if compiled else 'measure'}")
+                c_dev = cannon_run(a, b, m_blocks, n_grid, machine, compiled, rate_f32, name)
+                check(bool(torch.isfinite(c_dev).all()), f"cannon {name}: non-finite C")
+                diff = (c_dev.double() - want).abs()
+                err = diff.max().item()
+                if bnd is None:
+                    check(err <= tol, f"cannon {name}: max|C - C64| {err} > {tol}")
+                    held = f"tol {tol:.4g}, 1e-4·max(|A|·|B|) = 1e-4·{scale:.6g}"
+                else:
+                    worst = (diff / bnd).max().item()
+                    check(worst <= 1.0, f"cannon {name}: |C - C64| past its bound, "
+                          f"{worst} of it at worst")
+                    held = (f"each element within its bound: at worst {worst:.3g} of it; "
+                            f"bound max {bnd.max().item():.4g}, median "
+                            f"{bnd.median().item():.4g}; max(|A|·|B|)={scale:.6g}")
+                del diff
+                first = base.setdefault(dtype, c_dev)
+                rel = ((c_dev.float() - first.float()).abs().max()
+                       / first.float().abs().max()).item()
+                if dtype == torch.float32:
+                    check(rel <= 1e-5, f"cannon {name}: {rel} from the N=1 measure run")
+                log(f"[bsps] cannon {name}: max|C - C64|={err:.4g} ({held}); "
+                    f"max|C - C(N=1 measure)| / max|C|={rel:.3g}")
+        if dtype == torch.float32:
+            # the same run from the numpy arrays themselves: pageable host
+            # memory, which the measure-mode lanes pin token by token
+            c_dev = cannon_run(*pageable, m_blocks, 1, default_machine(1, device="cuda"),
+                               False, rate_f32, "float32 N=1 measure (pageable numpy operands)")
+            check(torch.equal(c_dev, base[dtype]), "cannon from numpy operands differs")
+        del want, bnd
+        base.pop(dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def cannon_run(a, b, m_blocks, n_grid, machine, compiled, rate_f32, name):
+    """One run: build and verify the runner, run its 64 hypersteps, hold the
+    word counts and launches, print Eq. 2 beside the measurement; returns C
+    on the card.
+
+    The verify must find no fault. Its one allowed finding is BSPS162, a
+    warning that the plan's exact and closed-form pricing give opposite
+    verdicts: the closed form charges a C write-back every hyperstep, the
+    exact walk once an outer product, and at N = 4 the compute side is
+    mostly 64·N·l, so the verdict flips for a calibrated l in a narrow
+    range. Both verdicts are printed."""
+    n = a.shape[0]
+    k = n // (m_blocks * n_grid)
+    runner, outs, state0 = make_cannon_runner(a, b, m_blocks, n_grid=n_grid,
+                                              machine=machine, compiled=compiled)
+    diags = runner.verify(m_blocks**3)
+    check(all(d.code == "BSPS162" for d in diags), f"cannon {name}: verify {diags}")
+    variant = "simt_f32" if runner.plan.inputs[0].dtype == torch.float32 else "wgmma"
+    before = counts_now()
+    t0 = time.perf_counter()
+    runner.run(state0, num_hypersteps=m_blocks**3, compiled=compiled)
+    wall = time.perf_counter() - t0
+    used = {key: v - before[key] for key, v in counts_now().items()}
+    check(used[f"streamed_matmul.{variant}"] == used["streamed_matmul"] == m_blocks**3,
+          f"cannon {name}: launches {used}")
+    plan = runner.plan
+    check(runner.total_fetch_words == sum(plan.fetch_schedule()),
+          f"cannon {name}: fetched {runner.total_fetch_words}")
+    for recs in runner.core_records:
+        check(sum(r.writeback_words for r in recs) == k * k * m_blocks**2,
+              f"cannon {name}: write-back words")
+        if not compiled:
+            check(len(recs) == m_blocks**3 and all(r.fetch_words == 2 * k * k for r in recs[:-1]),
+                  f"cannon {name}: per-hyperstep fetch words")
+    row = runner.predicted_vs_measured()
+    # Eq. 2 again with the compute priced at the measured fp32 rate (the
+    # pack's r is a bf16 rate); e and l keep their seconds
+    ratio = rate_f32 / machine.r
+    pack32 = dataclasses.replace(machine, r=rate_f32, e=machine.e * ratio, l=machine.l * ratio)
+    runner.machine = pack32
+    pred32 = runner.predicted_seconds()
+    runner.machine = machine
+    # the two sides of Eq. 2's max for one hyperstep at this k, in FLOP
+    work = n_grid * (2.0 * k**3 + 2.0 * k**2 * machine.g + machine.l)
+    link = 2.0 * k**2 * machine.e
+    rec = runner.records
+    log(f"[bsps] cannon {name}: k={k}, 64 hypersteps, wall {wall:.3f} s; "
+        f"predicted_vs_measured={json.dumps(row)}; Eq. 2 at the fp32 rate "
+        f"{rate_f32 / 1e12:.2f} TFLOP/s: {pred32:.6g} s (bandwidth_heavy "
+        f"{plan.bandwidth_heavy(pack32)}); cannon_k_equal(pack, N={n_grid})="
+        f"{cannon_k_equal(machine, n_grid):.6g} vs k={k}; pack p={machine.p} "
+        f"e={machine.e:.6g} l={machine.l:.6g} ({machine.flops_to_seconds(machine.l) * 1e3:.4g} "
+        f"ms); a hyperstep's N(2k³+2k²g+l)={work:.4g} vs 2k²e={link:.4g} FLOP; plan "
+        f"bandwidth_heavy={plan.bandwidth_heavy(machine, exact=True)} (exact walk), "
+        f"{plan.bandwidth_heavy(machine, exact=False)} (closed form); measured compute "
+        f"{sum(r.compute_seconds for r in rec):.4f} s, "
+        f"fetch {sum(r.fetch_seconds + r.initial_fetch_seconds for r in rec):.4f} s, "
+        f"fetch wait {sum(r.fetch_wait_seconds for r in rec):.4f} s, write-back "
+        f"{sum(r.writeback_seconds for r in rec):.4f} s; launches {used['streamed_matmul']} "
+        f"{variant}; verify: {[d.code for d in diags] or 'clean'}")
+    c = torch.as_tensor(gather_c(outs, n, m_blocks, n_grid)).to("cuda")
+    del runner, outs
+    return c
+
+
+def bsps_path(rate_f32: float) -> None:
+    cyclic_inner_product()
+    cannon_runs(rate_f32)
 
 
 # -- phase 4: the slice ------------------------------------------------------------------
@@ -1177,10 +1426,15 @@ def main() -> int:
         check_dot(rows)
         check_flash(rows)
         check_ssm(rows)
+        rate_f32 = check_matmul_f32()
 
     with phase("calibration"):
         machine = default_machine(device="cuda")
-    log(f"[machine] {machine}")
+        fetch_bw, fetch_t0 = measure_fetch_model()
+    log(f"[machine] {machine}; measure_fetch_model: {fetch_bw:.6g} words/s "
+        f"({fetch_bw * 4 / 1e9:.4g} GB/s), t0 {fetch_t0 * 1e6:.3f} us; fp32 product rate "
+        f"{rate_f32 / 1e12:.4g} TFLOP/s (simt_f32, 4096³) beside r {machine.r / 1e12:.4g} "
+        f"TFLOP/s")
     with phase("reference checks"):
         reference_check("minicpm-2b")
         reference_check("jamba-v0.1-52b",
@@ -1192,13 +1446,18 @@ def main() -> int:
     torch.cuda.empty_cache()      # the serve weights go before the train step's come
     train = main_path("train", train_slice)
     hybrid = main_path("jamba-v0.1-52b", lambda: serve_jamba(machine))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paper = main_path("bsps", lambda: bsps_path(rate_f32))
     for name in ("streamed_dot", "streamed_matmul", "flash_attention"):
         check(dense[name] > 0, f"{name} was not launched on the minicpm-2b path")
     for name in ("streamed_matmul", "flash_attention"):
         check(train[name] > 0, f"{name} was not launched on the train path")
     for name in ("streamed_matmul", "flash_attention", "ssm_scan"):
         check(hybrid[name] > 0, f"{name} was not launched on the jamba path")
-    launches = {k: dense[k] + train[k] + hybrid[k] for k in dense}
+    for name in ("streamed_dot", "streamed_matmul"):
+        check(paper[name] > 0, f"{name} was not launched on the bsps path")
+    launches = {k: dense[k] + train[k] + hybrid[k] + paper[k] for k in dense}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -55,6 +55,9 @@ class BSPComputer:
     def flops_to_seconds(self, flops: float) -> float:
         return flops / self.r
 
+    def seconds_to_flops(self, seconds: float) -> float:
+        return seconds * self.r
+
 
 @dataclasses.dataclass(frozen=True)
 class BSPAccelerator(BSPComputer):
@@ -114,6 +117,10 @@ class BSPAccelerator(BSPComputer):
             raise ValueError("need at least one stream")
         return self.effective_local_words(prefetch) // n_streams_per_core
 
+    def external_read_seconds(self, words: float) -> float:
+        """Wall time to stream ``words`` from external memory into one core."""
+        return self.flops_to_seconds(self.e * words)
+
     def core_grid_side(self) -> int:
         """N = √p for square-core-grid algorithms (Cannon, paper §3.2)."""
         n = int(math.isqrt(self.p))
@@ -122,6 +129,15 @@ class BSPAccelerator(BSPComputer):
                 f"p={self.p} on {self.name} is not a square core grid; "
                 "pass the grid side N explicitly")
         return n
+
+    @property
+    def balance(self) -> float:
+        """FLOPs a core can execute in the time one external word arrives (= e).
+
+        The paper's bandwidth-heavy criterion for the inner product is ``e > 1``:
+        below one FLOP per streamed word the link, not the core, is the bottleneck.
+        """
+        return self.e
 
 
 def _epiphany() -> BSPAccelerator:
@@ -137,3 +153,15 @@ def _epiphany() -> BSPAccelerator:
 
 
 EPIPHANY_III = _epiphany()
+
+
+def cyclic_owner(i: int, p: int) -> int:
+    """Owner core of component i under the paper's cyclic distribution (§3.1)."""
+    return i % p
+
+
+def tokens_for(total_words: int, token_words: int) -> int:
+    """Number of tokens a stream of ``total_words`` splits into (last may be short)."""
+    if token_words <= 0:
+        raise ValueError("token size must be positive")
+    return math.ceil(total_words / token_words)

@@ -36,6 +36,7 @@ __all__ = [
     "default_machine",
     "measure_flops_rate",
     "measure_external_bandwidth",
+    "measure_fetch_model",
     "measure_hyperstep_latency",
 ]
 
@@ -89,6 +90,32 @@ def measure_external_bandwidth(device: Any = None, nbytes: int = 1 << 28) -> flo
     else:
         dt = _time(lambda: src.clone(), device)
     return (nbytes / WORD_BYTES) / dt
+
+
+def measure_fetch_model(device: Any = None) -> tuple[float, float]:
+    """Two-point fit of the paper's Fig. 4 size effect: t(C) = t0 + C/BW.
+
+    Times one host → device copy of a 64 KiB and of a 64 MiB token (pinned
+    source on the card, as the runner's lanes copy) and returns
+    ``(words_per_s_asymptotic, t0_seconds)``: small tokens pay the fixed
+    per-fetch overhead t0, which is why the paper sizes tokens as large as
+    local memory allows.
+    """
+    device = resolve_device(device)
+    times = {}
+    for nbytes in (1 << 16, 1 << 26):
+        src = torch.zeros(nbytes // WORD_BYTES, dtype=torch.float32)
+        if device.type == "cuda":
+            src = src.pin_memory()
+            times[nbytes] = _time(lambda s=src: s.to(device, non_blocking=True), device,
+                                  repeats=9)
+        else:
+            times[nbytes] = _time(lambda s=src: s.clone(), device, repeats=9)
+    c1, c2 = (1 << 16) / WORD_BYTES, (1 << 26) / WORD_BYTES
+    t1, t2 = times[1 << 16], times[1 << 26]
+    bw = (c2 - c1) / max(t2 - t1, 1e-12)          # words/s
+    t0 = max(t1 - c1 / bw, 0.0)
+    return bw, t0
 
 
 def measure_hyperstep_latency(device: Any = None, steps: int = 16) -> float:

@@ -111,6 +111,12 @@ class HyperstepCost:
         ww += [0.0] * (n - len(ww))
         return acc.e * max(f + w for f, w in zip(fw, ww))
 
+    def fetch_cost(self, acc: BSPAccelerator) -> float:
+        return acc.e * max(self.fetch_words, default=0.0)
+
+    def writeback_cost(self, acc: BSPAccelerator) -> float:
+        return acc.e * max(self.writeback_words, default=0.0)
+
     def host_cost(self, acc: BSPAccelerator) -> float:
         """The outer superstep term ``g_host·h_host + l_host·s_host``."""
         return (acc.g_host * self.host_comm_words

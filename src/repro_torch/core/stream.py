@@ -18,6 +18,7 @@ another core") is enforced by the ``owner`` handle.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Iterator, Sequence
 
 import numpy as np
@@ -250,6 +251,77 @@ class StreamSet:
                    stream_id=len(self._streams), name=name)
         self._streams.append(s)
         return s
+
+    def create_cyclic(self, vector: Any, p: int, token_size: int,
+                      name: str = "") -> list[Stream]:
+        """Cyclic distribution of a vector into p per-core streams (paper §3.1).
+
+        Component i goes to core ``i mod p``; each core's components are then cut
+        into tokens of ``token_size`` elements (padding with zeros). A numpy
+        vector gives numpy backings (host external memory, staged to the card
+        by the runner); a ``torch.Tensor`` gives tensors on its device.
+        """
+        n = vector.shape[0]
+        per_core = math.ceil(n / p)
+        per_core = math.ceil(per_core / token_size) * token_size
+        tail = tuple(vector.shape[1:])
+        streams = []
+        for s in range(p):
+            if isinstance(vector, torch.Tensor):
+                chunk = vector.new_zeros((per_core,) + tail)
+                part = vector[s::p]
+            else:
+                chunk = np.zeros((per_core,) + tail, dtype=vector.dtype)
+                part = np.asarray(vector)[s::p]
+            chunk[: part.shape[0]] = part
+            streams.append(self.create(chunk, token_size, name=f"{name}[{s}]"))
+        return streams
+
+    def create_block_grid(self, matrix: Any, m_blocks: int, n_grid: int = 1,
+                          *, order: str = "row", name: str = "") -> list[Stream]:
+        """Outer-block streams of a square matrix for an N×N core grid (§3.2).
+
+        Cuts ``matrix`` into M×M outer blocks of side K = n/M, each of which
+        is block-distributed over the N×N core grid in k×k sub-blocks
+        (k = K/N). The stream for core (ci, cj) holds that core's sub-block
+        of every outer block, outer blocks ordered row-major (``"row"``, the
+        paper's Σ^A layout) or column-major (``"col"``, Σ^B). Returns the
+        p = N² streams in row-major core order — one per core, each with
+        M² one-sub-block tokens, ready for a multi-core
+        :class:`~repro_torch.core.hyperstep.HyperstepRunner`. The backing
+        follows the input: numpy in, numpy out; a tensor gives tensors on
+        its device, in pinned memory when the tensor is pinned (so the
+        runner's lanes copy its tokens to the card without staging them).
+        """
+        if order not in ("row", "col"):
+            raise ValueError(f"order must be 'row' or 'col', got {order!r}")
+        n = matrix.shape[0]
+        if matrix.ndim != 2 or matrix.shape[1] != n:
+            raise ValueError(f"need a square matrix, got {tuple(matrix.shape)}")
+        if n % (m_blocks * n_grid) != 0:
+            raise ValueError(
+                f"n={n} must be divisible by M·N={m_blocks * n_grid} "
+                "(paper pads with zeros)")
+        big = n // m_blocks            # outer block side K
+        k = big // n_grid              # per-core sub-block side
+        coords = [(r, c) for r in range(m_blocks) for c in range(m_blocks)]
+        if order == "col":
+            coords = [(r, c) for c in range(m_blocks) for r in range(m_blocks)]
+        is_tensor = isinstance(matrix, torch.Tensor)
+        mat = matrix if is_tensor else np.asarray(matrix)
+        stack = torch.stack if is_tensor else np.stack
+        streams = []
+        for ci in range(n_grid):
+            for cj in range(n_grid):
+                toks = stack([
+                    mat[r * big + ci * k: r * big + (ci + 1) * k,
+                        c * big + cj * k: c * big + (cj + 1) * k]
+                    for r, c in coords])
+                if is_tensor and matrix.is_pinned():
+                    toks = toks.pin_memory()
+                streams.append(
+                    self.create(toks, 1, name=f"{name}[{ci},{cj}]"))
+        return streams
 
     def create_lanes(self, num_tokens: int, lanes: int, *,
                      dtype: Any = np.int32, name: str = "lane") -> list[Stream]:

@@ -7,13 +7,14 @@
 //
 // Bound on this card: at decode (m = 4 rows) bytes — the call reads the whole
 // weight matrix to do 8 FLOPs per weight, so it is bounded by device memory;
-// at prefill (m = 1024) operations, on the bf16 tensor cores.
+// at prefill (m = 1024) operations, on the bf16 tensor cores; fp32 operands
+// (Cannon's local product, 4096³) operations, on the fp32 FMA pipes.
 //
 // The K stream is a loop inside the block, as the plan's "arbitrary" axis
 // says; ragged edges are masked in the kernel (no padding copies). Operands
-// are bf16; other dtypes are refused. Four variants (the wrapper's
-// variant_for picks one from shapes, strides and alignment; `variant` names
-// it here):
+// are bf16 for four variants and fp32 for the fifth; other dtypes are
+// refused. Five variants (the wrapper's variant_for picks one from the
+// dtype, shapes, strides and alignment; `variant` names it here):
 //
 // decode — m ≤ 16 when TMA can describe B (base 16-byte aligned, rows a
 // multiple of 16 bytes apart) and A's K share fits the block: a GEMV-like
@@ -78,6 +79,20 @@
 // third grid axis: each split writes an fp32 partial tile and a second
 // launch sums the splits in a fixed order and casts — deterministic, no
 // atomics. wmma uses the same split rule.
+//
+// simt_f32 — fp32 operands at any m, the default layouts only: exact fp32
+// FMAs with fp32 accumulation, no TF32 (the reference multiplies fp32
+// operands with preferred_element_type=f32, and the plain version is full
+// fp32). A 128×128 output tile per block of 256 threads, each owning an 8×8
+// register tile (two 4-row by two 4-column quarters 64 apart, so a warp's
+// shared-memory reads are broadcasts or 256 contiguous bytes); K streamed 8
+// at a time through double-buffered shared memory (A stored k-major, B as
+// it is), the next tile loaded into registers while the current one is
+// multiplied, one barrier per K step. Each output sums its K terms in order,
+// one FMA each. Loads are 16 bytes where the row stride and base allow and
+// masked element by element at the ragged edges. The plan's 128×128 fp32
+// accumulator lives in registers; the launch checks its size. A plain SIMT
+// kernel: no tensor cores exist for exact fp32 on this card.
 
 #include <cuda.h>
 #include <mma.h>
@@ -809,8 +824,132 @@ cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream
 
 }  // namespace gv
 
+// -- the fp32 variant (simt_f32) ------------------------------------------------------------
+
+namespace sf {
+
+constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;
+constexpr int kThreads = (BM / TM) * (BN / TN);   // 256: a 16 × 16 grid of 8 × 8 tiles
+constexpr int SCRATCH = BM * BN * 4;              // the plan's accumulator: in registers
+
+// 4 consecutive floats of row `r`, columns [c, c+4), zero outside
+// [0, rows) × [0, cols); one 16-byte load when `vec` and in range
+__device__ __forceinline__ void load4(const float* __restrict__ base, long long ld, int rows,
+                                      int cols, int r, int c, bool vec, float (&v)[4]) {
+  if (r < rows) {
+    const float* p = base + (long long)r * ld + c;
+    if (vec && c + 4 <= cols) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = (c + e < cols) ? p[e] : 0.f;
+    return;
+  }
+  v[0] = v[1] = v[2] = v[3] = 0.f;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4], int valid, bool vec) {
+  if (vec && valid == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  for (int e = 0; e < valid; ++e) p[e] = v[e];
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4], int valid, bool) {
+  for (int e = 0; e < valid; ++e) p[e] = __float2bfloat16(v[e]);
+}
+
+// thread (ty, tx) owns rows {ty·4 .. +4} and {64 + ty·4 .. +4}, columns
+// {tx·4 .. +4} and {64 + tx·4 .. +4} of the block's tile
+template <typename Out>
+__global__ void __launch_bounds__(kThreads, 2)
+matmul_f32(const float* __restrict__ a, const float* __restrict__ b, Out* __restrict__ c,
+           int m, int n, int k, long long lda, long long ldb, long long ldc, int k_tiles,
+           bool a_vec, bool b_vec, bool c_vec) {
+  __shared__ __align__(16) float as[2][BK][BM];   // A's tile, k-major
+  __shared__ __align__(16) float bs[2][BK][BN];   // B's tile, as stored
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int ar = tid / 2, ac = (tid % 2) * 4;       // A: row ar, k columns ac .. +4
+  const int br = tid / 32, bc = (tid % 32) * 4;     // B: k-row br, columns bc .. +4
+
+  float ra[4], rb[4];
+  auto fetch = [&](int t) {                        // global -> registers
+    load4(a, lda, m, k, m0 + ar, t * BK + ac, a_vec, ra);
+    load4(b, ldb, k, n, t * BK + br, n0 + bc, b_vec, rb);
+  };
+  auto stash = [&](int buf) {                      // registers -> shared
+#pragma unroll
+    for (int e = 0; e < 4; ++e) as[buf][ac + e][ar] = ra[e];
+    *reinterpret_cast<float4*>(&bs[buf][br][bc]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int t = 0; t < k_tiles; ++t) {              // the K stream (hypersteps)
+    const int buf = t & 1;
+    if (t + 1 < k_tiles) fetch(t + 1);             // prefetch the next tokens
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&as[buf][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&as[buf][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&bs[buf][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&bs[buf][kk][64 + tx * 4]);
+      const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (t + 1 < k_tiles) stash(buf ^ 1);
+    __syncthreads();
+  }
+
+  // WRITE(σ_C, Σ_C): each thread stores its four 4-wide row pieces per half
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (r >= m) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + h * 64 + tx * 4;
+      if (col >= n) continue;
+      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      store4(c + (long long)r * ldc + col, v, min(4, n - col), c_vec);
+    }
+  }
+}
+
+template <typename Out>
+cudaError_t launch(dim3 grid, int k_tiles, int scratch_bytes, cudaStream_t stream, const void* a,
+                   const void* b, void* c, int m, int n, int k, long long lda, long long ldb,
+                   long long ldc) {
+  if (scratch_bytes != SCRATCH || grid.z != 1 || (int)grid.x != (n + BN - 1) / BN ||
+      (int)grid.y != (m + BM - 1) / BM || k_tiles != (k + BK - 1) / BK)
+    return cudaErrorInvalidValue;                  // plan and kernel disagree
+  const bool a_vec = lda % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const bool b_vec = ldb % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const bool c_vec = ldc % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  matmul_f32<Out><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<Out*>(c), m, n, k,
+      lda, ldb, ldc, k_tiles, a_vec, b_vec, c_vec);
+  return cudaGetLastError();
+}
+
+}  // namespace sf
+
 // the variant codes of the wrapper's VARIANTS, in its order
-enum Variant { kDecode = 0, kWgmma = 1, kWmma = 2, kDecodeWmma = 3 };
+enum Variant { kDecode = 0, kWgmma = 1, kWmma = 2, kDecodeWmma = 3, kSimtF32 = 4 };
 // the operand layout bits of the wrapper's b_layout / a_layout
 enum Layout { kBRowsN = 1, kAColMajor = 2 };
 
@@ -834,7 +973,7 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
   // only; the wgmma variant takes either layout of one operand, not both
   if (layout & ~(kBRowsN | kAColMajor) || layout == (kBRowsN | kAColMajor) ||
       ((layout & kAColMajor) && variant != kWgmma) ||
-      (layout && (variant == kWmma || variant == kDecodeWmma)))
+      (layout && (variant == kWmma || variant == kDecodeWmma || variant == kSimtF32)))
     return cudaErrorInvalidValue;
   switch (variant) {
     case kDecode:
@@ -858,6 +997,9 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
     case kDecodeWmma:
       return launch<16, 64, 64, 1, 4, Out>(device, grid, k_steps, scratch_bytes, stream, a, b,
                                            c, partials, m, n, k, lda, ldb, ldc);
+    case kSimtF32:
+      return sf::launch<Out>(grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k, lda, ldb,
+                             ldc);
     default:
       return cudaErrorInvalidValue;
   }
@@ -865,8 +1007,8 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
 
 }  // namespace
 
-// C = A·B, A (m, k) and B (k, n) bf16 with row strides lda, ldb; C (m, n) of
-// `out_dtype` with row stride ldc. `layout` (enum Layout bits): kBRowsN — B
+// C = A·B, A (m, k) and B (k, n) with row strides lda, ldb — bf16, or fp32
+// for simt_f32; C (m, n) of `out_dtype` with row stride ldc. `layout` (enum Layout bits): kBRowsN — B
 // is given as its (n, k) transpose, rows ldb apart (decode and wgmma);
 // kAColMajor — A is given as its (k, m) transpose, rows lda apart (wgmma).
 // `variant` (enum Variant) picks the kernel:
@@ -874,7 +1016,8 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
 // loop = K tiles per split, B TMA-describable; wgmma — grid (n tiles, m
 // tiles), loop = K tiles, A and B TMA-describable; wmma and decode_wmma —
 // grid (n tiles, m tiles, splits), loop = K tiles per split, and with
-// splits > 1 `partials` holds splits·m·n floats.
+// splits > 1 `partials` holds splits·m·n floats; simt_f32 — grid (n tiles,
+// m tiles), loop = K tiles of 8, the default layouts.
 BSPS_EXPORT int bsps_matmul(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                             void* stream, const void* a, const void* b, void* c,
                             float* partials, int m, int n, int k, long long lda,

@@ -17,8 +17,9 @@ fp32 partial tile and a closing launch summing the partials; in the
 ``decode`` variant over the blocks of a cluster (:func:`decode_plan`),
 summed inside the launch.
 
-The kernel has four variants (``csrc/streamed_matmul.cu``), and
-:func:`variant_for` picks one from the shapes, strides and alignment alone:
+The kernel has five variants (``csrc/streamed_matmul.cu``), and
+:func:`variant_for` picks one from the dtype, shapes, strides and alignment
+alone — four for bf16 operands:
 
 * ``"decode"`` — m ≤ 16 when TMA can describe B (base 16-byte aligned, rows
   a multiple of 16 bytes apart) and A's K share fits a block
@@ -32,7 +33,14 @@ The kernel has four variants (``csrc/streamed_matmul.cu``), and
   ``wgmma``, no split;
 * ``"wmma"`` — m > 16 otherwise: a 64×64×32 ``wmma`` tile with split K;
 * ``"decode_wmma"`` — m ≤ 16 otherwise: a 16×64×64 ``wmma`` tile with split K
-  (:func:`split_for`) and a second launch that sums the splits.
+  (:func:`split_for`) and a second launch that sums the splits;
+
+and one for fp32 operands, at any m:
+
+* ``"simt_f32"`` — exact fp32 FMAs, fp32 accumulation, no TF32 (the JAX
+  kernel multiplies fp32 operands at ``preferred_element_type=f32``): a
+  128×128 tile per block, an 8×8 register tile per thread, K streamed 8 at a
+  time through double-buffered shared memory; the default layouts only.
 
 Operand layouts. ``b_layout="nk"`` takes B as its (n, k) transpose, k
 contiguous: the tied LM head x·Eᵀ reads the (V, d) embedding so, and the
@@ -42,8 +50,8 @@ variant streams such a B by TMA boxes over its rows and reads them with
 ``a_layout="km"`` takes A as its (k, m) transpose, m contiguous — the
 weight gradient Aᵀ·dC reads the activations so — on ``wgmma`` only, as its
 M-major operand. One operand at a time is transposed. A transposed operand
-needs TMA (16-byte base and row stride); the ``wmma`` variants take the
-default layouts only, and a call they would get raises. The plans describe
+needs TMA (16-byte base and row stride); the ``wmma`` variants and
+``simt_f32`` take the default layouts only, and a call they would get raises. The plans describe
 the same tokens in every layout: only their order in memory differs.
 
 A build, encode or launch that fails raises; nothing falls back to another
@@ -70,7 +78,7 @@ LAYOUTS = {("mk", "kn"): 0, ("mk", "nk"): 1, ("km", "kn"): 2}
 #: (block_m, block_n, block_k) of each kernel variant, in the C side's code
 #: order; the decode variant's block_m is the most rows it takes
 VARIANTS = {"decode": (16, 128, 64), "wgmma": (128, 128, 64), "wmma": (64, 64, 32),
-            "decode_wmma": (16, 64, 64)}
+            "decode_wmma": (16, 64, 64), "simt_f32": (128, 128, 8)}
 _CODES = {name: i for i, name in enumerate(VARIANTS)}
 _TMA_ALIGN = 16   # bytes: TMA's base-address and row-stride granule
 DECODE_STAGES = 4              # the decode variant's ring of 16 KB weight stages
@@ -251,14 +259,18 @@ def _check_layouts(a_layout: str, b_layout: str) -> None:
 
 
 def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
-                a_layout: str = "mk", b_layout: str = "kn") -> str:
-    """The kernel variant for C = A·B with m rows and depth k, bf16 A at
-    address ``a_addr`` with row stride ``lda`` elements and B at ``b_addr``
-    with row stride ``ldb``, each the stride between the rows of the operand
-    as it is stored ((m, k) or (k, m) for A, (k, n) or (n, k) for B).
+                a_layout: str = "mk", b_layout: str = "kn",
+                dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernel variant for C = A·B with m rows and depth k, A of ``dtype``
+    at address ``a_addr`` with row stride ``lda`` elements and B at
+    ``b_addr`` with row stride ``ldb``, each the stride between the rows of
+    the operand as it is stored ((m, k) or (k, m) for A, (k, n) or (n, k)
+    for B).
 
-    TMA can describe an operand whose base address is 16-byte aligned and
-    whose row stride (``lda·2``, ``ldb·2`` bytes) is a multiple of 16. m ≤ 16
+    fp32 operands take ``"simt_f32"`` at any m, in the default layouts only
+    (another raises ``ValueError``). For bf16, TMA can describe an operand
+    whose base address is 16-byte aligned and whose row stride (``lda·2``,
+    ``ldb·2`` bytes) is a multiple of 16. m ≤ 16
     is ``"decode"`` when TMA can describe B and A's K share fits a block
     (:func:`decode_fits`; A is read with plain loads), ``"decode_wmma"``
     when not; m > 16 is ``"wgmma"`` when TMA can describe both operands and
@@ -266,6 +278,11 @@ def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
     operand that the chosen variant cannot read raises ``ValueError``.
     """
     _check_layouts(a_layout, b_layout)
+    if dtype == torch.float32:
+        if (a_layout, b_layout) != ("mk", "kn"):
+            raise ValueError(f"fp32 operands take the default layouts, not a={a_layout!r}, "
+                             f"b={b_layout!r}")
+        return "simt_f32"
     b_tma = b_addr % _TMA_ALIGN == 0 and 2 * ldb % _TMA_ALIGN == 0
     a_tma = a_addr % _TMA_ALIGN == 0 and 2 * lda % _TMA_ALIGN == 0
     if a_layout == "km" or m > VARIANTS["decode"][0]:
@@ -293,10 +310,10 @@ def _decode_plan(m: int, k: int, n: int, split: int, out_dtype: torch.dtype) -> 
 
 @functools.lru_cache(maxsize=256)
 def _plan(m: int, k: int, n: int, tile: tuple[int, int, int], out_dtype: torch.dtype,
-          split: int) -> StreamPlan:
+          split: int, dtype: torch.dtype) -> StreamPlan:
     bm, bn, bk = tile
     return matmul_plan(m, k, n, block_m=bm, block_n=bn, block_k=bk,
-                       dtype=torch.bfloat16, out_dtype=out_dtype, split_k=split)
+                       dtype=dtype, out_dtype=out_dtype, split_k=split)
 
 
 def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -307,9 +324,9 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     (k, n) (``b_layout="kn"``) or as its (n, k) transpose (``"nk"``).
 
     CUDA tensors go to the kernel, in the variant :func:`variant_for` names:
-    bf16 operands whose stored rows are contiguous, output bf16 or float32
-    (rows n elements apart, n odd or even). CPU tensors go to
-    :func:`repro_torch.kernels.ref.matmul_ref`.
+    bf16 or fp32 operands (both the same) whose stored rows are contiguous,
+    output bf16 or float32 (rows n elements apart, n odd or even). CPU
+    tensors go to :func:`repro_torch.kernels.ref.matmul_ref`.
     """
     _check_layouts(a_layout, b_layout)
     if a.dim() != 2 or b.dim() != 2:
@@ -326,8 +343,9 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
         return ref.matmul_ref(a, b, out_dtype=out_dtype, a_layout=a_layout, b_layout=b_layout)
     if a.device.type != "cuda":
         raise ValueError(f"streamed_matmul runs on CUDA or CPU tensors, not {a.device}")
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"streamed_matmul takes bfloat16 operands, got {a.dtype}, {b.dtype}")
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"streamed_matmul takes two bfloat16 or two float32 operands, got "
+                        f"{a.dtype}, {b.dtype}")
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"streamed_matmul writes bfloat16 or float32, not {out_dtype}")
     if a.stride(1) != 1 or b.stride(1) != 1:
@@ -336,7 +354,7 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     if m == 0 or n == 0 or k == 0:
         return c.zero_()
     variant = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k,
-                          a_layout=a_layout, b_layout=b_layout)
+                          a_layout=a_layout, b_layout=b_layout, dtype=a.dtype)
     partials = None
     if variant == "decode":
         split = decode_split(m, n, k, pipeline.sm_count(a.device))
@@ -344,10 +362,10 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     else:
         tile = VARIANTS[variant]
         bm, bn, bk = tile
-        split = 1 if variant == "wgmma" else split_for(
+        split = 1 if variant in ("wgmma", "simt_f32") else split_for(
             math.ceil(m / bm) * math.ceil(n / bn), math.ceil(k / bk),
             pipeline.sm_count(a.device))
-        plan = _plan(m, k, n, tile, out_dtype, split)
+        plan = _plan(m, k, n, tile, out_dtype, split, a.dtype)
         if split > 1:
             partials = torch.empty((split, m, n), dtype=torch.float32, device=a.device)
     launch = pipeline.lower(plan, "bsps_matmul", a.device)

@@ -109,7 +109,8 @@ def test_decode_product_is_one_launch(cuda):
     ops.reset_launch_counts()
     ops.matmul(a, b)
     assert ops.launch_counts()["streamed_matmul"] == 1
-    assert ops.matmul_variant_counts() == {"decode": 1, "wgmma": 0, "wmma": 0, "decode_wmma": 0}
+    assert ops.matmul_variant_counts() == {"decode": 1, "wgmma": 0, "wmma": 0, "decode_wmma": 0,
+                                           "simt_f32": 0}
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -210,7 +211,9 @@ def test_wrappers_count_their_launches(cuda):
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
-        streamed_matmul(torch.ones(4, 4, device=cuda), torch.ones(4, 4, device=cuda))
+        streamed_matmul(torch.ones(4, 4, device=cuda).half(), torch.ones(4, 4, device=cuda).half())
+    with pytest.raises(TypeError):      # fp32 and bf16 operands mixed
+        streamed_matmul(torch.ones(4, 4, device=cuda), torch.ones(4, 4, device=cuda).bfloat16())
     q = torch.ones(1, 1, 8, 32, device=cuda)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
@@ -743,3 +746,85 @@ def test_train_step_on_the_card_matches_cpu(cuda):
     assert abs(float(got["grad_norm"]) - float(want["grad_norm"])) <= 0.05 * float(
         want["grad_norm"])
     assert all(not torch.equal(a, b) for a, b in zip(before, leaves(params)))
+
+
+# fp32 operands: exact fp32 FMAs on both sides (TF32 off in the fixture),
+# sums in another order; bounded at 1e-5 of the largest output, about
+# 50 times the typical sqrt(k)·2^-24 relative spread at k = 4096
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 64), (4, 2304, 5760), (16, 37, 9),           # m ≤ 16
+    (300, 200, 130), (1000, 264, 1031), (129, 8, 127),   # ragged m, n and k edges
+    (4096, 4096, 4096),                                  # Cannon's local product
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fp32_matmul_kernel_matches_plain(cuda, m, k, n, out_dtype):
+    a = _rand((m, k), torch.float32, cuda, 31)
+    b = _rand((k, n), torch.float32, cuda, 32)
+    before = ops.matmul_variant_counts()["simt_f32"]
+    got = streamed_matmul(a, b, out_dtype=out_dtype)
+    want = ref.matmul_ref(a, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.matmul_variant_counts()["simt_f32"] == before + 1
+    scale = want.abs().max().item()
+    tol = (1e-5 if out_dtype == torch.float32 else 2 ** -8) * scale
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+def test_fp32_matmul_reads_strided_rows(cuda):
+    """Row strides of 97 floats (no 16-byte loads) and an odd base."""
+    a = _rand((100, 97), torch.float32, cuda, 33)[:, :64]
+    b = _rand((64 * 70 + 1,), torch.float32, cuda, 34)[1:].view(64, 70)
+    got = streamed_matmul(a, b)
+    want = ref.matmul_ref(a, b)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_fp32_matmul_refuses_transposed_operands(cuda):
+    a = _rand((64, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="fp32"):
+        streamed_matmul(a, a, b_layout="nk")
+    with pytest.raises(ValueError, match="fp32"):
+        streamed_matmul(a.T.contiguous(), a.T.contiguous(), a_layout="km")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_grid", [1, 2])
+@pytest.mark.parametrize("compiled", [False, True])
+def test_two_level_cannon_on_the_card(cuda, dtype, n_grid, compiled):
+    """Algorithm 2 at n = 1024, M = 4 on the card, from pinned host operands:
+    64 hypersteps, each one launch of the variant the dtype takes, C against
+    the fp64 product. fp32: 1e-4 of max(|A|·|B|); bf16: each element within
+    the error its roundings allow, from its own magnitudes: the kernel's
+    fp32 sums (K·2^-23 of Σ|a||b|, an ulp an addition), each partial product
+    P_s rounded to bf16 and each partial sum S_s (s ≥ 1) rounded by the bf16
+    accumulator (2^-8 of |P_s| and of |S_s|), carried through the M
+    additions."""
+    from repro_torch.distributed.cannon import two_level_cannon
+
+    n, m_blocks = 1024, 4
+    g = np.random.default_rng(35)
+    a32 = torch.from_numpy(g.standard_normal((n, n), dtype=np.float32))
+    b32 = torch.from_numpy(g.standard_normal((n, n), dtype=np.float32))
+    a, b = a32.to(dtype).pin_memory(), b32.to(dtype).pin_memory()
+    variant = "simt_f32" if dtype == torch.float32 else "wgmma"
+    before = ops.matmul_variant_counts()[variant]
+    c, runner = two_level_cannon(a, b, m_blocks, n_grid=n_grid, compiled=compiled)
+    assert ops.matmul_variant_counts()[variant] - before == m_blocks**3
+    assert isinstance(c, torch.Tensor) and c.dtype == dtype and c.device.type == "cpu"
+    ad, bd = a.to(cuda, torch.float64), b.to(cuda, torch.float64)
+    big, u = n // m_blocks, 2.0**-8
+    want, absab, magnitudes = (torch.zeros_like(ad) for _ in range(3))
+    for s in range(m_blocks):   # every outer block adds P_0, P_1, ... in order
+        cut = slice(s * big, (s + 1) * big)
+        part = ad[:, cut] @ bd[cut, :]
+        want += part
+        absab += ad[:, cut].abs() @ bd[cut, :].abs()
+        magnitudes += part.abs() + (want.abs() if s else 0.0)
+    err = (c.to(cuda, torch.float64) - want).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * absab.max().item()
+    else:
+        gamma = big * 2.0**-23 / (1 - big * 2.0**-23)
+        bound = (1 + u) ** (2 * m_blocks) * (u * magnitudes + gamma * absab)
+        assert bool((err <= bound).all()), (err / bound).max().item()
+    assert runner.total_fetch_words == sum(runner.plan.fetch_schedule())

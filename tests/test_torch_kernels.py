@@ -328,12 +328,46 @@ def test_wgmma_tile_plan_is_the_jax_plan(m, k, n):
         assert tp.cost(_pack(jacc), exact=False) == jp.cost(jacc, exact=False)
 
 
+@pytest.mark.parametrize("m,k,lda", [(1, 64, 64), (4, 4096, 4096), (16, 37, 37),
+                                     (1024, 4096, 4096), (4096, 4096, 4097)])
+def test_fp32_operands_take_the_simt_variant(m, k, lda):
+    """fp32 operands take ``simt_f32`` at any m, whatever the strides (the
+    bf16 rule's TMA alignment, 2 bytes an element, is not consulted); a
+    transposed operand raises."""
+    assert variant_for(m, 4, lda, 4, 9, k, dtype=torch.float32) == "simt_f32"
+    assert VARIANTS["simt_f32"] == (128, 128, 8)
+    for a_layout, b_layout in (("mk", "nk"), ("km", "kn")):
+        with pytest.raises(ValueError, match="fp32"):
+            variant_for(m, 0, lda, 0, 64, k, a_layout=a_layout, b_layout=b_layout,
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (1000, 264, 1032), (4, 2304, 5760)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fp32_tile_plan_is_the_jax_plan(m, k, n, out_dtype):
+    """The plan the fp32 variant launches (128×128×8, fp32 operands) is the
+    JAX package's fp32 plan at those blocks: grid, fingerprint, Eq. 1 price."""
+    bm, bn, bk = VARIANTS["simt_f32"]
+    tp = matmul_plan(m, k, n, block_m=bm, block_n=bn, block_k=bk, dtype=torch.float32,
+                     out_dtype=out_dtype)
+    jp = j_matmul_plan(m, k, n, block_m=bm, block_n=bn, block_k=bk, dtype=jnp.float32,
+                       out_dtype=getattr(jnp, str(out_dtype).removeprefix("torch.")))
+    assert tp.grid == jp.grid and tp.fingerprint() == jp.fingerprint()
+    assert tp.total_flops == jp.total_flops
+    for jacc in (jbsp.EPIPHANY_III, jbsp.TPU_V5E_CHIP, jbsp.TPU_V5E_POD):
+        assert tp.cost(_pack(jacc)) == jp.cost(jacc)
+    assert tp.scratch_bytes == bm * bn * 4     # the accumulator the kernel keeps in registers
+    if (m, k, n) == (4096, 4096, 4096):
+        assert pipeline.geometry(tp) == ((32, 32, 1), 512)
+
+
 def test_reset_clears_the_variant_counts():
     from repro_torch.kernels.streamed_matmul import streamed_matmul
 
     streamed_matmul.launches_by_variant["wgmma"] += 3
     ops.reset_launch_counts()
-    assert ops.matmul_variant_counts() == {"decode": 0, "wgmma": 0, "wmma": 0, "decode_wmma": 0}
+    assert ops.matmul_variant_counts() == {"decode": 0, "wgmma": 0, "wmma": 0, "decode_wmma": 0,
+                                           "simt_f32": 0}
 
 
 def test_cpu_tensors_never_reach_the_library(rng, monkeypatch):
