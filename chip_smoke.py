@@ -47,6 +47,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -277,38 +278,69 @@ def check_matmul(rows: dict) -> None:
 
 def check_matmul_f32() -> float:
     """The fp32 variant (``simt_f32``) against its plain version at ragged
-    shapes, at m ≤ 16 and at Cannon's local product (4096³, timed); returns
-    the timed product's rate in FLOP/s."""
+    shapes, at m ≤ 16 and at Cannon's local product (4096³), in the default
+    layouts and with B as (n, k) or A as (k, m); timed at 4096³, 1000 × 264 ×
+    1031 and 4 × 2304 × 5760 beside the plain version and ``torch.matmul``
+    (TF32 off). Prints whether C equals ``torch.matmul``'s bit for bit (a
+    fact, not a check). Returns the 4096³ product's rate in FLOP/s."""
     # exact fp32 FMAs on both sides (TF32 off), sums in another order:
     # bounded at 1e-5 of the largest output
     rate = 0.0
-    for m, k, n in [(4096, 4096, 4096), (1000, 264, 1031), (4, 2304, 5760), (16, 37, 9)]:
-        sets = copies_past_l2(lambda i, m=m, k=k, n=n: (randn((m, k), torch.float32, 10 * i + 41),
-                                                         randn((k, n), torch.float32, 10 * i + 42)),
-                              (m * k + k * n) * 4)
+    timed = {(4096, 4096, 4096), (1000, 264, 1031), (4, 2304, 5760)}
+    cases = [(m, k, n, "mk", "kn") for m, k, n in
+             [(4096, 4096, 4096), (1000, 264, 1031), (4, 2304, 5760), (16, 37, 9)]]
+    # the transposed layouts (an fp32 model's dX = dC·Wᵀ and dW = Xᵀ·dC), ragged
+    cases += [(m, k, n, al, bl) for al, bl in (("mk", "nk"), ("km", "kn"))
+              for m, k, n in [(1000, 264, 1031), (2304, 1024, 5760), (129, 37, 130)]]
+    for m, k, n, al, bl in cases:
+        sets = copies_past_l2(
+            lambda i, m=m, k=k, n=n, al=al, bl=bl: (
+                randn((m, k) if al == "mk" else (k, m), torch.float32, 10 * i + 41),
+                randn((k, n) if bl == "kn" else (n, k), torch.float32, 10 * i + 42)),
+            (m * k + k * n) * 4)
         a, b = sets[0]
-        got, variant = matmul_variant(lambda: ops.matmul(a, b))
-        want = ref.matmul_ref(a, b)
+        got, variant = matmul_variant(lambda: ops.matmul(a, b, a_layout=al, b_layout=bl))
+        want = ref.matmul_ref(a, b, a_layout=al, b_layout=bl)
         torch.cuda.synchronize()
-        check(variant == "simt_f32", f"fp32 streamed_matmul {m}x{k}x{n} took {variant}")
+        check(variant == "simt_f32", f"fp32 streamed_matmul {m}x{k}x{n} {al}/{bl} took {variant}")
         err = (got - want).abs().max().item()
         tol = 1e-5 * want.abs().max().item()
-        check(err <= tol, f"fp32 streamed_matmul {m}x{k}x{n}: max err {err} > {tol}")
-        if (m, k, n) != (4096, 4096, 4096):
-            log(f"[kernel] streamed_matmul {m}x{k}x{n} fp32 variant={variant}: "
-                f"max_abs_err={err:.3g} (tol {tol:.3g})")
+        check(err <= tol, f"fp32 streamed_matmul {m}x{k}x{n} {al}/{bl}: max err {err} > {tol}")
+        head = (f"[kernel] streamed_matmul {m}x{k}x{n} fp32 a={al} b={bl} variant={variant}: "
+                f"max_abs_err={err:.3g} (tol {tol:.3g}) equal_to_torch.matmul_bitwise="
+                f"{torch.equal(got, want)}")
+        if (m, k, n) not in timed or (al, bl) != ("mk", "kn"):
+            log(head)
             continue
         ms, enqueue = bench_ms(ops.matmul, sets, 20)
         plain, _ = bench_ms(ref.matmul_ref, sets, 20)
         lib, _ = bench_ms(torch.matmul, sets, 20)
         nbytes, flops = (m * k + k * n + m * n) * 4, 2.0 * m * n * k
         b_ms, b_by = bound(nbytes, flops, "fp32")
-        rate = flops / ms * 1e3
-        log(f"[kernel] streamed_matmul {m}x{k}x{n} fp32 variant={variant}: max_abs_err={err:.3g} "
-            f"(tol {tol:.3g}) ms={ms:.4f} ({rate / 1e12:.1f} TFLOP/s) enqueue_ms={enqueue:.4f} "
-            f"plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} (TF32 off) bound_ms={b_ms:.4f} "
-            f"({b_by})")
+        if (m, k, n) == (4096, 4096, 4096):
+            rate = flops / ms * 1e3
+        log(f"{head} ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound) "
+            f"enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} (TF32 off) "
+            f"bound_ms={b_ms:.4f} ({b_by})")
     return rate
+
+
+def ptxas_f32(log_text: str) -> None:
+    """Print ``matmul_f32``'s registers and spills from the build's ptxas
+    output, one line per instance (output dtype, operand layouts)."""
+    entry, spills = None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            entry = re.search(r"matmul_f32.*EE(f|13__nv_bfloat16)Lb([01])ELb([01])E", line)
+        elif entry and "spill" in line:
+            spills = line.strip()
+        elif entry and "Used" in line:
+            out, a_kc, b_kc = entry.groups()
+            inst = (f"{'fp32' if out == 'f' else 'bf16'} out, "
+                    f"A {'(m, k)' if a_kc == '1' else '(k, m)'}, "
+                    f"B {'(n, k)' if b_kc == '1' else '(k, n)'}")
+            log(f"[ptxas] matmul_f32 ({inst}): {line.split(':', 1)[-1].strip()}; {spills}")
+            entry = None
 
 
 def check_dot(rows: dict) -> None:
@@ -701,6 +733,14 @@ def cannon_run(a, b, m_blocks, n_grid, machine, compiled, rate_f32, name):
     work = n_grid * (2.0 * k**3 + 2.0 * k**2 * machine.g + machine.l)
     link = 2.0 * k**2 * machine.e
     rec = runner.records
+    # the measured verdict is a majority vote of the hypersteps that moved
+    # words, each voting fetch + write-back against compute
+    moved = [r for r in rec if r.fetch_words or r.writeback_words] or rec
+    votes = (f"{sum(r.bandwidth_heavy for r in moved)} of {len(moved)} hypersteps vote "
+             f"bandwidth-heavy; per hyperstep median compute "
+             f"{np.median([r.compute_seconds for r in moved]) * 1e3:.3f} ms, fetch "
+             f"{np.median([r.fetch_seconds for r in moved]) * 1e3:.3f} ms, write-back "
+             f"{np.median([r.writeback_seconds for r in moved]) * 1e3:.3f} ms")
     log(f"[bsps] cannon {name}: k={k}, 64 hypersteps, wall {wall:.3f} s; "
         f"predicted_vs_measured={json.dumps(row)}; Eq. 2 at the fp32 rate "
         f"{rate_f32 / 1e12:.2f} TFLOP/s: {pred32:.6g} s (bandwidth_heavy "
@@ -713,8 +753,8 @@ def cannon_run(a, b, m_blocks, n_grid, machine, compiled, rate_f32, name):
         f"{sum(r.compute_seconds for r in rec):.4f} s, "
         f"fetch {sum(r.fetch_seconds + r.initial_fetch_seconds for r in rec):.4f} s, "
         f"fetch wait {sum(r.fetch_wait_seconds for r in rec):.4f} s, write-back "
-        f"{sum(r.writeback_seconds for r in rec):.4f} s; launches {used['streamed_matmul']} "
-        f"{variant}; verify: {[d.code for d in diags] or 'clean'}")
+        f"{sum(r.writeback_seconds for r in rec):.4f} s; {votes}; launches "
+        f"{used['streamed_matmul']} {variant}; verify: {[d.code for d in diags] or 'clean'}")
     c = torch.as_tensor(gather_c(outs, n, m_blocks, n_grid)).to("cuda")
     del runner, outs
     return c
@@ -1419,6 +1459,7 @@ def main() -> int:
         for line in (lib.parent / (src + ".log")).read_text().splitlines():
             if any(w in line for w in ("Compiling entry", "Used", "spill", "arning")):
                 log(f"[ptxas] {src}: {line.strip()}")
+    ptxas_f32((lib.parent / "streamed_matmul.cu.log").read_text())
 
     rows: dict[str, dict] = {}
     with phase("kernel checks"):

@@ -80,19 +80,29 @@
 // launch sums the splits in a fixed order and casts — deterministic, no
 // atomics. wmma uses the same split rule.
 //
-// simt_f32 — fp32 operands at any m, the default layouts only: exact fp32
-// FMAs with fp32 accumulation, no TF32 (the reference multiplies fp32
-// operands with preferred_element_type=f32, and the plain version is full
-// fp32). A 128×128 output tile per block of 256 threads, each owning an 8×8
-// register tile (two 4-row by two 4-column quarters 64 apart, so a warp's
-// shared-memory reads are broadcasts or 256 contiguous bytes); K streamed 8
-// at a time through double-buffered shared memory (A stored k-major, B as
-// it is), the next tile loaded into registers while the current one is
-// multiplied, one barrier per K step. Each output sums its K terms in order,
-// one FMA each. Loads are 16 bytes where the row stride and base allow and
-// masked element by element at the ragged edges. The plan's 128×128 fp32
-// accumulator lives in registers; the launch checks its size. A plain SIMT
-// kernel: no tensor cores exist for exact fp32 on this card.
+// simt_f32 — fp32 operands at any m, in all three layouts: exact fp32 FMAs
+// with fp32 accumulation, no TF32 and no tensor-core emulation (the
+// reference multiplies fp32 operands with preferred_element_type=f32, and
+// the plain version is full fp32), so it is bounded by the 67 TFLOP/s of
+// the fp32 FMA pipes, and every instruction that is not an FFMA takes an
+// issue slot from them. A 256×128 output tile per block; K streamed 32 at a
+// time through a 3-stage ring of shared-memory stages (A and B both stored
+// k-major, rows padded by 8 floats), filled by cp.async from a producer
+// warpgroup and handed over through full/empty mbarriers
+// (cp.async.mbarrier.arrive), so the two consumer warpgroups run no copy
+// instruction, no address arithmetic and no block-wide barrier: their loop
+// is 128 FFMAs and 6 LDS.128 per k. Each consumer lane owns a 16×8 register
+// tile (float4 pieces 32 rows and 16 columns apart in a warp's 128×32
+// tile: each LDS.128 of a warp reads 128 or 64 contiguous bytes). An
+// operand stored with k contiguous (A as (m, k), B as (n, k)) goes into its
+// k-major tile by 4-byte copies that transpose on the way, 8 rows by 4 k a
+// warp instruction, conflict-free; an operand stored with m or n contiguous
+// by 16-byte copies where its row stride and base allow, else 4-byte ones.
+// Ragged edges are zero-filled by the copies and masked at the store. Each
+// output sums its K terms in ascending k, one FMA each, from 0: no split-K,
+// no atomics, so its bits do not depend on m, the tile or the launch. The
+// plan's 256×128 fp32 accumulator lives in registers; the launch checks its
+// size. Tiles are walked in groups of 8 m-tiles, as wgmma's.
 
 #include <cuda.h>
 #include <mma.h>
@@ -828,26 +838,113 @@ cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream
 
 namespace sf {
 
-constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8;
-constexpr int kThreads = (BM / TM) * (BN / TN);   // 256: a 16 × 16 grid of 8 × 8 tiles
-constexpr int SCRATCH = BM * BN * 4;              // the plan's accumulator: in registers
+constexpr int GROUP_M = 8;
 
-// 4 consecutive floats of row `r`, columns [c, c+4), zero outside
-// [0, rows) × [0, cols); one 16-byte load when `vec` and in range
-__device__ __forceinline__ void load4(const float* __restrict__ base, long long ld, int rows,
-                                      int cols, int r, int c, bool vec, float (&v)[4]) {
-  if (r < rows) {
-    const float* p = base + (long long)r * ld + c;
-    if (vec && c + 4 <= cols) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-      v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-      return;
-    }
+// cp.async of 16 or 4 bytes from global to shared memory: `bytes` (at most
+// the copy's size) are read, the rest of the copy is zero-filled. No memory
+// clobber: the consumers' shared reads of other stages may move across them.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+}
+// the mbarrier at `bar` counts one arrival once this thread's earlier
+// cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One configuration: a BM × BN output tile per block, K streamed BK at a
+// time through a ring of STAGES shared-memory stages that a producer
+// warpgroup fills. Each stage holds A's and B's tiles k-major, rows of
+// BM + 8 and BN + 8 floats. Two consumer warpgroups (8 warps): lanes form
+// an LM × (32 / LM) grid inside a warp, each lane owning a TM × TN register
+// tile in float4 pieces 4·LM rows and 4·LN columns apart; the warps tile the
+// block. The block is launched with 168 registers a thread (384 threads on
+// 64 K); setmaxnreg gives each consumer REGS and each producer what its
+// release leaves: 4 producers' (168 - P) must cover 8 consumers' (REGS -
+// 168), so P = 504 - 2·REGS, or the consumers' request never returns.
+// ptxas still compiles the consumer code within 168 (its SASS uses no
+// register past R165); the kernel measured faster with the split than
+// without it.
+template <int BM_, int BN_, int BK_, int STAGES_, int LM_, int TM_, int TN_, int REGS_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
+  static constexpr int kWarps = 8, kProducers = 4;        // consumer and producer warps
+  static constexpr int kThreads = 32 * (kWarps + kProducers);
+  static constexpr int kConsumerRegs = REGS_, kProducerRegs = 504 - 2 * REGS_;
+  static constexpr int LM = LM_, LN = 32 / LM_, TM = TM_, TN = TN_;
+  static constexpr int WTM = LM * TM, WTN = LN * TN;      // a warp's tile
+  static constexpr int WGN = BN / WTN;                    // warps along n
+  static constexpr int LDA = BM + 8, LDB = BN + 8;        // k-major row pitch, floats
+  static constexpr int A_FLOATS = BK * LDA, STAGE_FLOATS = BK * (LDA + LDB);
+  static constexpr int RING = STAGES * STAGE_FLOATS * 4;
+  static constexpr int SMEM = RING + 2 * STAGES * 8;      // + full/empty mbarriers
+  static constexpr int SCRATCH = BM * BN * 4;             // the plan's accumulator: in registers
+  static_assert((BM / WTM) * WGN == kWarps && BM % WTM == 0 && BN % WTN == 0,
+                "the warps tile the block");
+  static_assert(TM % 4 == 0 && TN % 4 == 0 && BM % 128 == 0 && BN % 128 == 0 &&
+                    BK % (4 * kProducers) == 0 && STAGES >= 2 && kProducerRegs >= 24 &&
+                    REGS_ % 8 == 0, "bad tile");
+};
+
+// Producer warp `pw`'s share (of kProducers) of the copies of one stage of
+// an operand into its k-major tile T[BK][BX + 8] at shared address `dst`:
+// elements (k0 + k, x0 + x), zero outside [0, ks) × [0, xs); CHECK = false
+// when the stage lies inside.
+// KC — k contiguous, element (k, x) at g[x·ld + k] (A as (m, k), B as
+// (n, k)): 4-byte copies that transpose on the way, each warp instruction
+// 8 x by 4 k: 8 rows of 16 bytes in device memory, 32 distinct banks in
+// shared memory (the row pitch is 8 banks past a multiple of 32).
+// Otherwise x contiguous, element (k, x) at g[k·ld + x] (B as (k, n), A as
+// (k, m)): 16-byte copies of 4 x where `vec` (row stride and base 16-byte
+// aligned), each warp instruction 128 x of one k, else 4-byte copies.
+template <int BX, int BK, int P, bool KC, bool CHECK>
+__device__ __forceinline__ void copy_stage(uint32_t dst, const float* __restrict__ g, long long ld,
+                                           int x0, int xs, int k0, int ks, bool vec, int pw) {
+  constexpr int LDX = BX + 8;
+  const int lane = threadIdx.x % 32;
+  if (KC) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = (c + e < cols) ? p[e] : 0.f;
-    return;
+    for (int i = 0; i < BX / 8 / P; ++i) {
+      const int x = (pw + P * i) * 8 + lane % 8;
+      const float* row = g + (long long)(x0 + x) * ld + k0 + lane / 8;
+#pragma unroll
+      for (int kg = 0; kg < BK / 4; ++kg) {
+        const int kk = kg * 4 + lane / 8;
+        const bool ok = !CHECK || (x0 + x < xs && k0 + kk < ks);
+        cp_async4(dst + (kk * LDX + x) * 4, ok ? row + kg * 4 : g, ok ? 4 : 0);
+      }
+    }
+  } else if (vec) {
+#pragma unroll
+    for (int i = 0; i < BK / P; ++i) {
+      const int kk = pw + P * i;
+      const float* row = g + (long long)(k0 + kk) * ld + x0 + lane * 4;
+#pragma unroll
+      for (int xc = 0; xc < BX / 128; ++xc) {
+        const int left = xs - (x0 + xc * 128 + lane * 4);
+        const bool ok = !CHECK || (k0 + kk < ks && left > 0);
+        cp_async16(dst + (kk * LDX + xc * 128 + lane * 4) * 4, ok ? row + xc * 128 : g,
+                   !CHECK ? 16 : ok ? 4 * min(left, 4) : 0);
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int i = 0; i < BK / P; ++i) {
+      const int kk = pw + P * i;
+      const float* row = g + (long long)(k0 + kk) * ld + x0 + lane;
+#pragma unroll
+      for (int xc = 0; xc < BX / 32; ++xc) {
+        const bool ok = !CHECK || (k0 + kk < ks && x0 + xc * 32 + lane < xs);
+        cp_async4(dst + (kk * LDX + xc * 32 + lane) * 4, ok ? row + xc * 32 : g, ok ? 4 : 0);
+      }
+    }
   }
-  v[0] = v[1] = v[2] = v[3] = 0.f;
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4], int valid, bool vec) {
@@ -857,90 +954,143 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4], int valid,
   }
   for (int e = 0; e < valid; ++e) p[e] = v[e];
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4], int valid, bool) {
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4], int valid, bool vec) {
+  if (vec && valid == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                              *reinterpret_cast<const uint32_t*>(&hi));
+    return;
+  }
   for (int e = 0; e < valid; ++e) p[e] = __float2bfloat16(v[e]);
 }
 
-// thread (ty, tx) owns rows {ty·4 .. +4} and {64 + ty·4 .. +4}, columns
-// {tx·4 .. +4} and {64 + tx·4 .. +4} of the block's tile
-template <typename Out>
-__global__ void __launch_bounds__(kThreads, 2)
+// A_KC: A given as (m, k) (else as its (k, m) transpose); B_KC: B given as
+// its (n, k) transpose (else as (k, n)). The last warpgroup is the
+// producer: it streams K tile t into stage t % STAGES once the consumers
+// have released it (empty[s]), and the stage's full[s] completes when all
+// its copies have landed. The consumers multiply each stage as it arrives
+// and release it: no block-wide barrier in the K stream, no copy work in
+// the FMA loop. Every output sums its K terms in ascending k, one fmaf
+// each, from 0: the stages arrive in K order and each stage's k-rows run
+// in order. No split-K, no atomics.
+template <class T, typename Out, bool A_KC, bool B_KC>
+__global__ void __launch_bounds__(T::kThreads, 1)
 matmul_f32(const float* __restrict__ a, const float* __restrict__ b, Out* __restrict__ c,
            int m, int n, int k, long long lda, long long ldb, long long ldc, int k_tiles,
            bool a_vec, bool b_vec, bool c_vec) {
-  __shared__ __align__(16) float as[2][BK][BM];   // A's tile, k-major
-  __shared__ __align__(16) float bs[2][BK][BN];   // B's tile, as stored
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int ar = tid / 2, ac = (tid % 2) * 4;       // A: row ar, k columns ac .. +4
-  const int br = tid / 32, bc = (tid % 32) * 4;     // B: k-row br, columns bc .. +4
+  extern __shared__ __align__(16) float ring[];
+  const uint32_t ring_u32 = wg::smem_u32(ring);
+  const uint32_t full = ring_u32 + T::RING, empty = full + T::STAGES * 8;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
-  float ra[4], rb[4];
-  auto fetch = [&](int t) {                        // global -> registers
-    load4(a, lda, m, k, m0 + ar, t * BK + ac, a_vec, ra);
-    load4(b, ldb, k, n, t * BK + br, n0 + bc, b_vec, rb);
-  };
-  auto stash = [&](int buf) {                      // registers -> shared
-#pragma unroll
-    for (int e = 0; e < 4; ++e) as[buf][ac + e][ar] = ra[e];
-    *reinterpret_cast<float4*>(&bs[buf][br][bc]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
-  };
+  // tile of this block: groups of GROUP_M m-tiles, m fastest, as wgmma
+  const int tiles_n = gridDim.x, tiles_m = gridDim.y;
+  const int lin = blockIdx.y * tiles_n + blockIdx.x, per_group = GROUP_M * tiles_n;
+  const int first_m = lin / per_group * GROUP_M;
+  const int gm = min(tiles_m - first_m, GROUP_M);
+  const int m0 = (first_m + lin % per_group % gm) * T::BM;
+  const int n0 = lin % per_group / gm * T::BN;
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int t = 0; t < k_tiles; ++t) {              // the K stream (hypersteps)
-    const int buf = t & 1;
-    if (t + 1 < k_tiles) fetch(t + 1);             // prefetch the next tokens
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[buf][kk][64 + tx * 4]);
-      const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  if (tid == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      wg::mbar_init(full + 8 * s, 32 * T::kProducers);  // one per producer lane, as its copies land
+      wg::mbar_init(empty + 8 * s, T::kWarps);       // one per consumer warp
     }
-    if (t + 1 < k_tiles) stash(buf ^ 1);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= T::kWarps) {                           // producers: the K stream
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::kProducerRegs));
+    const int pw = warp - T::kWarps;
+    const bool inside = m0 + T::BM <= m && n0 + T::BN <= n;
+    for (int t = 0; t < k_tiles; ++t) {
+      const int s = t % T::STAGES, k0 = t * T::BK;
+      if (t >= T::STAGES) wg::mbar_wait(empty + 8 * s, (t / T::STAGES - 1) & 1);
+      const uint32_t st = ring_u32 + s * T::STAGE_FLOATS * 4;
+      if (inside && k0 + T::BK <= k) {
+        copy_stage<T::BM, T::BK, T::kProducers, A_KC, false>(st, a, lda, m0, m, k0, k, a_vec, pw);
+        copy_stage<T::BN, T::BK, T::kProducers, B_KC, false>(st + T::A_FLOATS * 4, b, ldb, n0, n,
+                                                             k0, k, b_vec, pw);
+      } else {
+        copy_stage<T::BM, T::BK, T::kProducers, A_KC, true>(st, a, lda, m0, m, k0, k, a_vec, pw);
+        copy_stage<T::BN, T::BK, T::kProducers, B_KC, true>(st + T::A_FLOATS * 4, b, ldb, n0, n,
+                                                            k0, k, b_vec, pw);
+      }
+      cp_async_arrive(full + 8 * s);
+    }
+    cp_async_wait_all();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::kConsumerRegs));
+
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
+  const int arow = (warp / T::WGN) * T::WTM + (lane / T::LN) * 4;
+  const int bcol = (warp % T::WGN) * T::WTN + (lane % T::LN) * 4;
+  for (int t = 0; t < k_tiles; ++t) {                // the K stream (hypersteps)
+    const int s = t % T::STAGES;
+    wg::mbar_wait(full + 8 * s, (t / T::STAGES) & 1);
+    const float* as = ring + s * T::STAGE_FLOATS + arow;
+    const float* bs = ring + s * T::STAGE_FLOATS + T::A_FLOATS + bcol;
+#pragma unroll
+    for (int kk = 0; kk < T::BK; ++kk) {
+      float av[T::TM], bv[T::TN];
+#pragma unroll
+      for (int i = 0; i < T::TM / 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(as + kk * T::LDA + i * 4 * T::LM);
+        av[4 * i] = v.x, av[4 * i + 1] = v.y, av[4 * i + 2] = v.z, av[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < T::TN / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + kk * T::LDB + j * 4 * T::LN);
+        bv[4 * j] = v.x, bv[4 * j + 1] = v.y, bv[4 * j + 2] = v.z, bv[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncwarp();                                    // the warp's reads of the stage are done
+    if (lane == 0) wg::mbar_arrive(empty + 8 * s);
   }
 
-  // WRITE(σ_C, Σ_C): each thread stores its four 4-wide row pieces per half
+  // WRITE(σ_C, Σ_C): each thread stores its float4 row pieces
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+  for (int i = 0; i < T::TM; ++i) {
+    const int r = m0 + arow + (i / 4) * 4 * T::LM + i % 4;
     if (r >= m) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + h * 64 + tx * 4;
+    for (int j = 0; j < T::TN / 4; ++j) {
+      const int col = n0 + bcol + j * 4 * T::LN;
       if (col >= n) continue;
-      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      const float v[4] = {acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]};
       store4(c + (long long)r * ldc + col, v, min(4, n - col), c_vec);
     }
   }
 }
 
-template <typename Out>
-cudaError_t launch(dim3 grid, int k_tiles, int scratch_bytes, cudaStream_t stream, const void* a,
-                   const void* b, void* c, int m, int n, int k, long long lda, long long ldb,
-                   long long ldc) {
-  if (scratch_bytes != SCRATCH || grid.z != 1 || (int)grid.x != (n + BN - 1) / BN ||
-      (int)grid.y != (m + BM - 1) / BM || k_tiles != (k + BK - 1) / BK)
+// the configuration the plan's simt_f32 tile names (VARIANTS["simt_f32"])
+using Default = Tile<256, 128, 32, 3, 8, 16, 8, 216>;
+
+template <class T, typename Out, bool A_KC, bool B_KC>
+cudaError_t launch(int device, dim3 grid, int k_tiles, int scratch_bytes, cudaStream_t stream,
+                   const void* a, const void* b, void* c, int m, int n, int k, long long lda,
+                   long long ldb, long long ldc) {
+  if (scratch_bytes != T::SCRATCH || grid.z != 1 || (int)grid.x != (n + T::BN - 1) / T::BN ||
+      (int)grid.y != (m + T::BM - 1) / T::BM || k_tiles != (k + T::BK - 1) / T::BK)
     return cudaErrorInvalidValue;                  // plan and kernel disagree
   const bool a_vec = lda % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
   const bool b_vec = ldb % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  const bool c_vec = ldc % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
-  matmul_f32<Out><<<grid, kThreads, 0, stream>>>(
+  const bool c_vec = ldc % 4 == 0 && reinterpret_cast<uintptr_t>(c) % (4 * sizeof(Out)) == 0;
+  auto kernel = matmul_f32<T, Out, A_KC, B_KC>;
+  cudaError_t err = bsps::prepare_smem(kernel, device, T::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, T::kThreads, T::SMEM, stream>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<Out*>(c), m, n, k,
       lda, ldb, ldc, k_tiles, a_vec, b_vec, c_vec);
   return cudaGetLastError();
@@ -970,10 +1120,10 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
                      int k, long long lda, long long ldb, long long ldc, int variant,
                      int layout) {
   // the wmma variants and the decode variant's A take the default layouts
-  // only; the wgmma variant takes either layout of one operand, not both
+  // only; wgmma and simt_f32 take either layout of one operand, not both
   if (layout & ~(kBRowsN | kAColMajor) || layout == (kBRowsN | kAColMajor) ||
-      ((layout & kAColMajor) && variant != kWgmma) ||
-      (layout && (variant == kWmma || variant == kDecodeWmma || variant == kSimtF32)))
+      ((layout & kAColMajor) && variant != kWgmma && variant != kSimtF32) ||
+      (layout && (variant == kWmma || variant == kDecodeWmma)))
     return cudaErrorInvalidValue;
   switch (variant) {
     case kDecode:
@@ -998,8 +1148,14 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
       return launch<16, 64, 64, 1, 4, Out>(device, grid, k_steps, scratch_bytes, stream, a, b,
                                            c, partials, m, n, k, lda, ldb, ldc);
     case kSimtF32:
-      return sf::launch<Out>(grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k, lda, ldb,
-                             ldc);
+      if (layout == kBRowsN)
+        return sf::launch<sf::Default, Out, true, true>(device, grid, k_steps, scratch_bytes,
+                                                        stream, a, b, c, m, n, k, lda, ldb, ldc);
+      if (layout == kAColMajor)
+        return sf::launch<sf::Default, Out, false, false>(device, grid, k_steps, scratch_bytes,
+                                                          stream, a, b, c, m, n, k, lda, ldb, ldc);
+      return sf::launch<sf::Default, Out, true, false>(device, grid, k_steps, scratch_bytes,
+                                                       stream, a, b, c, m, n, k, lda, ldb, ldc);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1008,16 +1164,18 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
 }  // namespace
 
 // C = A·B, A (m, k) and B (k, n) with row strides lda, ldb — bf16, or fp32
-// for simt_f32; C (m, n) of `out_dtype` with row stride ldc. `layout` (enum Layout bits): kBRowsN — B
-// is given as its (n, k) transpose, rows ldb apart (decode and wgmma);
-// kAColMajor — A is given as its (k, m) transpose, rows lda apart (wgmma).
+// for simt_f32; C (m, n) of `out_dtype` with row stride ldc. `layout` (enum
+// Layout bits): kBRowsN — B is given as its (n, k) transpose, rows ldb apart
+// (decode, wgmma and simt_f32); kAColMajor — A is given as its (k, m)
+// transpose, rows lda apart (wgmma and simt_f32).
 // `variant` (enum Variant) picks the kernel:
 // decode — grid (splits, n tiles), one cluster of `splits` per column tile,
 // loop = K tiles per split, B TMA-describable; wgmma — grid (n tiles, m
 // tiles), loop = K tiles, A and B TMA-describable; wmma and decode_wmma —
 // grid (n tiles, m tiles, splits), loop = K tiles per split, and with
 // splits > 1 `partials` holds splits·m·n floats; simt_f32 — grid (n tiles,
-// m tiles), loop = K tiles of 8, the default layouts.
+// m tiles), loop = K tiles of 32, fp32 operands in either layout of one
+// operand.
 BSPS_EXPORT int bsps_matmul(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                             void* stream, const void* a, const void* b, void* c,
                             float* partials, int m, int n, int k, long long lda,

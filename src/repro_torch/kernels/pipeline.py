@@ -49,7 +49,7 @@ import torch
 from repro_torch.core.plan import StreamPlan
 
 __all__ = ["Launch", "geometry", "lower", "launch", "library", "build_library", "sm_count",
-           "BUILD_DIR", "CSRC"]
+           "sweep_kernels", "BUILD_DIR", "CSRC"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -66,6 +66,15 @@ ENTRIES: dict[str, list[Any]] = {
     "bsps_matmul": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I],
     "bsps_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P],
     "bsps_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+}
+_LIBRARY_ENTRIES = {"bsps_smem_optin": [_I], **{name: _PREFIX + args
+                                                 for name, args in ENTRIES.items()}}
+#: the fp32 matmul's tile sweep (``launch/sweep_simt_f32``), a library of its
+#: own: its source and its entry points' full argument types
+SWEEP_SOURCES = ("sweep/simt_f32_sweep.cu",)
+SWEEP_ENTRIES: dict[str, list[Any]] = {
+    "bsps_sweep_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _I],
+    "bsps_sweep_f32_count": [],
 }
 
 
@@ -95,23 +104,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
-def _source_hash() -> str:
+def _source_hash(sources: tuple[str, ...]) -> str:
     h = hashlib.sha1(repr(NVCC_FLAGS).encode())
-    for name in sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")):
+    names = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    for name in (*names, *sources):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:12]
 
 
-def build_library() -> pathlib.Path:
-    """Compile the kernel sources into the shared library (if not built yet).
+def build_library(sources: tuple[str, ...] = SOURCES,
+                  name: str = "libbsps_kernels") -> pathlib.Path:
+    """Compile ``sources`` (paths under ``csrc/``, by default the kernel
+    library's) into the shared library ``name`` if not built yet.
 
     One ``nvcc -c`` per source, all running at once; then one link. The
     compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
-    kept in ``<source>.log`` beside the library. Returns the library path.
+    kept in ``<source file name>.log`` beside the library. Returns the
+    library path.
     """
-    out_dir = BUILD_DIR / _source_hash()
-    lib_path = out_dir / "libbsps_kernels.so"
+    out_dir = BUILD_DIR / _source_hash(sources)
+    lib_path = out_dir / f"{name}.so"
     if lib_path.exists():
         return lib_path
     # objects go to a directory of this process, so builds racing from
@@ -119,43 +132,56 @@ def build_library() -> pathlib.Path:
     work = out_dir / f"build-{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    files = [pathlib.Path(src).name for src in sources]
     procs = []
-    for src in SOURCES:
-        log = open(work / (src + ".log"), "w")  # noqa: SIM115 — closed below
-        procs.append((src, log, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(work / (src + ".o"))],
+    for src, file in zip(sources, files):
+        log = open(work / (file + ".log"), "w")  # noqa: SIM115 — closed below
+        procs.append((file, log, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(work / (file + ".o"))],
             stdout=log, stderr=subprocess.STDOUT)))
     failed = []
-    for src, log, proc in procs:
+    for file, log, proc in procs:
         if proc.wait() != 0:
-            failed.append(src)
+            failed.append(file)
         log.close()
     if failed:
-        msgs = "\n".join((work / (s + ".log")).read_text() for s in failed)
+        msgs = "\n".join((work / (f + ".log")).read_text() for f in failed)
         raise RuntimeError(f"nvcc failed on {failed}:\n{msgs}")
     subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(work / "lib.so"),
-                    *(str(work / (s + ".o")) for s in SOURCES)], check=True)
-    for src in SOURCES:
-        os.replace(work / (src + ".log"), out_dir / (src + ".log"))
+                    *(str(work / (f + ".o")) for f in files)], check=True)
+    for file in files:
+        os.replace(work / (file + ".log"), out_dir / (file + ".log"))
     os.replace(work / "lib.so", lib_path)
     shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 
+def _load(key: str, build: Any, entries: dict[str, list[Any]]) -> Any:
+    """Library ``key``, built by ``build()`` and loaded on first use, with
+    each entry's argument types declared and an int result."""
+    with _LIB_LOCK:
+        lib = _LIB.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = _I
+            _LIB[key] = lib
+        return lib
+
+
 def library() -> Any:
     """The loaded kernel library (built on first use)."""
-    with _LIB_LOCK:
-        lib = _LIB.get("lib")
-        if lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            lib.bsps_smem_optin.argtypes = [_I]
-            lib.bsps_smem_optin.restype = _I
-            for name, args in ENTRIES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = _PREFIX + args
-                fn.restype = _I
-            _LIB["lib"] = lib
-        return lib
+    lib = _LIB.get("lib")
+    return lib if lib is not None else _load("lib", build_library, _LIBRARY_ENTRIES)
+
+
+def sweep_kernels() -> Any:
+    """The fp32 matmul's tile sweep library (built on first use), whose
+    entries are :data:`SWEEP_ENTRIES`: a measurement tool's, not the
+    port's."""
+    return _load("sweep", lambda: build_library(SWEEP_SOURCES, "libbsps_sweep"), SWEEP_ENTRIES)
 
 
 def _smem_limit(device: torch.device) -> int:

@@ -39,8 +39,10 @@ and one for fp32 operands, at any m:
 
 * ``"simt_f32"`` — exact fp32 FMAs, fp32 accumulation, no TF32 (the JAX
   kernel multiplies fp32 operands at ``preferred_element_type=f32``): a
-  128×128 tile per block, an 8×8 register tile per thread, K streamed 8 at a
-  time through double-buffered shared memory; the default layouts only.
+  256×128 tile per block, K streamed 32 at a time by a producer warpgroup's
+  ``cp.async`` copies through a 3-stage ``mbarrier`` ring to two consumer
+  warpgroups, a 16×8 register tile per consumer thread, each output's K
+  terms summed in ascending k in one chain; all three layouts.
 
 Operand layouts. ``b_layout="nk"`` takes B as its (n, k) transpose, k
 contiguous: the tied LM head x·Eᵀ reads the (V, d) embedding so, and the
@@ -48,11 +50,15 @@ input gradient dC·Wᵀ reads a (k, n) weight so, with no copy. The decode
 variant streams such a B by TMA boxes over its rows and reads them with
 ``ldmatrix`` untransposed; ``wgmma`` takes it as the K-major operand.
 ``a_layout="km"`` takes A as its (k, m) transpose, m contiguous — the
-weight gradient Aᵀ·dC reads the activations so — on ``wgmma`` only, as its
-M-major operand. One operand at a time is transposed. A transposed operand
-needs TMA (16-byte base and row stride); the ``wmma`` variants and
-``simt_f32`` take the default layouts only, and a call they would get raises. The plans describe
-the same tokens in every layout: only their order in memory differs.
+weight gradient Aᵀ·dC reads the activations so — for bf16 on ``wgmma``
+only, as its M-major operand. One operand at a time is transposed. A
+transposed bf16 operand needs TMA (16-byte base and row stride); the
+``wmma`` variants take the default layouts only, and a call they would get
+raises. ``simt_f32``
+takes fp32 operands in all three layouts at any stride: an operand stored
+with k contiguous is copied 4 bytes at a time, transposed into its k-major
+tile. The plans describe the same tokens in every layout: only their order
+in memory differs.
 
 A build, encode or launch that fails raises; nothing falls back to another
 variant. ``streamed_matmul.launches_by_variant`` counts launches per variant,
@@ -78,7 +84,7 @@ LAYOUTS = {("mk", "kn"): 0, ("mk", "nk"): 1, ("km", "kn"): 2}
 #: (block_m, block_n, block_k) of each kernel variant, in the C side's code
 #: order; the decode variant's block_m is the most rows it takes
 VARIANTS = {"decode": (16, 128, 64), "wgmma": (128, 128, 64), "wmma": (64, 64, 32),
-            "decode_wmma": (16, 64, 64), "simt_f32": (128, 128, 8)}
+            "decode_wmma": (16, 64, 64), "simt_f32": (256, 128, 32)}
 _CODES = {name: i for i, name in enumerate(VARIANTS)}
 _TMA_ALIGN = 16   # bytes: TMA's base-address and row-stride granule
 DECODE_STAGES = 4              # the decode variant's ring of 16 KB weight stages
@@ -267,21 +273,18 @@ def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
     the operand as it is stored ((m, k) or (k, m) for A, (k, n) or (n, k)
     for B).
 
-    fp32 operands take ``"simt_f32"`` at any m, in the default layouts only
-    (another raises ``ValueError``). For bf16, TMA can describe an operand
-    whose base address is 16-byte aligned and whose row stride (``lda·2``,
-    ``ldb·2`` bytes) is a multiple of 16. m ≤ 16
-    is ``"decode"`` when TMA can describe B and A's K share fits a block
-    (:func:`decode_fits`; A is read with plain loads), ``"decode_wmma"``
-    when not; m > 16 is ``"wgmma"`` when TMA can describe both operands and
-    ``"wmma"`` when not. A (k, m) A always takes ``"wgmma"``. A transposed
-    operand that the chosen variant cannot read raises ``ValueError``.
+    fp32 operands take ``"simt_f32"`` at any m, in every layout and at any
+    stride. For bf16, TMA can describe an operand whose base address is
+    16-byte aligned and whose row stride (``lda·2``, ``ldb·2`` bytes) is a
+    multiple of 16. m ≤ 16 is ``"decode"`` when TMA can describe B and A's
+    K share fits a block (:func:`decode_fits`; A is read with plain loads),
+    ``"decode_wmma"`` when not; m > 16 is ``"wgmma"`` when TMA can describe
+    both operands and ``"wmma"`` when not. A bf16 (k, m) A always takes
+    ``"wgmma"``. A transposed bf16 operand that the chosen variant cannot
+    read raises ``ValueError``.
     """
     _check_layouts(a_layout, b_layout)
     if dtype == torch.float32:
-        if (a_layout, b_layout) != ("mk", "kn"):
-            raise ValueError(f"fp32 operands take the default layouts, not a={a_layout!r}, "
-                             f"b={b_layout!r}")
         return "simt_f32"
     b_tma = b_addr % _TMA_ALIGN == 0 and 2 * ldb % _TMA_ALIGN == 0
     a_tma = a_addr % _TMA_ALIGN == 0 and 2 * lda % _TMA_ALIGN == 0

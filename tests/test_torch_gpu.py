@@ -755,6 +755,10 @@ def test_train_step_on_the_card_matches_cpu(cuda):
     (1, 64, 64), (4, 2304, 5760), (16, 37, 9),           # m ≤ 16
     (300, 200, 130), (1000, 264, 1031), (129, 8, 127),   # ragged m, n and k edges
     (4096, 4096, 4096),                                  # Cannon's local product
+    # the ring (K steps of 32, 3 stages): k below one stage, between one
+    # stage and the full ring, past it and no multiple of 32, and k = 1;
+    # m and n one past a 256 × 128 tile
+    (64, 5, 96), (130, 40, 200), (200, 1000, 300), (33, 1, 65), (257, 64, 129),
 ])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_fp32_matmul_kernel_matches_plain(cuda, m, k, n, out_dtype):
@@ -779,12 +783,57 @@ def test_fp32_matmul_reads_strided_rows(cuda):
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
-def test_fp32_matmul_refuses_transposed_operands(cuda):
-    a = _rand((64, 32), torch.float32, cuda)
-    with pytest.raises(ValueError, match="fp32"):
-        streamed_matmul(a, a, b_layout="nk")
-    with pytest.raises(ValueError, match="fp32"):
-        streamed_matmul(a.T.contiguous(), a.T.contiguous(), a_layout="km")
+# the transposed layouts on simt_f32: B as (n, k) and A as (k, m), at ragged
+# shapes and an odd row stride (no 16-byte copies); 1e-5 of the largest output
+@pytest.mark.parametrize("a_layout,b_layout", [("mk", "nk"), ("km", "kn")])
+@pytest.mark.parametrize("m,k,n,pad", [(1000, 264, 1031, 0), (129, 37, 130, 0), (4, 2304, 5760, 0),
+                                       (300, 200, 130, 1), (256, 1024, 256, 0)])
+def test_fp32_matmul_transposed_layouts_match_plain(cuda, a_layout, b_layout, m, k, n, pad):
+    ar, ac = (m, k) if a_layout == "mk" else (k, m)
+    br, bc = (k, n) if b_layout == "kn" else (n, k)
+    a = _rand((ar, ac + pad), torch.float32, cuda, 43)[:, :ac]
+    b = _rand((br, bc + pad), torch.float32, cuda, 44)[:, :bc]
+    before = ops.matmul_layout_counts()[f"{a_layout}/{b_layout}"]
+    got = streamed_matmul(a, b, a_layout=a_layout, b_layout=b_layout)
+    want = ref.matmul_ref(a, b, a_layout=a_layout, b_layout=b_layout)
+    torch.cuda.synchronize()
+    assert ops.matmul_layout_counts()[f"{a_layout}/{b_layout}"] == before + 1
+    assert ops.matmul_variant_counts()["simt_f32"] > 0
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_fp32_matmul_rows_are_invariant_to_m(cuda):
+    """Each output sums its K terms in ascending k in one chain, with no
+    split: a row computed alone (m = 1) has the bits it has among 1000, and
+    two runs are equal bit for bit."""
+    a = _rand((1000, 1031), torch.float32, cuda, 45)
+    b = _rand((1031, 517), torch.float32, cuda, 46)
+    full = streamed_matmul(a, b)
+    assert torch.equal(streamed_matmul(a, b), full)
+    for i in (0, 1, 127, 128, 500, 999):
+        assert torch.equal(streamed_matmul(a[i:i + 1], b), full[i:i + 1])
+    assert torch.equal(streamed_matmul(a[130:390], b), full[130:390])
+
+
+@pytest.mark.parametrize("b_layout", ["kn", "nk"])
+@pytest.mark.parametrize("m,k,n", [(300, 264, 130), (1024, 1031, 517)])
+def test_fp32_matmul_function_grads_on_the_card(cuda, b_layout, m, k, n):
+    """The Function's fp32 backward on simt_f32 (dA with B in the other
+    layout, dB with A read as its (k, m) transpose) against CPU autograd
+    through the plain version: within 1e-5 of the largest gradient."""
+    a = _rand((m, k), torch.float32, cuda, 47).requires_grad_(True)
+    b = _rand((k, n) if b_layout == "kn" else (n, k), torch.float32, cuda, 48).requires_grad_(True)
+    dc = _rand((m, n), torch.float32, cuda, 49)
+    before = ops.matmul_variant_counts()["simt_f32"]
+    out = ops.Matmul.apply(a, b, b_layout)
+    da, db = torch.autograd.grad(out, (a, b), dc)
+    assert ops.matmul_variant_counts()["simt_f32"] == before + 3
+    ca, cb = (t.detach().cpu().requires_grad_(True) for t in (a, b))
+    cout = ops.Matmul.apply(ca, cb, b_layout)
+    wa, wb = torch.autograd.grad(cout, (ca, cb), dc.cpu())
+    for got, want in ((out, cout), (da, wa), (db, wb)):
+        assert got.dtype == torch.float32
+        assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -332,20 +332,19 @@ def test_wgmma_tile_plan_is_the_jax_plan(m, k, n):
                                      (1024, 4096, 4096), (4096, 4096, 4097)])
 def test_fp32_operands_take_the_simt_variant(m, k, lda):
     """fp32 operands take ``simt_f32`` at any m, whatever the strides (the
-    bf16 rule's TMA alignment, 2 bytes an element, is not consulted); a
-    transposed operand raises."""
+    bf16 rule's TMA alignment, 2 bytes an element, is not consulted), in
+    every layout: the kernel copies a k-contiguous operand transposed."""
     assert variant_for(m, 4, lda, 4, 9, k, dtype=torch.float32) == "simt_f32"
-    assert VARIANTS["simt_f32"] == (128, 128, 8)
+    assert VARIANTS["simt_f32"] == (256, 128, 32)
     for a_layout, b_layout in (("mk", "nk"), ("km", "kn")):
-        with pytest.raises(ValueError, match="fp32"):
-            variant_for(m, 0, lda, 0, 64, k, a_layout=a_layout, b_layout=b_layout,
-                        dtype=torch.float32)
+        assert variant_for(m, 4, lda, 4, 9, k, a_layout=a_layout, b_layout=b_layout,
+                           dtype=torch.float32) == "simt_f32"
 
 
 @pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (1000, 264, 1032), (4, 2304, 5760)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_fp32_tile_plan_is_the_jax_plan(m, k, n, out_dtype):
-    """The plan the fp32 variant launches (128×128×8, fp32 operands) is the
+    """The plan the fp32 variant launches (256×128×32, fp32 operands) is the
     JAX package's fp32 plan at those blocks: grid, fingerprint, Eq. 1 price."""
     bm, bn, bk = VARIANTS["simt_f32"]
     tp = matmul_plan(m, k, n, block_m=bm, block_n=bn, block_k=bk, dtype=torch.float32,
@@ -358,7 +357,19 @@ def test_fp32_tile_plan_is_the_jax_plan(m, k, n, out_dtype):
         assert tp.cost(_pack(jacc)) == jp.cost(jacc)
     assert tp.scratch_bytes == bm * bn * 4     # the accumulator the kernel keeps in registers
     if (m, k, n) == (4096, 4096, 4096):
-        assert pipeline.geometry(tp) == ((32, 32, 1), 512)
+        assert pipeline.geometry(tp) == ((32, 16, 1), 128)
+
+
+def test_simt_f32_sweep_refuses_without_a_card(monkeypatch):
+    """The tile sweep times kernels: with no CUDA device it raises before
+    building anything."""
+    from repro_torch.launch import sweep_simt_f32
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["sweep_simt_f32"])
+    monkeypatch.setattr(pipeline, "sweep_kernels", lambda: pytest.fail("built without a card"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep_simt_f32.main()
 
 
 def test_reset_clears_the_variant_counts():
