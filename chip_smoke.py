@@ -10,11 +10,16 @@ layouts: the tied LM head's (V, d) B and a train step's backward products),
 times it beside the plain version and one library call where there is one,
 and checks 2-layer full-width cuts of minicpm-2b and jamba-v0.1-52b on the
 card against float32 on the CPU, the forward and, for minicpm-2b, the loss
-and every gradient. Then it drives four main paths, each with the launch
+and every gradient. Then it drives five main paths, each with the launch
 counts set to 0 before it and read after: the paper's §3.1 inner product
 through the hyperstep runner in both execution modes plus minicpm-2b served
 at full width and depth; minicpm-2b's train step at full width and depth
-(4 AdamW steps, the loss falling); jamba-v0.1-52b served at full width
+(4 AdamW steps, the loss falling); the training loop (``train-loop``:
+``repro_torch.train.loop.train`` on synthetic batches, minicpm-2b at full
+width and depth for 8 steps in each execution mode, the losses equal bit
+for bit and each step launching what the bare step launches, then a
+crash/resume drill at full width and 2 layers with 4.9 GB checkpoints,
+resumed bit for bit in both modes); jamba-v0.1-52b served at full width
 with its depth cut to one period of 8 layers (random weights from a seed),
 each served model through ``generate`` and ``make_prefill_step``; and the
 paper's algorithms (``bsps``): the §3.1 inner product over 16 cores from
@@ -48,8 +53,10 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -67,6 +74,7 @@ from repro_torch.core.faults import FaultPlan, FaultSpec  # noqa: E402
 from repro_torch.core.hyperstep import HyperstepRunner  # noqa: E402
 from repro_torch.core.plan import host_plan  # noqa: E402
 from repro_torch.core.stream import StreamSet  # noqa: E402
+from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.distributed.cannon import gather_c, make_cannon_runner  # noqa: E402
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import LANE_CHOICES, lanes_for, ssm_scan  # noqa: E402
@@ -79,6 +87,8 @@ from repro_torch.models.flash import FlashAttention  # noqa: E402
 from repro_torch.optim.adamw import AdamW, leaves  # noqa: E402
 from repro_torch.optim.compress import tree_map  # noqa: E402
 from repro_torch.optim.schedule import wsd  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train.steps import make_prefill_step, make_train_step  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is
@@ -900,7 +910,163 @@ def train_slice() -> dict:
     del params, state, first, step
     gc.collect()
     torch.cuda.empty_cache()
-    return per_step[-1]
+    return {"per_step": per_step[-1], "wall": wall}
+
+
+def _loop(cfg, steps: int, compiled: bool, machine, faults=None,
+          **kw) -> tuple[dict, list, dict]:
+    """One ``train()`` run on the card from seed 0: B 4 x S 256 synthetic
+    batches (seed 0), AdamW on WSD (peak 2e-3, warmup 8). Returns the
+    result, the log lines and the launches the run made."""
+    lines: list[str] = []
+    opt = AdamW(wsd(peak_lr=2e-3, warmup=8, total=100))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=4, seed=0)
+    before = counts_now()
+    out = train_loop.train(
+        cfg, train_loop.TrainConfig(steps=steps, log_every=1000, compiled=compiled, **kw),
+        opt, data_cfg=data, machine=machine, log=lines.append, faults=faults, device="cuda")
+    return out, lines, {k: v - before[k] for k, v in counts_now().items()}
+
+
+def _prefetch_depth(lines: list) -> int:
+    """The prefetch depth the run's last re-pricing set (0: never started)."""
+    found = re.findall(r"prefetch depth -> (\d+)", "\n".join(lines))
+    return int(found[-1]) if found else 0
+
+
+def train_loop_slice(machine, bare: dict) -> None:
+    """The training loop (``repro_torch.train.loop.train``) on the card.
+
+    (a) minicpm-2b at full width and depth (40 layers, bf16, remat "full"),
+    8 steps in compiled mode and then, from a fresh seed-0 init, 8 steps of
+    the host loop, no checkpoint directory: both losses falling, equal bit
+    for bit between the modes (the same eager step on the same batches),
+    each step launching what the bare step of ``train_slice`` launches, and
+    the plan row's fetch words as planned. (b) the crash/resume drill at
+    full width with the depth cut 40 -> 2 (a 4.9 GB checkpoint): 6 steps,
+    a checkpoint every 3, in both modes; a dispatch failure mid-interval
+    resumes once (BSPS212) and gives the uncrashed run's losses bit for
+    bit. The uncrashed runs write no checkpoint (a checkpoint copies the
+    state and changes no bit of it); one save and one restore of the last
+    state are timed apart."""
+    cfg = get_config("minicpm-2b")
+    runs = {}
+    for compiled in (True, False):
+        t0 = time.perf_counter()
+        out, lines, launched = _loop(cfg, 8, compiled, machine)
+        wall = time.perf_counter() - t0
+        hist = out["history"]
+        losses = [h["loss"] for h in hist]
+        mode = "compiled" if compiled else "host loop"
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train loop ({mode}) losses {losses}")
+        want = {k: 8 * v for k, v in bare["per_step"].items()}
+        check(launched == want, f"train loop ({mode}) launches {launched}, 8 bare steps {want}")
+        row = out["plan_row"]
+        check(row["fetch_words_planned"] == row["fetch_words_measured"],
+              f"train loop ({mode}) plan row {row}")
+        steps_s = [h["step_seconds"] for h in hist]
+        step_ms = float(np.median(steps_s)) * 1e3
+        runs[compiled] = losses
+        log(f"[train-loop] {mode}: minicpm-2b {cfg.num_layers} layers, 8 steps in {wall:.1f} s "
+            f"(with the init; the run is priced on the calibrated pack): losses "
+            f"{[round(x, 4) for x in losses]}")
+        log(f"[train-loop] {mode}: step wall median {step_ms:.1f} ms "
+            f"({'the run wall / 8' if compiled else 'per-step records'}; all "
+            f"{[round(x * 1e3, 1) for x in steps_s]}), bare step median {bare['wall'] * 1e3:.1f} "
+            f"ms, loop overhead {step_ms - bare['wall'] * 1e3:+.1f} ms a step; pred_over_meas "
+            f"{row['pred_over_meas']:.4g} (predicted {row['predicted_seconds']:.4g} s, measured "
+            f"{row['measured_seconds']:.4g} s), verdict predicted "
+            f"{'bandwidth-heavy' if row['bandwidth_heavy_predicted'] else 'compute'} / measured "
+            f"{'bandwidth-heavy' if row['bandwidth_heavy_measured'] else 'compute'}, fetch words "
+            f"{row['fetch_words_measured']:.0f}; prefetch depth {_prefetch_depth(lines)}, "
+            f"stragglers {out['stragglers']}, health {out['health']['count_by_code']}")
+        per_step = {k: v // 8 for k, v in launched.items()}
+        log(f"[train-loop] {mode}: launches per step {json.dumps(per_step)}")
+        del out, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(runs[True] == runs[False],
+          f"train loop: compiled losses {runs[True]} != host loop {runs[False]}")
+    log("[train-loop] compiled and host-loop losses equal bit for bit")
+    crash_drill(machine)
+
+
+def crash_drill(machine) -> None:
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2)
+    n = M.count_params(cfg)
+    ckpt_bytes = 4 * n * 3 + 4     # fp32 parameters and two fp32 moments, the step
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    free = shutil.disk_usage(root).free
+    # a run keeps at most two checkpoints; its directory goes before the next
+    # run, and the timed save comes after the last
+    check(free >= 2.5 * ckpt_bytes,
+          f"crash drill: {free / 1e9:.1f} GB free under {root}, needs "
+          f"{2.5 * ckpt_bytes / 1e9:.1f} GB")
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt_drill_", dir=root))
+    try:
+        for compiled in (True, False):
+            mode = "compiled" if compiled else "host loop"
+            t0 = time.perf_counter()
+            base, _, _ = _loop(cfg, 6, compiled, machine)
+            base_s = time.perf_counter() - t0
+            want = [h["loss"] for h in base["history"]]
+            del base
+            # compiled: the second dispatch (steps 3..5); host loop: the
+            # dispatch of hyperstep 4 — after the step-3 checkpoint either way
+            inj = FaultPlan([FaultSpec("dispatch_fail", at=(1 if compiled else 4,))]).replay()
+            t0 = time.perf_counter()
+            out, lines, _ = _loop(cfg, 6, compiled, machine, ckpt_dir=str(tmp / "crash"),
+                                  ckpt_every=3, max_restarts=2, faults=inj)
+            crash_s = time.perf_counter() - t0
+            got = [h["loss"] for h in out["history"]]
+            codes = out["health"]["count_by_code"]
+            latest = ckpt.latest_step(str(tmp / "crash"))
+            check(out["resumes"] == 1 and codes.get("BSPS212", 0) == 1,
+                  f"crash drill ({mode}): resumes {out['resumes']}, health {codes}")
+            check(got == want, f"crash drill ({mode}): losses {got} != uncrashed {want}")
+            check(latest == 6, f"crash drill ({mode}): latest step {latest}")
+            log(f"[train-loop] crash drill ({mode}): minicpm-2b 2 layers, {n / 1e9:.3f} B "
+                f"params, 6 steps: uncrashed (no checkpoint) {base_s:.1f} s; checkpoint every "
+                f"3, crashed at "
+                f"dispatch {1 if compiled else 4} and resumed {out['resumes']}x (BSPS212 "
+                f"{codes.get('BSPS212', 0)}) {crash_s:.1f} s; losses equal bit for bit "
+                f"{[round(x, 4) for x in got]}; latest_step {latest}; "
+                f"{[ln for ln in lines if ln.startswith('[resume] restored')]}")
+            state = {"params": out["params"], "opt_state": out["opt_state"]}
+            del out
+            shutil.rmtree(tmp / "crash")
+        # one save and one restore of the last state, timed: the copy to
+        # host (snapshot) apart from the files' write
+        t0 = time.perf_counter()
+        snap = ckpt.snapshot(state)
+        copy_s = time.perf_counter() - t0
+        ckpt.save(str(tmp / "timed"), 6, snap, data_state={"cursor": 6, "seed": 0},
+                  blocking=True)
+        save_s = time.perf_counter() - t0
+        del snap
+        step_dir = tmp / "timed" / "step_00000006"
+        written = sum(f.stat().st_size for f in step_dir.iterdir())
+        want_params = [t.clone() for t in leaves(state["params"])]
+        for t in leaves(state):
+            t.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore(str(tmp / "timed"), 6, state, copy_into=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(leaves(state["params"]), want_params)),
+              "crash drill: restored parameters differ from the saved ones")
+        log(f"[train-loop] checkpoint of {n / 1e9:.3f} B params: save {save_s:.2f} s (copy "
+            f"to host {copy_s:.2f} s, then crc32, npz, fsync, rename), {written / 1e9:.3f} GB "
+            f"written ({written / save_s / 1e9:.2f} GB/s); restore (read, crc32, copy to the "
+            f"card) {restore_s:.2f} s; latest_step {ckpt.latest_step(str(tmp / 'timed'))}")
+        del state, want_params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def serve_slice(machine) -> dict:
@@ -1485,7 +1651,13 @@ def main() -> int:
     dense = main_path("minicpm-2b", lambda: (inner_product(machine), serve_slice(machine)))
     gc.collect()
     torch.cuda.empty_cache()      # the serve weights go before the train step's come
-    train = main_path("train", train_slice)
+    bare: dict = {}
+    train = main_path("train", lambda: bare.update(train_slice()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop = main_path("train-loop", lambda: train_loop_slice(machine, bare))
+    gc.collect()
+    torch.cuda.empty_cache()
     hybrid = main_path("jamba-v0.1-52b", lambda: serve_jamba(machine))
     gc.collect()
     torch.cuda.empty_cache()
@@ -1494,11 +1666,12 @@ def main() -> int:
         check(dense[name] > 0, f"{name} was not launched on the minicpm-2b path")
     for name in ("streamed_matmul", "flash_attention"):
         check(train[name] > 0, f"{name} was not launched on the train path")
+        check(loop[name] > 0, f"{name} was not launched on the train-loop path")
     for name in ("streamed_matmul", "flash_attention", "ssm_scan"):
         check(hybrid[name] > 0, f"{name} was not launched on the jamba path")
     for name in ("streamed_dot", "streamed_matmul"):
         check(paper[name] > 0, f"{name} was not launched on the bsps path")
-    launches = {k: dense[k] + train[k] + hybrid[k] + paper[k] for k in dense}
+    launches = {k: dense[k] + train[k] + loop[k] + hybrid[k] + paper[k] for k in dense}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -37,9 +37,12 @@ dispatch_fail   the start of a dispatch — raises :class:`FaultInjected`
                 preemption; safe to retry)
 page_exhaust    :meth:`repro_torch.launch.engine.PagedKVPool.can_admit` —
                 the pool reports no free pages although pages are free
-data_error      a data source's batch reads (the JAX package's
-                ``TokenStream``; the port has no data pipeline yet) —
-                raises :class:`FaultInjected` from the data source
+data_error      a data source's batch reads
+                (:class:`repro_torch.data.pipeline.TokenStream`, consulted
+                once per read attempt inside its bounded retry) — raises
+                :class:`FaultInjected` from the data source; each failed
+                attempt emits BSPS210, exhausted retries BSPS211 and a
+                :class:`~repro_torch.data.pipeline.DataSourceError`
 ==============  ============================================================
 
 Trigger indexing: ``dma_stall``/``straggler``/``corrupt`` triggers are

@@ -28,6 +28,11 @@ case with the flat-stream interface.
 The same schedule appears one level down in ``kernels/``, where a block
 streams tiles of device memory through shared memory.
 
+A token is an array or a pytree of arrays (dicts, lists, tuples — a
+training batch is ``{"tokens", "labels"}``), as in the JAX package's
+runner: staging, rate-k merging and the compiled gathers and scatters work
+leaf by leaf.
+
 Streams need not all advance at the same rate: ``rates[i]`` tokens of stream i
 are consumed per hyperstep — rate-0 streams are resident operands fetched once
 before hyperstep 0, rate-k streams deliver a k-token block each step. Up-streams
@@ -139,6 +144,17 @@ def _leaves(x: Any) -> list[Any]:
     return [x]
 
 
+def _map(fn: Callable[..., Any], *trees: Any) -> Any:
+    """``fn`` over the leaves of token trees of one structure (dicts, lists,
+    tuples)."""
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in head}
+    if isinstance(head, (list, tuple)):
+        return type(head)(_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
 def _block(x: Any) -> Any:
     """Bulk sync: wait for the device work behind any CUDA tensor in ``x``."""
     devices = {t.device for t in _leaves(x)
@@ -149,12 +165,17 @@ def _block(x: Any) -> Any:
 
 
 def _concat(toks: Sequence[Any]) -> Any:
-    """Merge a rate-k stream's k tokens into one block along the token axis."""
+    """Merge a rate-k stream's k tokens into one block along the token axis,
+    leaf by leaf for pytree tokens."""
     if len(toks) == 1:
         return toks[0]
-    if isinstance(toks[0], torch.Tensor):
-        return torch.cat(list(toks), dim=0)
-    return np.concatenate(toks, axis=0)
+
+    def cat(*leaves: Any) -> Any:
+        if isinstance(leaves[0], torch.Tensor):
+            return torch.cat(leaves, dim=0)
+        return np.concatenate(leaves, axis=0)
+
+    return _map(cat, *toks)
 
 
 @dataclasses.dataclass
@@ -173,25 +194,31 @@ class _Lane:
         return cls(device, torch.cuda.Stream(device),
                    torch.cuda.current_stream(device))
 
-    def stage(self, tok: Any) -> torch.Tensor:
+    def stage(self, tok: Any) -> Any:
         """Move one token block into local (device) memory, in this lane.
 
         On the card the copy runs on the lane's side stream from pinned host
         memory, and the lane thread waits on an event for it — the lane is
-        busy, the compute stream is not. The staged tensor is marked as used
-        by the compute stream so its memory is not reused under it.
+        busy, the compute stream is not. The staged tensors are marked as
+        used by the compute stream so their memory is not reused under them.
+        A pytree token stages leaf by leaf, behind one event.
         """
-        host = torch.as_tensor(tok)
         if self.side is None:
-            return host.to(self.device)
-        if host.device.type == "cpu" and not host.is_pinned():
-            host = host.pin_memory()
+            return _map(lambda x: torch.as_tensor(x).to(self.device), tok)
+
+        def pinned(x: Any) -> torch.Tensor:
+            host = torch.as_tensor(x)
+            if host.device.type == "cpu" and not host.is_pinned():
+                host = host.contiguous().pin_memory()
+            return host
+
         with torch.cuda.stream(self.side):
-            dev = host.to(self.device, non_blocking=True)
+            dev = _map(lambda x: pinned(x).to(self.device, non_blocking=True), tok)
             done = torch.cuda.Event()
             done.record(self.side)
         done.synchronize()
-        dev.record_stream(self.compute)
+        for t in _leaves(dev):
+            t.record_stream(self.compute)
         return dev
 
     def drain(self, tok: Any, ready: Any) -> Any:
@@ -332,22 +359,31 @@ class _CursorProxy:
         return start
 
 
-def _gather_block(stacked: torch.Tensor, start: int, rate: int) -> torch.Tensor:
-    """Device-side ``move_down`` ×rate: consecutive tokens off a stacked copy,
-    merged along the token axis (the device twin of ``_concat``). A view: no
-    copy, no host sync."""
-    if rate == 1:
-        return stacked[start]
-    sl = stacked[start:start + rate]
-    return sl.reshape((rate * sl.shape[1],) + tuple(sl.shape[2:]))
+def _gather_block(stacked: Any, start: int, rate: int) -> Any:
+    """Device-side ``move_down`` ×rate: consecutive tokens off a stacked copy
+    (a tensor, or a pytree of them), merged along the token axis leaf by
+    leaf (the device twin of ``_concat``). Views: no copy, no host sync."""
+
+    def take(leaf: torch.Tensor) -> torch.Tensor:
+        if rate == 1:
+            return leaf[start]
+        sl = leaf[start:start + rate]
+        return sl.reshape((rate * sl.shape[1],) + tuple(sl.shape[2:]))
+
+    return _map(take, stacked)
 
 
-def _scatter_block(buf: torch.Tensor, tok: Any, idx: int) -> None:
+def _scatter_block(buf: Any, tok: Any, idx: int) -> None:
     """Device-side ``move_up``: write ``tok`` into row ``idx`` of a stacked
-    out-buffer, in place. The flush mask is static, so the caller skips the
-    rows that do not complete; no host sync."""
-    row = buf[idx]
-    row.copy_(torch.as_tensor(tok).reshape(row.shape))
+    out-buffer (leaf by leaf for a pytree), in place. The flush mask is
+    static, so the caller skips the rows that do not complete; no host
+    sync."""
+
+    def put(leaf: torch.Tensor, t: Any) -> None:
+        row = leaf[idx]
+        row.copy_(torch.as_tensor(t).reshape(row.shape))
+
+    _map(put, buf, tok)
 
 
 @dataclasses.dataclass
@@ -861,7 +897,7 @@ class HyperstepRunner:
 
         def program(state: Any, out_bufs: Any, stacked: Any) -> Any:
             residents = [
-                [None if rates[i] > 0 else stacked[c][i][res_idx[c][i]]
+                [None if rates[i] > 0 else _gather_block(stacked[c][i], res_idx[c][i], 1)
                  for i in range(len(rates))]
                 for c in range(ncores)
             ]

@@ -1,1 +1,2 @@
-"""Launchers of the port: the serving path and its runner registry."""
+"""Launchers of the port: the serving path, its runner registry and the
+training launcher."""

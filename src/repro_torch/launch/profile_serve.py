@@ -3,6 +3,7 @@ the serve path, or over the train step with ``--train``.
 
 ``python -m repro_torch.launch.profile_serve [--arch minicpm-2b] [--steps 4] [--context N]``
 ``python -m repro_torch.launch.profile_serve --train [--batch 4 --prompt-len 256]``
+``python -m repro_torch.launch.profile_serve --train-loop [--steps 8]``
 
 Serves ``--arch`` at full width on the CUDA card (random weights from a seed;
 at the depth one card holds, ``configs.card_config``),
@@ -14,7 +15,15 @@ its peak memory above the resident tensors are printed beside. With
 end. With ``--train`` it instead takes ``--steps`` AdamW steps of
 ``make_train_step`` on one ``--batch`` × ``--prompt-len`` batch (after a
 warm-up step), times the loss and its gradients apart from the optimizer
-update (CUDA events), and profiles one step. For each it prints the host wall time, the device's busy share of
+update (CUDA events), and profiles one step. With ``--train-loop`` it runs
+the training loop (``train/loop.train``, synthetic batches of ``--batch``
+× ``--prompt-len``) for ``--steps`` steps in turns — compiled, host loop,
+host loop, compiled — and the bare step in a plain loop, printing each
+run's step walls beside the card's SM clock, power draw and temperature
+(``nvidia-smi``) before and after, and the host syncs one step makes
+(``torch.cuda.set_sync_debug_mode``), then profiles three steps of each
+mode (the init included).
+For each profile it prints the host wall time, the device's busy share of
 it, and the operators and kernels that take the most host and device time.
 Run it on the card; it refuses to run without one.
 """
@@ -24,6 +33,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -95,6 +105,95 @@ def profile_train(cfg, args) -> None:
     _report(name, prof, wall, 1, args.rows)
 
 
+def _card_state() -> str:
+    """The card's SM clock, power draw and temperature, as nvidia-smi reads them."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+def profile_train_loop(cfg, args) -> None:
+    from repro_torch.core.calibrate import default_machine
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.steps import make_train_step
+
+    machine = default_machine(device="cuda")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.prompt_len,
+                      global_batch=args.batch, seed=0)
+    opt = lambda: AdamW(wsd(peak_lr=2e-3, warmup=8, total=100))
+    name = f"{args.arch} ({cfg.num_layers} layers) train loop over {args.batch} x {args.prompt_len}"
+
+    def run(compiled: bool, steps: int):
+        return train(cfg, TrainConfig(steps=steps, log_every=10 ** 6, compiled=compiled), opt(),
+                     data_cfg=data, machine=machine, calibstore=False, log=lambda s: None,
+                     device="cuda")
+
+    for compiled in (True, False, False, True):
+        before = _card_state()
+        t0 = time.perf_counter()
+        out = run(compiled, args.steps)
+        wall = time.perf_counter() - t0
+        walls = [round(h["step_seconds"] * 1e3, 1) for h in out["history"]]
+        print(f"[profile] {name}, {'compiled' if compiled else 'host loop'}: {wall:.2f} s "
+              f"with init; step ms {walls}; card before [{before}] after [{_card_state()}]")
+        del out
+        torch.cuda.empty_cache()
+
+    params = M.init_params(cfg, 0, device="cuda")
+    o = opt()
+    state = o.init(params)
+    step = make_train_step(cfg, o, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len + 1)), dtype=torch.int32, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = _card_state()
+    walls = []
+    for _ in range(args.steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        walls.append(round((time.perf_counter() - t0) * 1e3, 1))
+    print(f"[profile] {name}, bare step: step ms {walls}; card before [{before}] after "
+          f"[{_card_state()}]")
+    # the host syncs one step makes (what keeps a compiled run from running
+    # ahead of the card), as torch's sync debug mode reports them
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            params, state, m = step(params, state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = ["/".join(w.filename.rsplit("/", 2)[-2:]) + f":{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    print(f"[profile] {name}, bare step: {len(syncs)} host syncs under "
+          f"set_sync_debug_mode, called from {sorted(set(syncs))}")
+    del params, state, step, batch
+    torch.cuda.empty_cache()
+
+    for compiled in (True, False):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run(compiled, 3)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _report(f"{name}, {'compiled' if compiled else 'host loop'}, 3 steps with init",
+                prof, wall, 1, args.rows)
+        del out
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="minicpm-2b")
@@ -107,11 +206,16 @@ def main() -> None:
                          "long (default: the prompt and the steps)")
     ap.add_argument("--train", action="store_true",
                     help="profile make_train_step instead of the serve path")
+    ap.add_argument("--train-loop", action="store_true",
+                    help="time and profile the training loop in both modes and the bare step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
 
     cfg = card_config(args.arch)
+    if args.train_loop:
+        profile_train_loop(cfg, args)
+        return
     if args.train:
         profile_train(cfg, args)
         return

@@ -163,7 +163,11 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> Par
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tokens"][tokens.long()]
+    # F.embedding, not indexing: the same gather forward, but its backward
+    # sums each row's gradient in a fixed order on the CPU and the card, where
+    # indexing's (index_put_ with accumulate) adds rows with atomics on the
+    # CPU's threads, so two equal train steps could differ in the last bits
+    return F.embedding(tokens.long(), p["tokens"])
 
 
 def lm_head(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Training and serving steps of the port."""
+"""Training runtime of the port: steps, loop, checkpoint/restart, stragglers."""

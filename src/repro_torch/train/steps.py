@@ -24,7 +24,11 @@ from repro_torch.optim.compress import bf16_grads, tree_map
 Params = Any
 
 __all__ = ["make_grad_fn", "make_train_step", "make_serve_step", "make_prefill_step",
-           "abstract_opt_state"]
+           "abstract_opt_state", "TRAIN_METRICS"]
+
+#: the keys of :func:`make_train_step`'s metrics, each a 0-d tensor, sorted
+#: (the layout of the training loop's compiled metric stream)
+TRAIN_METRICS = ("ce", "grad_norm", "loss", "lr", "moe_aux")
 
 
 def make_grad_fn(cfg: ModelConfig, *, aux_weight: float = 0.01, compress_bf16: bool = True,
@@ -64,7 +68,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, *, aux_weight: float = 0.01,
     """One optimizer step on ``batch = {"tokens", "labels"[, "positions"]}``:
     the gradients of :func:`make_grad_fn`, then ``opt`` updates the
     parameters and moments in place. The metrics hold the loss, ce,
-    moe_aux, grad_norm and lr as 0-d tensors.
+    moe_aux, grad_norm and lr as 0-d tensors (:data:`TRAIN_METRICS`).
     """
     grads_of = make_grad_fn(cfg, aux_weight=aux_weight, compress_bf16=compress_bf16,
                             device=device)

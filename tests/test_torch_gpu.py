@@ -877,3 +877,80 @@ def test_two_level_cannon_on_the_card(cuda, dtype, n_grid, compiled):
         bound = (1 + u) ** (2 * m_blocks) * (u * magnitudes + gamma * absab)
         assert bool((err <= bound).all()), (err / bound).max().item()
     assert runner.total_fetch_words == sum(runner.plan.fetch_schedule())
+
+
+def _loop_cut():
+    """A 2-layer, head-dim-64 minicpm-2b cut in bf16 with remat "full"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("minicpm-2b", smoke=True), d_model=256, d_ff=512,
+                               num_heads=4, num_kv_heads=4, dtype="bfloat16", remat="full")
+
+
+def _train_on_card(cuda, cfg, steps, compiled, **kw):
+    from repro_torch.core.bsp import BSPAccelerator
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train import loop
+
+    faults = kw.pop("faults", None)
+    tcfg = loop.TrainConfig(steps=steps, log_every=1000, compiled=compiled, **kw)
+    return loop.train(cfg, tcfg, AdamW(constant(3e-3)),
+                      data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                          global_batch=4, seed=0),
+                      machine=BSPAccelerator(**HOST_PACK), calibstore=False,
+                      log=lambda s: None, faults=faults, device=cuda)
+
+
+def test_train_loop_modes_agree_on_the_card(cuda):
+    """The training loop on the card: the compiled run and the host loop
+    give equal losses and parameters bit for bit (the same eager step on
+    the same batches), every step on the matmul and flash kernels."""
+    from repro_torch.optim.adamw import leaves
+
+    cfg = _loop_cut()
+    before = ops.launch_counts()
+    out_c = _train_on_card(cuda, cfg, 4, True)
+    mid = ops.launch_counts()
+    out_h = _train_on_card(cuda, cfg, 4, False)
+    after = ops.launch_counts()
+    losses = [h["loss"] for h in out_c["history"]]
+    assert losses == [h["loss"] for h in out_h["history"]]
+    assert all(np.isfinite(losses))
+    for a, b in zip(leaves(out_c["params"]), leaves(out_h["params"])):
+        assert a.is_cuda and torch.equal(a, b)
+    for name in ("streamed_matmul", "flash_attention"):
+        assert mid[name] - before[name] == after[name] - mid[name] > 0
+    # per step: forward, remat recompute and two backward products each
+    # (the head's recompute excepted); flash forward and recompute
+    assert mid["streamed_matmul"] - before["streamed_matmul"] == 4 * (4 * (7 * 2 + 1) - 1)
+    assert mid["flash_attention"] - before["flash_attention"] == 4 * 2 * 2
+    for out in (out_c, out_h):
+        row = out["plan_row"]
+        assert row["fetch_words_planned"] == row["fetch_words_measured"]
+
+
+@pytest.mark.parametrize("compiled", [True, False])
+def test_train_loop_crash_resumes_bit_exact_on_the_card(cuda, tmp_path, compiled):
+    """A dispatch failure mid-interval: one resume from the card's
+    checkpoint, and the uncrashed run's losses bit for bit."""
+    from repro_torch.core.faults import FaultPlan, FaultSpec
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = _loop_cut()
+    base = _train_on_card(cuda, cfg, 6, compiled, ckpt_dir=str(tmp_path / "base"),
+                          ckpt_every=3)
+    inj = FaultPlan([FaultSpec("dispatch_fail", at=(1 if compiled else 4,))]).replay()
+    res = _train_on_card(cuda, cfg, 6, compiled, ckpt_dir=str(tmp_path / "crash"),
+                         ckpt_every=3, max_restarts=2, faults=inj)
+    assert res["resumes"] == 1
+    assert res["health"]["count_by_code"].get("BSPS212", 0) == 1
+    assert [h["loss"] for h in res["history"]] == [h["loss"] for h in base["history"]]
+    assert ckpt.latest_step(str(tmp_path / "crash")) == 6
+    state, _ = ckpt.restore(str(tmp_path / "crash"), 6, {"params": res["params"]})
+    for a, b in zip(leaves(state["params"]), leaves(res["params"])):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)

@@ -29,7 +29,8 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 def test_no_jax_and_no_jax_package_imports(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro", "flax"), f"{path.name} imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "flax", "ml_dtypes"), \
+            f"{path.name} imports {name}"
 
 
 def test_port_and_chip_smoke_import_with_jax_blocked():
@@ -38,7 +39,7 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         for p in PORT_FILES)
     code = "\n".join([
         "import sys",
-        "for name in ('jax', 'jaxlib', 'repro'):",
+        "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):",
         "    sys.modules[name] = None",
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
         "import importlib",
