@@ -6,11 +6,12 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version at the shapes the serve and train
 paths give it (and ragged shapes, and the matmul's transposed operand
-layouts: the tied LM head's (V, d) B and a train step's backward products),
+layouts: the tied LM head's (V, d) B and a train step's backward products;
+flash at head dim 192 and the matmul at nemotron's and xlstm's shapes),
 times it beside the plain version and one library call where there is one,
 and checks 2-layer full-width cuts of minicpm-2b and jamba-v0.1-52b on the
 card against float32 on the CPU, the forward and, for minicpm-2b, the loss
-and every gradient. Then it drives five main paths, each with the launch
+and every gradient. Then it drives seven main paths, each with the launch
 counts set to 0 before it and read after: the paper's §3.1 inner product
 through the hyperstep runner in both execution modes plus minicpm-2b served
 at full width and depth; minicpm-2b's train step at full width and depth
@@ -26,7 +27,21 @@ paper's algorithms (``bsps``): the §3.1 inner product over 16 cores from
 cyclic streams, and two-level Cannon (Algorithm 2) at n = 16384, M = 4 on
 one core and on a 4 × 4 grid, fp32 (the matmul's ``simt_f32`` variant)
 and bf16 (``wgmma``), in both execution modes, each run beside its Eq. 2
-prediction and held against the fp64 product. The
+prediction and held against the fp64 product. Before ``bsps`` come two
+more: ``xlstm-1.3b`` at full width and depth (48 mLSTM/sLSTM layers: the
+forward at B 4 x S 256, ``generate`` with the prompt prefilled
+token-at-a-time in both modes, its last logits held to the forward's on
+a 2-layer cut and printed by depth, 3 AdamW steps of its train step, and
+a 2-layer cut against fp32 on the CPU)
+and ``families``: starcoder2-15b, qwen2-moe-a2.7b, moonshot-v1-16b-a3b,
+musicgen-large, qwen2-vl-7b and nemotron-4-340b at published widths and
+``card_config`` depth (nemotron 4 of 96 layers), each a forward through
+flash (nemotron's at head dim 192; musicgen's and qwen2-vl's also from
+frontend embeds, qwen2-vl's at 3-axis positions), its last logits held to
+``generate``'s prefill, ``generate`` with 16 new tokens (every product's
+matmul variant predicted, nemotron's K = 73728 down projection on
+``decode_wmma``) and a 2-layer cut against fp32 on the CPU where its fp32
+weights fit the host. The
 matmul's launches are also counted per variant: every product of the
 forward, of a multi-row prefill and of the train step must take the wgmma
 variant, every decode product the m ≤ 16 one. On minicpm-2b's weights the
@@ -78,7 +93,7 @@ from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.distributed.cannon import gather_c, make_cannon_runner  # noqa: E402
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import LANE_CHOICES, lanes_for, ssm_scan  # noqa: E402
-from repro_torch.kernels.streamed_matmul import decode_split  # noqa: E402
+from repro_torch.kernels.streamed_matmul import decode_fits, decode_split  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.serve import generate, make_prefill, prefill_block_size  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -225,7 +240,12 @@ def check_matmul(rows: dict) -> None:
               # the wgmma variant at ragged m, n and k edges
               (1000, 2304, 5768), (1024, 4096, 65544),
               # two-level Cannon's bf16 local product (the bsps path)
-              (4096, 4096, 4096)]
+              (4096, 4096, 4096),
+              # nemotron-4-340b's MLP: decode up, decode down (K = 73728: A's
+              # share overflows a decode block, so decode_wmma) and forward up;
+              # xlstm-1.3b's forward w_down
+              (4, 18432, 73728), (4, 73728, 18432), (1024, 18432, 73728),
+              (1024, 4096, 2048)]
     cases = [(m, k, n, "mk", "kn", False) for m, k, n in shapes] + [
         # minicpm-2b's tied head x·Eᵀ, E (122753, 2304) read as the (n, k) B:
         # decode at 1, 4 and 8 rows, the train step's forward at 1024 (an odd
@@ -248,8 +268,8 @@ def check_matmul(rows: dict) -> None:
         got, variant = matmul_variant(lambda: ops.matmul(a, b, a_layout=al, b_layout=bl))
         want = ref.matmul_ref(a, b, a_layout=al, b_layout=bl)
         torch.cuda.synchronize()
-        expect = ("decode" if m <= 16 and al == "mk" else
-                  "wmma" if (n % 8 or k % 8) and (al, bl) == ("mk", "kn") and not pad
+        expect = (("decode" if decode_fits(m, k) else "decode_wmma") if m <= 16 and al == "mk"
+                  else "wmma" if (n % 8 or k % 8) and (al, bl) == ("mk", "kn") and not pad
                   else "wgmma")
         check(variant == expect, f"streamed_matmul {m}x{k}x{n} {al}/{bl} took {variant}, "
               f"not {expect}")
@@ -381,8 +401,9 @@ def check_flash(rows: dict) -> None:
     # of the output: two ulps of the largest output
     # minicpm-2b's forward, a ragged GQA shape, jamba's forward (GQA 32/8), and
     # at head dim 128 ragged queries at the end of the keys and one decode row
+    # nemotron-4-340b's forward at head dim 192 (GQA 96/8)
     cases = [(4, 36, 36, 256, 256, 64), (2, 8, 2, 100, 100, 64), (4, 32, 8, 256, 256, 128),
-             (2, 32, 8, 100, 300, 128), (4, 32, 8, 1, 300, 128)]
+             (2, 32, 8, 100, 300, 128), (4, 32, 8, 1, 300, 128), (4, 96, 8, 256, 256, 192)]
     for idx, (b, hq, hkv, sq, skv, d) in enumerate(cases):
         sets = copies_past_l2(
             lambda i, b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d: (
@@ -415,7 +436,7 @@ def check_flash(rows: dict) -> None:
         if idx == 0:
             rows["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                            bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-        if idx in (0, 2):
+        if idx in (0, 2, 5):
             check_flash_lse_and_grads(sets, shape, b_ms, lib)
 
 
@@ -786,18 +807,47 @@ def _cpu_fp32(tree):
     return tree.float().cpu()
 
 
+def host_available_bytes() -> int:
+    """The host memory the kernel reports available (``MemAvailable``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
 def reference_check(name: str, **cut) -> None:
     """A 2-layer cut of ``name`` at full width on the card (bf16, kernels)
-    against the same weights in float32 on the CPU (plain versions)."""
+    against the same weights in float32 on the CPU (plain versions). The
+    CPU's MoE layers take the routes the card's took (``moe.route_hook``):
+    a near tie of the router between bf16 and fp32 would send a token to
+    other experts. A cut whose fp32 weights would take more than half the
+    host's available memory is not run, and the reckoning is printed."""
     cfg = dataclasses.replace(get_config(name), num_layers=2, **cut)
+    n = M.count_params(cfg)
+    avail = host_available_bytes()
+    if 2 * 4 * n > avail:
+        log(f"[reference] {name} 2 layers: not run on the CPU: {n / 1e9:.3f} B params are "
+            f"{4 * n / 1e9:.1f} GB in fp32, more than half the host's {avail / 1e9:.1f} GB "
+            f"available (the fp32 forward's temporaries come on top)")
+        return
     params = M.init_params(cfg, 0, device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (2, 64),
                          generator=torch.Generator().manual_seed(2))
-    got = M.forward(cfg, params, toks.cuda(), device="cuda")[0].float().cpu()
+    routes: list[torch.Tensor] = []
+
+    def record(probs, top_e):
+        routes.append(top_e.cpu())
+        return top_e
+
+    with moe_mod.route_hook(record):
+        got = M.forward(cfg, params, toks.cuda(), device="cuda")[0].float().cpu()
     cpu = _cpu_fp32(params)
     del params
     torch.cuda.empty_cache()
-    want = M.forward(dataclasses.replace(cfg, dtype="float32"), cpu, toks, device="cpu")[0]
+    replay = iter(routes)
+    with moe_mod.route_hook(lambda probs, top_e: next(replay)):
+        want = M.forward(dataclasses.replace(cfg, dtype="float32"), cpu, toks, device="cpu")[0]
+    check(next(replay, None) is None, f"{name}: the CPU forward routed fewer tokens")
     err = (got - want).abs().max().item()
     # bf16 activations against fp32: ~2^-8 relative per rounding over two
     # layers, bounded here at 5% of the largest logit
@@ -805,8 +855,9 @@ def reference_check(name: str, **cut) -> None:
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits on the card")
     check(err <= tol, f"{name}: 2-layer forward on the card vs fp32 CPU: {err} > {tol}")
     log(f"[reference] {name} 2 layers {[(b.mixer, b.mlp) for b in cfg.pattern]}, "
-        f"{M.count_params(cfg) / 1e9:.3f} B params, card bf16 vs cpu fp32 logits: "
-        f"max_abs_err={err:.4g} (tol {tol:.4g})")
+        f"{n / 1e9:.3f} B params, card bf16 vs cpu fp32 logits: "
+        f"max_abs_err={err:.4g} (tol {tol:.4g})"
+        + (f"; {len(routes)} MoE routings replayed on the CPU" if routes else ""))
 
 
 def _loss_and_grads(cfg, params, batch, device):
@@ -1575,15 +1626,374 @@ def serve_jamba(machine) -> dict:
     return counts
 
 
+# -- the remaining families: xlstm-1.3b and the six attention configs -----------------
+
+
+def _last_logits_close(name: str, fwd: torch.Tensor, pre: torch.Tensor) -> str:
+    """Hold the forward's last-position logits to a prefill's under the
+    minicpm path's bound (5% of the largest logit); returns the summary."""
+    err = (fwd - pre).abs().max().item()
+    tol = 0.05 * pre.abs().max().item()
+    check(err <= tol, f"{name}: forward vs prefill last logits: {err} > {tol}")
+    agree = float((fwd.argmax(-1) == pre.argmax(-1)).float().mean())
+    return f"max_abs_diff={err:.4g} (tol {tol:.4g}), argmax agreement {agree:.2f}"
+
+
+def serve_xlstm(machine) -> None:
+    """xlstm-1.3b at its published widths and full depth (48 layers, 7 mLSTM
+    : 1 sLSTM), random weights from seed 0: the forward at B 4 x S 256, and
+    generate (prompt 256 prefilled token-at-a-time, 32 new tokens) in both
+    execution modes; then 3 AdamW steps of its train step. The forward
+    against the prefill is :func:`xlstm_depth_probe`'s."""
+    cfg = get_config("xlstm-1.3b")
+    batch, prompt_len, steps = 4, 256, 32
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[xlstm] xlstm-1.3b: {cfg.num_layers} layers {[b.mixer for b in cfg.pattern]} a "
+        f"period, d_model {cfg.d_model}, {cfg.num_heads} heads, mLSTM d_inner "
+        f"{cfg.mlstm_expand * cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{M.count_params(cfg) / 1e9:.3f} B params bf16, init {time.perf_counter() - t0:.1f}s")
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=torch.Generator().manual_seed(1)).to("cuda")
+    prods = products_per_forward(cfg)
+    counts = {}
+
+    def counted(key, fn):
+        before = counts_now()
+        out = fn()
+        counts[key] = {k: v - before[k] for k, v in counts_now().items()}
+        return out
+
+    step = make_prefill_step(cfg, device="cuda")
+    step(params, {"tokens": prompt})                     # warm-up
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = counted("prefill_step", lambda: step(params, {"tokens": prompt}))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    fwd = counts["prefill_step"]
+    check(tuple(logits.shape) == (batch, prompt_len, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "xlstm: forward logits")
+    check(fwd["streamed_matmul"] == fwd["streamed_matmul.wgmma"] == prods
+          and fwd["flash_attention"] == 0, f"xlstm forward launches {fwd} ({prods} products)")
+    log(f"[xlstm] make_prefill_step (B {batch}, S {prompt_len}): wall ms "
+        f"{[round(w * 1e3, 1) for w in walls]}; {prods} products, all wgmma")
+
+    runs = []
+    for key, compiled in (("generate_compiled", True), ("generate_measure", False)):
+        toks, stats = counted(key, lambda c=compiled: generate(
+            cfg, params, prompt, steps=steps, machine=machine, device="cuda", compiled=c))
+        runs.append(toks)
+        c = counts[key]
+        want = serve_variants(cfg, batch, prompt_len, 1, steps)
+        check(want == {"decode": prods * (prompt_len + steps)}
+              and c["streamed_matmul"] == c["streamed_matmul.decode"] == want["decode"]
+              and c["flash_attention"] == 0, f"xlstm {key}: launches {c}")
+        p50 = (f" step_p50_ms={float(np.median(stats.decode_seconds)) * 1e3:.2f}"
+               if not compiled else "")
+        log(f"[xlstm] {key}: prefill_ms={stats.prefill_seconds * 1e3:.2f} ({prompt_len} "
+            f"decode steps, block {prefill_block_size(cfg, batch, prompt_len, machine)}) "
+            f"decode_tok_s={steps * batch / stats.decode_total_seconds:.1f} ({steps} tokens x "
+            f"batch {batch} in {stats.decode_total_seconds * 1e3:.1f} ms){p50} "
+            f"predicted_vs_measured={json.dumps(stats.plan_row)}")
+    check(torch.equal(runs[0], runs[1]), "xlstm: compiled and measure-mode tokens differ")
+    check(tuple(runs[0].shape) == (batch, prompt_len + steps)
+          and 0 <= int(runs[0].min()) and int(runs[0].max()) < cfg.vocab_size,
+          f"xlstm tokens {tuple(runs[0].shape)}")
+    log(f"[xlstm] matmul launches per decode step: {prods} decode "
+        f"({counts['generate_compiled']['streamed_matmul.decode']} per generate)")
+    del logits, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_xlstm(cfg, prods)
+
+
+def train_xlstm(cfg, prods: int) -> None:
+    """3 AdamW steps of xlstm-1.3b's train step at full depth, remat "full",
+    B 4 x S 256 on one batch from a seed."""
+    check(cfg.remat == "full", f"xlstm remat {cfg.remat}")
+    batch, seq = 4, 256
+    params = M.init_params(cfg, 0, device="cuda")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (batch, seq + 1))
+    data = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device="cuda"),
+            "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int64, device="cuda")}
+    opt = AdamW(wsd(peak_lr=2e-3, warmup=3, total=100))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, per_step = [], [], []
+    for _ in range(3):
+        before = counts_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, data)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append({k: v - before[k] for k, v in counts_now().items()})
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"xlstm train losses {losses}")
+    # the forward's products, their recompute (the periods, not the head)
+    # and two backward products each, all wgmma (m = 1024 rows)
+    for c in per_step:
+        check(c["streamed_matmul"] == c["streamed_matmul.wgmma"] == 4 * prods - 1,
+              f"xlstm train step launches {c}")
+    log(f"[xlstm-train] {cfg.num_layers} layers remat={cfg.remat}, B {batch} x S {seq}, AdamW "
+        f"wsd peak 2e-3: losses {[round(x, 4) for x in losses]}; step wall ms "
+        f"{[round(w * 1e3, 1) for w in walls]}, {batch * seq / float(np.median(walls)):.0f} "
+        f"tokens/s; max_memory_allocated {peak / 1e9:.2f} GB; launches per step "
+        f"{json.dumps(per_step[-1])}")
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def xlstm_depth_probe() -> None:
+    """The forward's last logits against the token-at-a-time prefill's, at
+    full width, B 4 x 64 positions, 2 (one mLSTM and one sLSTM block), 8,
+    16 and 48 layers, bf16 and fp32. The chunked and the recurrent form
+    round differently, and the random-weight stack amplifies a rounding
+    difference with depth, in the JAX package's own forward and decode too
+    (``tests/test_torch_xlstm.py``). So the minicpm path's bound (5% of the
+    largest logit) is held on the 2-layer bf16 cut, and the deeper stacks'
+    differences are printed."""
+    base = get_config("xlstm-1.3b")
+    batch, seq = 4, 64
+    prompt = torch.randint(0, base.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(1)).to("cuda")
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for layers in (2, 8, 16, 48):
+            cut = {"pattern": (Block("mlstm", "none"), Block("slstm", "none"))} if layers == 2 else {}
+            cfg = dataclasses.replace(base, num_layers=layers, dtype=dtype, **cut)
+            params = M.init_params(cfg, 0, device="cuda")
+            fwd = M.forward(cfg, params, prompt, device="cuda")[0][:, -1].float()
+            pre, _ = make_prefill(cfg, 1, device="cuda")(
+                params, M.init_cache(cfg, batch, seq, device="cuda"), prompt)
+            pre = pre[:, -1].float()
+            if (dtype, layers) == ("bfloat16", 2):
+                log(f"[xlstm] forward vs token-at-a-time prefill, 2-layer bf16 cut (held): "
+                    f"{_last_logits_close('xlstm 2-layer cut', fwd, pre)}")
+            rows.append(f"{dtype[:4]} {layers}: {(fwd - pre).abs().max().item():.4g} "
+                        f"(max |logit| {pre.abs().max().item():.4g})")
+            del params, fwd, pre
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"[xlstm] forward vs token-at-a-time prefill by depth, max_abs_diff of the last "
+        f"logits: {'; '.join(rows)}")
+
+
+def xlstm_path(machine) -> None:
+    serve_xlstm(machine)
+    xlstm_depth_probe()
+    reference_check("xlstm-1.3b", pattern=(Block("mlstm", "none"), Block("slstm", "none")))
+
+
+#: the attention-only families of the ``families`` path, at ``card_config`` depth
+FAMILIES = ("starcoder2-15b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "musicgen-large",
+            "qwen2-vl-7b", "nemotron-4-340b")
+
+
+def _forward_vs_prefill(cfg, params, prompt, block: int):
+    """The last-position logits of ``make_prefill_step`` and of generate's
+    prefill (chunks of ``block``) on ``prompt``, and the MoE routings
+    replayed. An MoE stack runs both at capacity factor 8 (no token
+    dropped) and the prefill takes the forward's routes (``moe.route_hook``,
+    as the jamba path does): the two paths round differently (flash against
+    the dense cache read), and a near tie of the router would send a token
+    to other experts."""
+    batch, prompt_len = prompt.shape
+    cfg8 = dataclasses.replace(cfg, moe_capacity_factor=8.0) if cfg.moe_experts else cfg
+    routes: list[torch.Tensor] = []                       # per MoE layer, (B, S, k)
+
+    def record(probs, top_e):
+        routes.append(top_e.view(batch, prompt_len, -1))
+        return top_e
+
+    with moe_mod.route_hook(record):
+        last = make_prefill_step(cfg8, device="cuda")(params, {"tokens": prompt})[:, -1].float()
+    n_moe = len(routes)
+    cursor = [0] * n_moe
+    calls = iter(range(10**9))
+
+    def replay(probs, top_e):                   # call c: MoE layer c % n_moe of its chunk
+        layer = next(calls) % n_moe
+        span = top_e.shape[0] // batch
+        at = cursor[layer]
+        cursor[layer] += span
+        return routes[layer][:, at:at + span].reshape(-1, top_e.shape[1])
+
+    with moe_mod.route_hook(replay):
+        pre, _ = make_prefill(cfg8, block, device="cuda")(
+            params, M.init_cache(cfg8, batch, prompt_len, device="cuda"), prompt)
+    check(all(c == prompt_len for c in cursor), f"{cfg.name}: prefill routed {cursor}")
+    return last, pre[:, -1].float(), n_moe
+
+
+def vision_positions(batch: int, seq: int) -> torch.Tensor:
+    """qwen2-vl's 3-axis (temporal, height, width) ids of a 16-wide patch
+    grid, one frame: (3, B, S)."""
+    i = torch.arange(seq, device="cuda")
+    pos = torch.stack([torch.zeros_like(i), i // 16, i % 16])
+    return pos[:, None].expand(3, batch, seq)
+
+
+def serve_family(name: str, machine) -> dict:
+    """One family at published widths and ``card_config`` depth, random
+    weights from seed 0: the forward at B 4 x S 256 through flash (and from
+    frontend embeds, with qwen2-vl's 3-axis positions), its last logits
+    against generate's prefill, generate with 16 new tokens."""
+    t_start = time.perf_counter()
+    cfg = card_config(name)
+    batch, prompt_len, steps = 4, 256, 16
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    attn = sum(blk.mixer == "attn" for _, blk in cfg.blocks())
+    log(f"[families] {name}: {cfg.num_layers} of {get_config(name).num_layers} layers "
+        f"{[(b.mixer, b.mlp) for b in cfg.pattern]}, d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim_}, d_ff {cfg.d_ff or cfg.moe_d_ff}"
+        + (f", {cfg.moe_experts} experts top-{cfg.moe_top_k} + {cfg.moe_shared_experts} shared"
+           if cfg.moe_experts else "")
+        + f", {cfg.norm_type}, {cfg.mlp_activation}, positions {cfg.rope_type}, vocab "
+        f"{cfg.vocab_size}: {M.count_params(cfg) / 1e9:.3f} B params bf16, init "
+        f"{time.perf_counter() - t_start:.1f}s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"on the card")
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=torch.Generator().manual_seed(1)).to("cuda")
+    prods = products_per_forward(cfg)
+    counts = {}
+
+    def counted(key, fn):
+        before = counts_now()
+        out = fn()
+        counts[key] = {k: v - before[k] for k, v in counts_now().items()}
+        return out
+
+    step = make_prefill_step(cfg, device="cuda")
+    step(params, {"tokens": prompt})                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = counted("prefill_step", lambda: step(params, {"tokens": prompt}))
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(logits.shape) == (batch, prompt_len, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), f"{name}: forward logits")
+    fwd = counts["prefill_step"]
+    check(fwd["streamed_matmul"] == fwd["streamed_matmul.wgmma"] == prods
+          and fwd["flash_attention"] == attn, f"{name} forward launches {fwd}")
+    line = (f"[families] {name} make_prefill_step (B {batch}, S {prompt_len}): ms={fwd_ms:.2f}; "
+            f"{prods} products wgmma, {attn} flash (head dim {cfg.head_dim_})")
+    if cfg.frontend != "none":
+        g = torch.Generator(device="cuda").manual_seed(3)
+        embeds = torch.randn((batch, prompt_len, cfg.d_model), generator=g,
+                             device="cuda").to(torch.bfloat16)
+        pos = vision_positions(batch, prompt_len) if cfg.rope_type == "mrope" else None
+        emb = counted("prefill_step_embeds", lambda: step(
+            params, {"embeds": embeds, **({"positions": pos} if pos is not None else {})}))
+        check(bool(torch.isfinite(emb).all()) and counts["prefill_step_embeds"] == fwd,
+              f"{name}: forward from embeds {counts['prefill_step_embeds']}")
+        line += (f"; from embeds" + (" at 3-axis grid positions" if pos is not None else "")
+                 + ": the same launches, finite")
+        del emb, embeds
+    log(line)
+
+    block = prefill_block_size(cfg, batch, prompt_len, machine)
+    last, pre, replayed = _forward_vs_prefill(cfg, params, prompt, block)
+    how = (f", the forward's top-{cfg.moe_top_k} routes replayed in {replayed} MoE layers at "
+           f"capacity factor 8" if replayed else "")
+    log(f"[families] {name} last-position logits, forward vs generate's prefill (block "
+        f"{block}{how}): {_last_logits_close(name, last, pre)}")
+    del logits, last, pre
+    toks, stats = counted("generate", lambda: generate(
+        cfg, params, prompt, steps=steps, machine=machine, device="cuda"))
+    check(tuple(toks.shape) == (batch, prompt_len + steps)
+          and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size, f"{name} tokens")
+    c = counts["generate"]
+    want = serve_variants(cfg, batch, prompt_len, block, steps)
+    # the prefill reads its cache with torch ops, not flash
+    check(all(c[f"streamed_matmul.{v}"] == n for v, n in want.items())
+          and c["streamed_matmul"] == sum(want.values()) and c["flash_attention"] == 0,
+          f"{name} generate launches {c}, expected {want}")
+    log(f"[families] {name} generate: prefill_ms={stats.prefill_seconds * 1e3:.2f} "
+        f"(block {block}) decode_tok_s="
+        f"{steps * batch / stats.decode_total_seconds:.1f} ({steps} tokens x batch {batch} in "
+        f"{stats.decode_total_seconds * 1e3:.1f} ms); matmul variants per decode step "
+        f"{json.dumps(decode_variants(cfg, batch))} (m = {batch}), whole call "
+        f"{json.dumps(want)}; wall {time.perf_counter() - t_start:.1f} s with the init")
+    del params, step, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    reference_check(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def families_path(machine) -> None:
+    for name in FAMILIES:
+        t0 = time.perf_counter()
+        serve_family(name, machine)
+        log(f"[families] {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def products_per_forward(cfg) -> int:
     """The port's matmul launches in one forward of ``cfg``: q, k, v and o of
-    each attention layer, three per dense (gated) MLP, and the LM head (tied
-    or not); the Mamba and expert products are plain ones, as the JAX
-    package leaves them to XLA."""
-    n = 1
+    each attention layer, mLSTM's w_up, w_z and w_down, sLSTM's w_in and
+    w_out, three per gated dense MLP and two per plain one, and the LM head
+    (tied or not); the Mamba, per-head xLSTM and expert products are plain
+    ones, as the JAX package leaves them to XLA."""
+    return len(product_shapes(cfg))
+
+
+def product_shapes(cfg) -> list[tuple[int, int]]:
+    """(k, n) of each of the port's matmul launches in one forward or
+    decode step of ``cfg``, in :func:`products_per_forward`'s count."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    mlp = 3 if cfg.mlp_activation in ("swiglu", "geglu") else 2
+    di = cfg.mlstm_expand * d
+    out = [(d, cfg.padded_vocab)]
     for _, blk in cfg.blocks():
-        n += 4 * (blk.mixer == "attn") + 3 * (blk.mlp == "dense")
-    return n
+        if blk.mixer == "attn":
+            out += [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd),
+                    (d, cfg.num_kv_heads * hd), (cfg.num_heads * hd, d)]
+        elif blk.mixer == "mlstm":
+            out += [(d, di), (d, di), (di, d)]
+        elif blk.mixer == "slstm":
+            out += [(d, 4 * d), (d, d)]
+        if blk.mlp == "dense":
+            out += [(d, cfg.d_ff)] * (mlp - 1) + [(cfg.d_ff, d)]
+    return out
+
+
+def serve_variants(cfg, batch: int, prompt_len: int, block: int, steps: int) -> dict[str, int]:
+    """The matmul launches per variant of one ``generate`` call: the
+    prefill's chunks of ``block`` positions (a leading partial chunk first;
+    wgmma where a chunk has more than 16 rows), then ``steps`` decode
+    steps at ``batch`` rows."""
+    lead = prompt_len % block or block
+    rows = [batch * lead] + [batch * block] * ((prompt_len - lead) // block) + [batch] * steps
+    out: dict[str, int] = {}
+    for m in rows:
+        per = {"wgmma": products_per_forward(cfg)} if m > 16 else decode_variants(cfg, m)
+        for v, n in per.items():
+            if n:
+                out[v] = out.get(v, 0) + n
+    return out
+
+
+def decode_variants(cfg, m: int) -> dict[str, int]:
+    """The matmul variant each product of one decode step at ``m`` rows
+    takes, counted: the decode variant where A's K share fits a block
+    (``decode_fits``), decode_wmma where it does not (nemotron-4-340b's down
+    projection, K = 73728)."""
+    out = {"decode": 0, "decode_wmma": 0}
+    for k, _ in product_shapes(cfg):
+        out["decode" if decode_fits(m, k) else "decode_wmma"] += 1
+    return out
 
 
 def counts_now() -> dict:
@@ -1661,6 +2071,12 @@ def main() -> int:
     hybrid = main_path("jamba-v0.1-52b", lambda: serve_jamba(machine))
     gc.collect()
     torch.cuda.empty_cache()
+    recurrent = main_path("xlstm-1.3b", lambda: xlstm_path(machine))
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = main_path("families", lambda: families_path(machine))
+    gc.collect()
+    torch.cuda.empty_cache()
     paper = main_path("bsps", lambda: bsps_path(rate_f32))
     for name in ("streamed_dot", "streamed_matmul", "flash_attention"):
         check(dense[name] > 0, f"{name} was not launched on the minicpm-2b path")
@@ -1669,9 +2085,13 @@ def main() -> int:
         check(loop[name] > 0, f"{name} was not launched on the train-loop path")
     for name in ("streamed_matmul", "flash_attention", "ssm_scan"):
         check(hybrid[name] > 0, f"{name} was not launched on the jamba path")
+    check(recurrent["streamed_matmul"] > 0, "streamed_matmul was not launched on the xlstm path")
+    for name in ("streamed_matmul", "flash_attention"):
+        check(families[name] > 0, f"{name} was not launched on the families path")
     for name in ("streamed_dot", "streamed_matmul"):
         check(paper[name] > 0, f"{name} was not launched on the bsps path")
-    launches = {k: dense[k] + train[k] + loop[k] + hybrid[k] + paper[k] for k in dense}
+    paths = (dense, train, loop, hybrid, recurrent, families, paper)
+    launches = {k: sum(p[k] for p in paths) for k in dense}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -227,7 +227,14 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 # Depth served on one 80 GB card where the published depth does not fit it:
 # jamba-v0.1-52b's 32 layers are 103 GB in bf16; 8 layers are one period of
 # its pattern and hold every block kind once.
-CARD_LAYERS = {"jamba-v0.1-52b": 8}
+# nemotron-4-340b's 96 layers are 682 GB. A layer is 3.45 B parameters
+# (6.9 GB bf16), the embedding and the untied head 9.44 B (18.9 GB). The
+# init draws each leaf in fp32 before the cast, so the (18432, 256000) head
+# is an 18.9 GB transient: 4 layers are 46.5 GB of weights, 65.4 GB with
+# that transient, which leaves ~14 GB for a B 4 x S 256 forward and decode
+# (its 0.5 GB logits, the MLP's 1024 x 73728 hidden) on an 80 GB card;
+# 5 layers would leave 7 GB.
+CARD_LAYERS = {"jamba-v0.1-52b": 8, "nemotron-4-340b": 4}
 
 
 def card_config(name: str) -> ModelConfig:

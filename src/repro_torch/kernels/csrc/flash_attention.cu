@@ -11,7 +11,7 @@
 // the diagonal under causal masking (the pseudo-streaming skip). q-head h
 // reads kv-head h / (Hq / Hkv) (GQA), queries sit at the end of the keys
 // (q_offset = Skv - Sq), ragged Sq and Skv are masked (never padded), heads
-// may be strided as long as the head dim is contiguous, D is 64 or 128. The
+// may be strided as long as the head dim is contiguous, D is 64, 128 or 192. The
 // online softmax is the TPU kernel's, in fp32: masked scores and the initial
 // max are -1e30, l is clamped at 1e-30 before the final division. The
 // plan's scratch (m, l, acc) is the state each warp keeps in registers; the
@@ -21,16 +21,20 @@
 // card at the slice's shapes (sequence 256): bytes — 4·D FLOPs per (query,
 // key) pair at the bf16 tensor-core rate take less time than reading Q, K, V
 // and writing O once. What the design does about it: Q, K and V stay bf16 in
-// shared memory (Q 8/16 KB, K and V double buffered, 40/80 KB a block at
-// D 64/128, so two or more blocks share an SM), filled by 16-byte cp.async
-// copies with the next KV block in flight while this one is computed. Each
-// warp owns 16 query rows: S = Q·Kᵀ by mma.sync m16n8k16 (bf16 in, fp32
-// accumulate) with Q's fragments loaded once and K read by ldmatrix; the
-// online softmax runs on the fp32 S fragments (each lane holds 2 rows × 2
-// columns per 8-key tile; row max and sum over the 4 lanes of a row by
-// shuffles), with sm_scale·log2(e) folded into exp2f; P is rounded to bf16
-// in registers and is the A operand of P·V, V read by ldmatrix.trans; the
-// output accumulator never leaves the registers until the end. Tiles are
+// shared memory (Q 8/16/24 KB, K and V double buffered, 40/80/120 KB a
+// block at D 64/128/192, so two blocks share an SM up to D 128 and one
+// holds it at 192, above the 48 KB default: prepare_smem opts in), filled
+// by 16-byte cp.async copies with the next KV block in flight while this
+// one is computed. Each warp owns 16 query rows: S = Q·Kᵀ by mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate) with Q's fragments loaded once
+// (D ≤ 128) and K read by ldmatrix; the online softmax runs on the fp32 S
+// fragments (each lane holds 2 rows × 2 columns per 8-key tile; row max
+// and sum over the 4 lanes of a row by shuffles), with sm_scale·log2(e)
+// folded into exp2f; P is rounded to bf16 in registers and is the A
+// operand of P·V, V read by ldmatrix.trans; the output accumulator never
+// leaves the registers until the end (D/2 fp32 a lane: 96 at D 192, where
+// Q's fragments are read from shared memory at each k-step instead of
+// held: see kQInRegs). Tiles are
 // stored with a 16-byte XOR swizzle (chunk ^ row % 8), so every ldmatrix
 // and every staged store is free of bank conflicts. The heaviest causal q
 // blocks are launched first (the q index is reversed), so the last wave is
@@ -48,8 +52,9 @@
 // fp32: the first version, on the CUDA cores, kept for fp32 inputs (not on
 // the main path). TF32 tensor cores would round Q, K and P to 10 bits and
 // break the fp32 tolerance of 2e-4. Q and one K/V block sit in shared memory
-// as fp32 rows padded by one word; two threads own one query row, each
-// computing half of its scores and holding half of its output accumulator.
+// as fp32 rows padded by one word (145 KB at D 192); two threads own one
+// query row, each computing half of its scores and holding half of its
+// output accumulator.
 
 #include "common.cuh"
 
@@ -176,7 +181,13 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float acc[DT][4];
 #pragma unroll
   for (int t = 0; t < DT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  uint32_t qf[KT][4];
+  // Q's fragments stay in registers up to D 128; at D 192 the 96
+  // accumulator registers a lane leave no room for Q's 48 (ptxas spilled
+  // 72 bytes), so each k-step reads its Q fragment from the tile again
+  // (16 bytes still spill; scoring the keys 32 at a time spilled 76)
+  constexpr bool kQInRegs = D <= 128;
+  const int q_row = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+  uint32_t qf[kQInRegs ? KT : 1][4];
 
   for (int j = 0; j <= last; ++j) {                     // the KV stream
     const int buf = j & 1;
@@ -189,11 +200,11 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (j == 0) {
+    if constexpr (kQInRegs) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        const int row = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-        ldsm_x4(q_a + swz<D>(row, kk * 2 + (lane >> 4)) * 2, qf[kk]);
+        for (int kk = 0; kk < KT; ++kk)
+          ldsm_x4(q_a + swz<D>(q_row, kk * 2 + (lane >> 4)) * 2, qf[kk]);
       }
     }
 
@@ -204,13 +215,15 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t kb = k_a + buf * TILE * 2;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
+      uint32_t (&qk)[4] = qf[kQInRegs ? kk : 0];
+      if constexpr (!kQInRegs) ldsm_x4(q_a + swz<D>(q_row, kk * 2 + (lane >> 4)) * 2, qk);
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         const int key = p * 16 + (lane & 7) + ((lane >> 4) << 3);
         uint32_t f[4];
         ldsm_x4(kb + swz<D>(key, kk * 2 + ((lane >> 3) & 1)) * 2, f);
-        mma_bf16(s[2 * p], qf[kk], f[0], f[1]);
-        mma_bf16(s[2 * p + 1], qf[kk], f[2], f[3]);
+        mma_bf16(s[2 * p], qk, f[0], f[1]);
+        mma_bf16(s[2 * p + 1], qk, f[2], f[3]);
       }
     }
 
@@ -472,6 +485,9 @@ BSPS_EXPORT int bsps_flash(int device, int gx, int gy, int gz, int loop, int scr
                       q_offset, causal, scale, dtype, strides);
   if (d == 128)
     return launch<128>(device, grid, loop, scratch_bytes, s, q, k, v, o, lse, hq, hkv, sq, skv,
+                       q_offset, causal, scale, dtype, strides);
+  if (d == 192)
+    return launch<192>(device, grid, loop, scratch_bytes, s, q, k, v, o, lse, hq, hkv, sq, skv,
                        q_offset, causal, scale, dtype, strides);
   return cudaErrorInvalidValue;
 }

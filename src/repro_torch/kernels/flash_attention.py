@@ -29,7 +29,7 @@ __all__ = ["flash_attention", "attention_plan", "BLOCK_Q", "BLOCK_KV"]
 
 BLOCK_Q = BLOCK_KV = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 192)
 
 
 def attention_plan(
@@ -130,8 +130,8 @@ def flash_attention(
 
     Hq must be a multiple of Hkv (GQA). When Sq < Skv the queries are placed
     at the *end* of the key sequence for causal masking. CUDA tensors go to
-    the kernel (float32 or bfloat16, head dim 64 or 128, any strides with a
-    contiguous head dim; bf16 rows 16-byte aligned); CPU tensors to
+    the kernel (float32 or bfloat16, head dim 64, 128 or 192, any strides
+    with a contiguous head dim; bf16 rows 16-byte aligned); CPU tensors to
     :func:`repro_torch.kernels.ref.attention_ref`. The result on the card is
     a (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, the layout the model
     reads it back in. ``return_lse=True`` also returns each row's

@@ -214,7 +214,8 @@ def attention_forward(
     *,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Full-sequence causal attention (training / prefill)."""
+    """Full-sequence causal attention (training / prefill). ``positions``
+    is (B, S), or (3, B, S) for M-RoPE."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions)
     out = attention_core(cfg, q, k, v, causal=True, impl=impl)
@@ -247,6 +248,8 @@ def attention_decode(
       its own position, with per-lane RoPE positions, cache writes and
       validity masks. Per-lane lengths require S = 1.
 
+    Under M-RoPE every lane's position goes to all three axes, as for text.
+
     The cache is written in place (slice assignment / ``index_put_``) where
     the JAX package makes an updated copy with ``dynamic_update_slice``; the
     returned dict holds the same tensors.
@@ -259,6 +262,8 @@ def attention_decode(
         positions = cache_len.to(torch.int64)[:, None]                 # (B, 1)
     else:
         positions = (int(cache_len) + torch.arange(s, device=x.device))[None].expand(b, s)
+    if cfg.rope_type == "mrope":
+        positions = positions.expand(3, b, s)   # text: the three axes equal
     q, k, v = _project_qkv(cfg, p, x, positions)
     ck, cv = cache["k"], cache["v"]
     if per_lane:

@@ -9,6 +9,7 @@ with :func:`repro_torch.models.model.params_from_numpy` to compare).
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any
 
@@ -88,19 +89,43 @@ def rope_freqs(cfg: ModelConfig, device) -> torch.Tensor:
 
 
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Rotate (B, S, H, D) by per-token positions (B, S).
+    """Rotate (B, S, H, D) by per-token positions.
 
-    M-RoPE (the JAX package's ``mrope`` branch) is not ported yet.
+    positions: (B, S) for plain RoPE, (3, B, S) for M-RoPE (temporal, h, w)
+    — Qwen2-VL's multimodal rotary embedding: the head-dim frequency bands
+    are split into ``mrope_sections`` and each section takes its angle from
+    its own position axis. Text tokens carry equal values on the three
+    axes, where M-RoPE is RoPE.
     """
+    inv = rope_freqs(cfg, x.device)                        # (hd/2,)
     if cfg.rope_type == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
-    inv = rope_freqs(cfg, x.device)
-    theta = positions[..., None].float() * inv            # (B, S, hd/2)
+        if positions.dim() != 3:
+            raise ValueError("mrope needs positions (3, B, S)")
+        angles = positions[..., None].float() * inv        # (3, B, S, hd/2)
+        sections = list(cfg.mrope_sections)
+        if sum(sections) != inv.shape[0]:
+            raise ValueError(
+                f"mrope sections {sections} must sum to head_dim/2 = {inv.shape[0]}")
+        bounds = [0] + list(itertools.accumulate(sections))
+        theta = torch.cat([angles[axis, :, :, lo:hi]
+                           for axis, (lo, hi) in enumerate(zip(bounds, bounds[1:]))], dim=-1)
+    else:
+        theta = positions[..., None].float() * inv         # (B, S, hd/2)
     cos = torch.cos(theta)[:, :, None, :]                  # (B, S, 1, hd/2)
     sin = torch.sin(theta)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(d_model: int, positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) int positions -> (B, S, d_model) fp32 sinusoidal embedding
+    (musicgen)."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # -- dense MLP -----------------------------------------------------------------

@@ -5,7 +5,10 @@ Parameters are plain dicts of tensors with the JAX package's key names
 :mod:`repro_torch.models.transformer`). Every entry point runs on the CUDA
 card unless it is given ``device="cpu"``; the parameters must live on that
 device. Weights made by the JAX package's init come over through
-:func:`params_from_numpy`.
+:func:`params_from_numpy`. The VLM and audio configs take precomputed
+frontend embeddings (the JAX package's stub) through ``embeds=``, the
+others token ids; positions are made when not given (M-RoPE's text mode:
+the three axes equal).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from repro_torch.models.layers import (
     init_embedding,
     init_norm,
     lm_head,
+    sinusoidal_positions,
 )
 
 Params = dict[str, Any]
@@ -35,11 +39,6 @@ __all__ = ["init_params", "params_from_numpy", "opt_state_from_numpy", "count_pa
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_rope(cfg: ModelConfig) -> None:
-    if cfg.rope_type not in ("rope", "none"):
-        raise NotImplementedError(f"{cfg.rope_type} positions are not ported yet")
 
 
 def _on(params: Params, device: Any) -> torch.device:
@@ -54,7 +53,6 @@ def _on(params: Params, device: Any) -> torch.device:
 def init_params(cfg: ModelConfig, seed: int = 0, *, device: Any = None) -> Params:
     """Random parameters with the JAX package's scales, drawn on ``device``
     from a ``torch.Generator`` seeded with ``seed``."""
-    _check_rope(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=device)
@@ -136,8 +134,8 @@ def opt_state_from_numpy(cfg: ModelConfig, state: dict[str, Any],
 
 def count_params(cfg: ModelConfig) -> int:
     """Parameter count of :func:`init_params`' tree, from the config alone
-    (equal to the JAX package's leaf count)."""
-    d, hd = cfg.d_model, cfg.head_dim_
+    in Python integers (equal to the JAX package's leaf count)."""
+    d, hd, h = cfg.d_model, cfg.head_dim_, cfg.num_heads
     norm = d * (2 if cfg.norm_type == "layernorm" else 1)
     mult = 3 if cfg.mlp_activation in ("swiglu", "geglu") else 2
     total = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2) + norm
@@ -145,12 +143,19 @@ def count_params(cfg: ModelConfig) -> int:
         tf._check_block(blk)
         total += norm
         if blk.mixer == "attn":
-            total += d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
-        else:
+            total += d * h * hd * 2 + 2 * d * cfg.num_kv_heads * hd
+        elif blk.mixer == "mamba":
             di, ds, dtr = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.dt_rank
             # w_in, conv_w + conv_b, w_x, w_dt, dt_bias + d_skip, a_log, w_out
             total += (d * 2 * di + (cfg.ssm_d_conv + 1) * di + di * (dtr + 2 * ds)
                       + dtr * di + 2 * di + di * ds + di * d)
+        elif blk.mixer == "mlstm":
+            di = cfg.mlstm_expand * d
+            # w_up, w_z, w_down; wq, wk, wv (h, dh, dh); w_if and if_bias
+            total += 3 * d * di + 3 * di * (di // h) + di * 2 * h + 2 * h
+        else:
+            # w_in, r (h, dh, 4dh), bias, w_out
+            total += 4 * d * d + 4 * d * (d // h) + 4 * d + d * d
         if blk.mlp == "dense":
             total += norm + mult * d * cfg.d_ff
         elif blk.mlp == "moe":
@@ -159,26 +164,46 @@ def count_params(cfg: ModelConfig) -> int:
     return total
 
 
-def default_positions(batch: int, seq: int, device: Any) -> torch.Tensor:
-    return torch.arange(seq, dtype=torch.int64, device=device)[None].expand(batch, seq)
+def default_positions(cfg: ModelConfig, batch: int, seq: int, device: Any) -> torch.Tensor:
+    """0 .. seq-1 for every row, (B, S); (3, B, S) for M-RoPE, the three
+    axes equal (text)."""
+    pos = torch.arange(seq, dtype=torch.int64, device=device)[None].expand(batch, seq)
+    return pos.expand(3, batch, seq) if cfg.rope_type == "mrope" else pos
+
+
+def _inputs(cfg: ModelConfig, params: Params, tokens: Any, embeds: Any,
+            device: torch.device) -> torch.Tensor:
+    """The stack's input: the token embeddings or the given frontend
+    embeddings in the config's dtype. Exactly one of the two."""
+    if (tokens is None) == (embeds is None):
+        raise ValueError("pass exactly one of tokens / embeds")
+    if embeds is None:
+        return embed_tokens(params["embed"], torch.as_tensor(tokens, device=device))
+    return torch.as_tensor(embeds, device=device).to(torch_dtype(cfg))
 
 
 def forward(
     cfg: ModelConfig,
     params: Params,
-    tokens: torch.Tensor,
+    tokens: torch.Tensor | None = None,
     *,
+    embeds: torch.Tensor | None = None,
     positions: torch.Tensor | None = None,
     device: Any = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), moe_aux)."""
-    _check_rope(cfg)
+    """Full-sequence forward: tokens (B, S) or frontend embeds (B, S, d) ->
+    (logits (B, S, V), moe_aux). ``positions``: (B, S), or (3, B, S) for
+    M-RoPE; sinusoidal configs add their embedding of the (first axis of
+    the) positions to the input."""
     device = _on(params, device)
-    tokens = torch.as_tensor(tokens, device=device)
-    x = embed_tokens(params["embed"], tokens)
+    x = _inputs(cfg, params, tokens, embeds, device)
     b, s, _ = x.shape
     if positions is None:
-        positions = default_positions(b, s, device)
+        positions = default_positions(cfg, b, s, device)
+    positions = torch.as_tensor(positions, device=device)
+    if cfg.rope_type == "sinusoidal":
+        pos2d = positions if positions.dim() == 2 else positions[0]
+        x = x + sinusoidal_positions(cfg.d_model, pos2d).to(x.dtype)
     x, aux = tf.apply_stack(cfg, params["stack"], x, positions)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_head(cfg, params["embed"], x), aux
@@ -187,9 +212,10 @@ def forward(
 def loss_fn(
     cfg: ModelConfig,
     params: Params,
-    tokens: torch.Tensor,
+    tokens: torch.Tensor | None,
     labels: torch.Tensor,
     *,
+    embeds: torch.Tensor | None = None,
     positions: torch.Tensor | None = None,
     aux_weight: float = 0.01,
     device: Any = None,
@@ -202,7 +228,8 @@ def loss_fn(
     reference contracts with a one-hot (the same value: one product of 1.0,
     the rest of 0.0). Returns ``(total, {"loss", "ce", "moe_aux"})``.
     """
-    logits, aux = forward(cfg, params, tokens, positions=positions, device=device)
+    logits, aux = forward(cfg, params, tokens, embeds=embeds, positions=positions,
+                          device=device)
     logits = logits.float()
     labels = torch.as_tensor(labels, device=logits.device)
     valid = labels >= 0
@@ -222,7 +249,8 @@ def loss_fn(
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device: Any = None) -> Params:
     """Per-layer caches for ``batch`` sequences of up to ``max_len``
     positions: K/V for attention layers, the conv window and fp32 state for
-    Mamba layers.
+    Mamba layers, the fp32 states of the xLSTM layers (mLSTM's C, n, m;
+    sLSTM's c, n, h, m).
 
     ``len`` is a Python int (every lane at the same position) — or, set by a
     caller, a (B,) int tensor for lanes at mixed positions.
@@ -239,17 +267,25 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
     length scalar — the cache scratch the serve plans budget. An attention
     layer holds K and V (B, max_len, Hkv, hd) in the config's dtype; a Mamba
     layer its conv window (B, K-1, d_inner) in the config's dtype and its
-    state h (B, d_inner, d_state) in fp32."""
+    state h (B, d_inner, d_state) in fp32; an mLSTM layer C (B, H, dh, dh),
+    n (B, H, dh) and m (B, H) in fp32; an sLSTM layer four (B, H, d/H) fp32
+    states."""
     itemsize = torch_dtype(cfg).itemsize
     total = 4
     for _, blk in cfg.blocks():
         tf._check_block(blk)
         if blk.mixer == "attn":
             total += 2 * batch * max_len * cfg.num_kv_heads * cfg.head_dim_ * itemsize
-        else:
+        elif blk.mixer == "mamba":
             di = cfg.ssm_d_inner
             total += batch * (cfg.ssm_d_conv - 1) * di * itemsize
             total += batch * di * cfg.ssm_d_state * 4
+        elif blk.mixer == "mlstm":
+            h = cfg.num_heads
+            dh = cfg.mlstm_expand * cfg.d_model // h
+            total += batch * h * (dh * dh + dh + 1) * 4
+        else:
+            total += 4 * batch * cfg.d_model * 4
     return total
 
 
@@ -257,27 +293,34 @@ def decode_step(
     cfg: ModelConfig,
     params: Params,
     cache: Params,
-    tokens: torch.Tensor,     # (B, S) — S = 1 or a prefill chunk
+    tokens: torch.Tensor | None = None,   # (B, S) — S = 1 or a prefill chunk
     *,
+    embeds: torch.Tensor | None = None,   # (B, S, d) for the vlm/audio stubs
     device: Any = None,
 ) -> tuple[torch.Tensor, Params]:
     """One serve step: logits for the next token(s) + updated cache.
 
-    ``tokens`` may carry S > 1 positions at once (chunked prefill —
-    attention-only stacks: the recurrent mixers take one token per step),
-    and ``cache["len"]`` may be a ``(B,)`` tensor for lanes at mixed
-    positions. The KV caches are updated in place; a Mamba layer's cache is
-    replaced by its new state.
+    ``tokens`` (or ``embeds``) may carry S > 1 positions at once (chunked
+    prefill — attention-only stacks: the recurrent mixers take one token
+    per step), and ``cache["len"]`` may be a ``(B,)`` tensor for lanes at
+    mixed positions. The KV caches are updated in place; a recurrent
+    layer's cache is replaced by its new state.
     """
-    _check_rope(cfg)
     device = _on(params, device)
-    x = embed_tokens(params["embed"], torch.as_tensor(tokens, device=device))
+    x = _inputs(cfg, params, tokens, embeds, device)
     s = x.shape[1]
     cache_len = cache["len"]
     if s > 1 and any(b.mixer != "attn" for b in cfg.pattern):
         raise ValueError(
             "multi-token decode chunks need an attention-only stack; "
             f"{cfg.name} has recurrent mixers")
+    if cfg.rope_type == "sinusoidal":
+        steps = torch.arange(s, device=device)
+        if isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1:
+            pos = cache_len.to(device, torch.int64)[:, None] + steps[None]
+        else:
+            pos = (int(cache_len) + steps)[None].expand(x.shape[0], s)
+        x = x + sinusoidal_positions(cfg.d_model, pos).to(x.dtype)
     x, new_layers = tf.apply_stack_decode(cfg, params["stack"], cache["layers"], x,
                                           cache_len)
     x = apply_norm(cfg, params["final_norm"], x)

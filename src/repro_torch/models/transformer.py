@@ -1,13 +1,13 @@
 """Residual block assembly and the decoder stack.
 
 A block is (pre-norm → mixer → residual, pre-norm → mlp → residual) with the
-mixer/mlp kinds taken from the config's repeating pattern. The port runs
-attention and Mamba mixers with dense, MoE or no MLPs; the xLSTM mixers are
-not ported yet. The full-sequence stack returns the MoE load-balancing
-loss summed over its blocks in fp32, beside the activations, as the JAX
-package's does; under ``remat="full"`` each period is recomputed in the
-backward pass (``torch.utils.checkpoint``), the JAX package's
-``jax.checkpoint`` per period.
+mixer/mlp kinds taken from the config's repeating pattern: attention, Mamba,
+mLSTM or sLSTM mixers with dense, MoE or no MLPs, as in the JAX package.
+The full-sequence stack returns the MoE load-balancing loss summed over its
+blocks in fp32, beside the activations, as the JAX package's does; under
+``remat="full"`` each period (xlstm's 8 blocks, jamba's 8, one block of the
+others) is recomputed in the backward pass (``torch.utils.checkpoint``), the
+JAX package's ``jax.checkpoint`` per period.
 
 The stack's parameters are always the per-layer layout of the JAX package's
 ``scan_layers=False``: ``stack[i][j]`` is period i, position j. The JAX
@@ -27,23 +27,26 @@ from repro_torch.configs.base import Block, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 Params = dict[str, Any]
 
 
+_INIT = {"attn": attn.init_attention, "mamba": mb.init_mamba, "mlstm": xl.init_mlstm,
+         "slstm": xl.init_slstm}
+
+
 def _check_block(blk: Block) -> None:
-    if blk.mixer not in ("attn", "mamba") or blk.mlp not in ("dense", "moe", "none"):
-        raise NotImplementedError(
-            f"block ({blk.mixer}, {blk.mlp}) is not ported yet: the port runs "
-            "attention and Mamba mixers with dense, MoE or no MLPs")
+    if blk.mixer not in _INIT or blk.mlp not in ("dense", "moe", "none"):
+        raise ValueError(f"unknown block ({blk.mixer}, {blk.mlp}): mixers are "
+                         f"{sorted(_INIT)}, MLPs dense, moe or none")
 
 
 def init_block(cfg: ModelConfig, blk: Block, gen: torch.Generator, dtype, device) -> Params:
     _check_block(blk)
-    init_mixer = attn.init_attention if blk.mixer == "attn" else mb.init_mamba
     p: Params = {"ln1": init_norm(cfg, dtype, device),
-                 "mixer": init_mixer(cfg, gen, dtype, device)}
+                 "mixer": _INIT[blk.mixer](cfg, gen, dtype, device)}
     if blk.mlp != "none":
         init = init_mlp if blk.mlp == "dense" else moe_mod.init_moe
         p["ln2"] = init_norm(cfg, dtype, device)
@@ -70,8 +73,12 @@ def apply_block(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
     h = apply_norm(cfg, p["ln1"], x)
     if blk.mixer == "attn":
         h = attn.attention_forward(cfg, p["mixer"], h, positions)
-    else:
+    elif blk.mixer == "mamba":
         h = mb.mamba_forward(cfg, p["mixer"], h)
+    elif blk.mixer == "mlstm":
+        h = xl.mlstm_forward(cfg, p["mixer"], h)
+    else:
+        h = xl.slstm_forward(cfg, p["mixer"], h)
     return _apply_mlp(cfg, blk, p, x + h)
 
 
@@ -81,8 +88,12 @@ def apply_block_decode(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
     h = apply_norm(cfg, p["ln1"], x)
     if blk.mixer == "attn":
         h, cache = attn.attention_decode(cfg, p["mixer"], h, cache, cache_len)
-    else:
+    elif blk.mixer == "mamba":
         h, cache = mb.mamba_decode(cfg, p["mixer"], h, cache)
+    elif blk.mixer == "mlstm":
+        h, cache = xl.mlstm_decode(cfg, p["mixer"], h, cache)
+    else:
+        h, cache = xl.slstm_decode(cfg, p["mixer"], h, cache)
     return _apply_mlp(cfg, blk, p, x + h)[0], cache
 
 
@@ -91,7 +102,11 @@ def init_block_cache(cfg: ModelConfig, blk: Block, batch: int, max_len: int, dty
     _check_block(blk)
     if blk.mixer == "attn":
         return attn.init_kv_cache(cfg, batch, max_len, dtype, device)
-    return mb.init_mamba_cache(cfg, batch, dtype, device)
+    if blk.mixer == "mamba":
+        return mb.init_mamba_cache(cfg, batch, dtype, device)
+    if blk.mixer == "mlstm":
+        return xl.init_mlstm_cache(cfg, batch, device)       # fp32 state
+    return xl.init_slstm_cache(cfg, batch, device)
 
 
 def init_stack(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> list[list[Params]]:

@@ -37,9 +37,10 @@ def make_grad_fn(cfg: ModelConfig, *, aux_weight: float = 0.01, compress_bf16: b
     :func:`make_train_step`.
 
     The loss is :func:`repro_torch.models.model.loss_fn` on ``batch =
-    {"tokens", "labels"[, "positions"]}``; the gradients of every parameter
-    leaf come from ``torch.autograd.grad`` (through the kernels' backward
-    passes on the card), in the structure of ``params``, cast to bf16 when
+    {"tokens" or "embeds", "labels"[, "positions"]}``; the gradients of
+    every parameter leaf come from ``torch.autograd.grad`` (through the
+    kernels' backward passes on the card), in the structure of ``params``,
+    cast to bf16 when
     ``compress_bf16`` (the JAX package's ``bf16_grads``). The metrics hold
     the loss, ce and moe_aux as 0-d tensors.
     """
@@ -48,9 +49,9 @@ def make_grad_fn(cfg: ModelConfig, *, aux_weight: float = 0.01, compress_bf16: b
     def grads_of(params: Params, batch: dict[str, torch.Tensor]):
         # leaves that share the parameters' storage and take gradients
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        _, metrics = M.loss_fn(cfg, live, batch["tokens"], batch["labels"],
-                               positions=batch.get("positions"), aux_weight=aux_weight,
-                               device=device)
+        _, metrics = M.loss_fn(cfg, live, batch.get("tokens"), batch["labels"],
+                               embeds=batch.get("embeds"), positions=batch.get("positions"),
+                               aux_weight=aux_weight, device=device)
         flat = leaves(live)
         grads = torch.autograd.grad(metrics["loss"], flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
@@ -65,7 +66,8 @@ def make_grad_fn(cfg: ModelConfig, *, aux_weight: float = 0.01, compress_bf16: b
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, *, aux_weight: float = 0.01,
                     compress_bf16: bool = True, device: Any = None):
-    """One optimizer step on ``batch = {"tokens", "labels"[, "positions"]}``:
+    """One optimizer step on ``batch = {"tokens" or "embeds", "labels"[,
+    "positions"]}``:
     the gradients of :func:`make_grad_fn`, then ``opt`` updates the
     parameters and moments in place. The metrics hold the loss, ce,
     moe_aux, grad_norm and lr as 0-d tensors (:data:`TRAIN_METRICS`).
@@ -100,7 +102,8 @@ def make_serve_step(cfg: ModelConfig, *, device: Any = None):
     device = resolve_device(device)
 
     def serve_step(params: Params, cache: Params, batch: dict[str, torch.Tensor]):
-        return M.decode_step(cfg, params, cache, batch["tokens"], device=device)
+        return M.decode_step(cfg, params, cache, batch.get("tokens"),
+                             embeds=batch.get("embeds"), device=device)
 
     return serve_step
 
@@ -110,7 +113,7 @@ def make_prefill_step(cfg: ModelConfig, *, device: Any = None):
     device = resolve_device(device)
 
     def prefill_step(params: Params, batch: dict[str, torch.Tensor]):
-        logits, _ = M.forward(cfg, params, batch["tokens"],
+        logits, _ = M.forward(cfg, params, batch.get("tokens"), embeds=batch.get("embeds"),
                               positions=batch.get("positions"), device=device)
         return logits
 

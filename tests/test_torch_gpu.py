@@ -173,7 +173,7 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dtype)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 def test_flash_bf16_is_deterministic(cuda, d):
     q = _rand((2, 8, 200, d), torch.bfloat16, cuda, 18)
     k = _rand((2, 2, 200, d), torch.bfloat16, cuda, 19)
@@ -655,7 +655,7 @@ def test_flash_lse_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dtype):
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 36, 36, 256, 64), (2, 32, 8, 256, 128),
-                                          (1, 8, 2, 100, 64)])
+                                          (1, 8, 2, 100, 64), (1, 96, 8, 256, 192)])
 def test_flash_function_grads_on_the_card(cuda, b, hq, hkv, s, d):
     """FlashAttention's (dq, dk, dv): the kernel forward and the torch-op
     backward on bf16 card tensors, against fp32 CPU autograd through the
@@ -954,3 +954,75 @@ def test_train_loop_crash_resumes_bit_exact_on_the_card(cuda, tmp_path, compiled
     state, _ = ckpt.restore(str(tmp_path / "crash"), 6, {"params": res["params"]})
     for a, b in zip(leaves(state["params"]), leaves(res["params"])):
         assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# -- the remaining model families' shapes ---------------------------------------------
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,causal", [
+    (4, 96, 8, 256, 256, True),                # nemotron-4-340b's forward (GQA 96/8)
+    (2, 8, 2, 100, 100, True),                 # GQA, ragged
+    (1, 4, 4, 100, 300, True),                 # ragged queries at the end
+    (2, 4, 1, 1, 128, True),                   # decode q_offset
+    (2, 4, 2, 70, 70, False),                  # non-causal, ragged
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_flash_head_dim_192_matches_plain(cuda, b, hq, hkv, sq, skv, causal, dtype, with_lse):
+    """Head dim 192 on both kernels, with and without the rows' lse: one
+    launch each, the output within the tolerances of the other head dims
+    (2e-4 fp32, 2e-2 bf16), the lse within 1e-3, the output with lse equal
+    to the output without."""
+    q = _rand((b, hq, sq, 192), dtype, cuda, 60)
+    k = _rand((b, hkv, skv, 192), dtype, cuda, 61)
+    v = _rand((b, hkv, skv, 192), dtype, cuda, 62)
+    before = ops.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, return_lse=with_lse)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want, want_lse = ref.attention_ref_lse(q, k, v, causal=causal)
+    out = got[0] if with_lse else got
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    if with_lse:
+        torch.testing.assert_close(got[1], want_lse, rtol=0, atol=1e-3)
+        assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_other_head_dims_raise(cuda, d, dtype):
+    """Head dims the kernel does not take raise on the card (the smoke
+    configs' 8 and 16 run on the CPU only); nothing is launched."""
+    q = _rand((1, 2, 64, d), dtype, cuda)
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    assert ops.launch_counts()["flash_attention"] == before
+
+
+# xlstm-1.3b's projections (mLSTM w_up / w_z 2048 -> 4096 and w_down 4096 ->
+# 2048, sLSTM w_in 2048 -> 8192 and w_out) and nemotron-4-340b's MLP (18432 <->
+# 73728): decode at m = 4, forward at m = 1024. K = 73728 at m <= 16 needs
+# 8 x 9224 bf16 of A share a block (147 KB, past DECODE_A_MAX), so nemotron's
+# decode down projection takes decode_wmma
+@pytest.mark.parametrize("m,k,n,variant", [
+    (4, 2048, 4096, "decode"), (4, 4096, 2048, "decode"), (4, 2048, 8192, "decode"),
+    (4, 2048, 2048, "decode"), (1024, 2048, 4096, "wgmma"), (1024, 4096, 2048, "wgmma"),
+    (1024, 2048, 8192, "wgmma"),
+    (4, 18432, 73728, "decode"), (4, 73728, 18432, "decode_wmma"),
+    (1, 73728, 18432, "decode_wmma"), (1024, 18432, 73728, "wgmma"),
+    (1024, 73728, 18432, "wgmma"), (4, 18432, 256000, "decode"),
+])
+def test_matmul_at_the_families_shapes(cuda, m, k, n, variant):
+    from repro_torch.kernels.streamed_matmul import decode_fits
+
+    gen = torch.Generator(device=cuda).manual_seed(63)   # drawn on the card: B is up to 9.4 GB
+    a = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5).to(torch.bfloat16)
+    assert (m > 16 or decode_fits(m, k)) == (variant in ("decode", "wgmma"))
+    before = ops.matmul_variant_counts()[variant]
+    got = streamed_matmul(a, b)
+    assert ops.matmul_variant_counts()[variant] == before + 1
+    want = ref.matmul_ref(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_config
+from repro.configs import list_configs as j_list_configs
 from repro.models import model as JM
 from repro_torch.configs import card_config
 from repro_torch.configs import get_config as t_config
@@ -26,6 +27,9 @@ from repro_torch.models import model as TM
 ATOL = 1e-4
 ARCHS = ["minicpm-2b", "codeqwen1.5-7b"]
 JAMBA = "jamba-v0.1-52b"
+#: the configs of tests/test_torch_xlstm.py and tests/test_torch_families.py
+OTHERS = ["xlstm-1.3b", "starcoder2-15b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",
+          "musicgen-large", "qwen2-vl-7b", "nemotron-4-340b"]
 
 
 def _numpy_tree(params):
@@ -50,14 +54,14 @@ def _close(got, want, atol=ATOL):
 
 
 def test_configs_are_copies():
-    assert set(ARCHS + [JAMBA]) <= set(t_list_configs())
+    assert set(ARCHS + [JAMBA] + OTHERS) == set(t_list_configs()) == set(j_list_configs())
     for name in t_list_configs():
         for smoke in (False, True):
             assert (dataclasses.asdict(t_config(name, smoke=smoke))
                     == dataclasses.asdict(j_config(name, smoke=smoke)))
 
 
-@pytest.mark.parametrize("name", ARCHS + [JAMBA])
+@pytest.mark.parametrize("name", ARCHS + [JAMBA] + OTHERS)
 def test_card_config_fits_one_card(name):
     """The published widths at a depth whose bf16 weights fit one 80 GB card:
     the full depth where it fits, else whole periods of the pattern."""
@@ -70,11 +74,21 @@ def test_card_config_fits_one_card(name):
         assert 2 * TM.count_params(t_config(name)) > 80e9
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + OTHERS)
 def test_count_params_from_the_config(name):
+    """The count from the config equals the JAX package's ``count_params``
+    on every smoke config and on every full one whose leaves it can count:
+    it multiplies each shape in int32, which nemotron-4-340b's (256000,
+    18432) embedding and head overflow. The full count is also the JAX
+    tree's leaf count taken in Python integers (``abstract_params``)."""
     for smoke in (False, True):
-        assert TM.count_params(t_config(name, smoke=smoke)) == \
-            JM.count_params(j_config(name, smoke=smoke))
+        jc, tc = j_config(name, smoke=smoke), t_config(name, smoke=smoke)
+        shapes = [x.shape for x in jax.tree_util.tree_leaves(JM.abstract_params(jc))]
+        assert TM.count_params(tc) == sum(math.prod(s) for s in shapes)
+        if smoke or max(math.prod(s) for s in shapes) < 2**31:
+            assert TM.count_params(tc) == JM.count_params(jc)
+    if name == "nemotron-4-340b":
+        assert TM.count_params(t_config(name)) == 341_029_195_776
 
 
 def test_forward_logits(models, rng):
@@ -242,12 +256,12 @@ def test_count_params_hybrid():
         JM.count_params(j_config(JAMBA, smoke=True))
 
 
-@pytest.mark.parametrize("name", ARCHS + [JAMBA])
+@pytest.mark.parametrize("name", ARCHS + [JAMBA] + OTHERS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_cache_bytes_match_the_reference_cache(name, smoke):
     """The serve plans' cache scratch: the bytes of the JAX ``init_cache``
     tree (K/V per attention layer; conv window and fp32 state per Mamba
-    layer; the int32 length)."""
+    layer; fp32 states per xLSTM layer; the int32 length)."""
     jc, tc = j_config(name, smoke=smoke), t_config(name, smoke=smoke)
     shapes = jax.eval_shape(lambda: JM.init_cache(jc, 3, 40))
     want = sum(math.prod(x.shape) * jnp.dtype(x.dtype).itemsize
