@@ -7,15 +7,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version at the shapes the serve and train
 paths give it (and ragged shapes, and the matmul's transposed operand
 layouts: the tied LM head's (V, d) B and a train step's backward products;
-flash at head dim 192 and the matmul at nemotron's and xlstm's shapes),
-times it beside the plain version and one library call where there is one,
-and checks 2-layer full-width cuts of minicpm-2b and jamba-v0.1-52b on the
-card against float32 on the CPU, the forward and, for minicpm-2b, the loss
-and every gradient. Then it drives seven main paths, each with the launch
-counts set to 0 before it and read after: the paper's §3.1 inner product
-through the hyperstep runner in both execution modes plus minicpm-2b served
-at full width and depth; minicpm-2b's train step at full width and depth
-(4 AdamW steps, the loss falling); the training loop (``train-loop``:
+flash at head dim 192 and the matmul at nemotron's and xlstm's shapes,
+and ``decode_deep`` at the deep-K decode products beside ``decode_wmma``
+forced on the same operands), times it beside the plain version and one
+library call where there is one, and checks 2-layer full-width cuts of
+minicpm-2b and jamba-v0.1-52b on the card against float32 on the CPU, the
+forward and, for minicpm-2b, the loss and every gradient. Then it drives
+seven main paths, each with the launch counts set to 0 before it and read
+after: the paper's §3.1 inner product through the hyperstep runner in
+both execution modes plus minicpm-2b served at full width and depth;
+minicpm-2b's train step at full width and depth (4 AdamW steps, the loss
+falling); the training loop (``train-loop``:
 ``repro_torch.train.loop.train`` on synthetic batches, minicpm-2b at full
 width and depth for 8 steps in each execution mode, the losses equal bit
 for bit and each step launching what the bare step launches, then a
@@ -40,7 +42,7 @@ flash (nemotron's at head dim 192; musicgen's and qwen2-vl's also from
 frontend embeds, qwen2-vl's at 3-axis positions), its last logits held to
 ``generate``'s prefill, ``generate`` with 16 new tokens (every product's
 matmul variant predicted, nemotron's K = 73728 down projection on
-``decode_wmma``) and a 2-layer cut against fp32 on the CPU where its fp32
+``decode_deep``) and a 2-layer cut against fp32 on the CPU where its fp32
 weights fit the host. The
 matmul's launches are also counted per variant: every product of the
 forward, of a multi-row prefill and of the train step must take the wgmma
@@ -56,7 +58,8 @@ and the script exits non-zero. Each phase prints its wall time. It imports
 neither JAX nor the JAX package.
 
 Output, in order: progress lines; the card's name and power limit as
-``nvidia-smi`` reports them; one JSON line with a row per kernel; and, last,
+``nvidia-smi`` reports them; one JSON line with a row per kernel (the
+matmul's with a row per variant under ``variants``); and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 before
 running anything.
 """
@@ -93,7 +96,13 @@ from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.distributed.cannon import gather_c, make_cannon_runner  # noqa: E402
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import LANE_CHOICES, lanes_for, ssm_scan  # noqa: E402
-from repro_torch.kernels.streamed_matmul import decode_fits, decode_split  # noqa: E402
+from repro_torch.kernels.streamed_matmul import (  # noqa: E402
+    VARIANTS,
+    decode_fits,
+    decode_split,
+    deep_split,
+    streamed_matmul,
+)
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.serve import generate, make_prefill, prefill_block_size  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -224,6 +233,12 @@ def _operands(m, k, n, a_layout, b_layout, i, pad=False):
     return a, b
 
 
+def _variant_row(rows: dict, variant: str, shape: str, **row) -> None:
+    """Keep the first timed row of each matmul variant for the kernels line
+    (``rows["streamed_matmul.<variant>"]``)."""
+    rows.setdefault(f"streamed_matmul.{variant}", dict(shape=shape, **row))
+
+
 def check_matmul(rows: dict) -> None:
     # bf16 output of fp32 sums taken in different orders: at most one bf16 ulp
     # apart (2^-7 relative), so the tolerance is two ulps of the largest output
@@ -241,11 +256,10 @@ def check_matmul(rows: dict) -> None:
               (1000, 2304, 5768), (1024, 4096, 65544),
               # two-level Cannon's bf16 local product (the bsps path)
               (4096, 4096, 4096),
-              # nemotron-4-340b's MLP: decode up, decode down (K = 73728: A's
-              # share overflows a decode block, so decode_wmma) and forward up;
-              # xlstm-1.3b's forward w_down
-              (4, 18432, 73728), (4, 73728, 18432), (1024, 18432, 73728),
-              (1024, 4096, 2048)]
+              # nemotron-4-340b's MLP: decode up and forward up (its decode
+              # down projection is check_matmul_deep's); xlstm-1.3b's forward
+              # w_down
+              (4, 18432, 73728), (1024, 18432, 73728), (1024, 4096, 2048)]
     cases = [(m, k, n, "mk", "kn", False) for m, k, n in shapes] + [
         # minicpm-2b's tied head x·Eᵀ, E (122753, 2304) read as the (n, k) B:
         # decode at 1, 4 and 8 rows, the train step's forward at 1024 (an odd
@@ -268,7 +282,7 @@ def check_matmul(rows: dict) -> None:
         got, variant = matmul_variant(lambda: ops.matmul(a, b, a_layout=al, b_layout=bl))
         want = ref.matmul_ref(a, b, a_layout=al, b_layout=bl)
         torch.cuda.synchronize()
-        expect = (("decode" if decode_fits(m, k) else "decode_wmma") if m <= 16 and al == "mk"
+        expect = (("decode" if decode_fits(m, k) else "decode_deep") if m <= 16 and al == "mk"
                   else "wmma" if (n % 8 or k % 8) and (al, bl) == ("mk", "kn") and not pad
                   else "wgmma")
         check(variant == expect, f"streamed_matmul {m}x{k}x{n} {al}/{bl} took {variant}, "
@@ -290,23 +304,101 @@ def check_matmul(rows: dict) -> None:
             f"b={bl} variant={variant}: "
             f"max_abs_err={err:.3g} (tol {tol:.3g}) ms={ms:.4f} ({rate}) enqueue_ms={enqueue:.4f} "
             f"plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib)
         if idx == 0:   # the decode up-projection: the launch the serve path repeats most
-            rows["streamed_matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                           bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            rows["streamed_matmul"] = row
+        _variant_row(rows, variant, f"{m}x{k}x{n} a={al} b={bl}", **row)
     # a packed decode step's rows round as each row alone: one K split and
-    # one kernel instance for m = 1 .. 8, in both B layouts
+    # one kernel instance for m = 1 .. 8, in both B layouts and past the
+    # decode block's A share (decode_deep)
     for k, n, bl in ((2304, 2304, "kn"), (2304, 5760, "kn"), (5760, 2304, "kn"),
-                     (2304, 122753, "nk")):
+                     (2304, 122753, "nk"), (73728, 18432, "kn")):
         a, b = _operands(8, k, n, "mk", bl, 7)
         full = ops.matmul(a, b, b_layout=bl)
         same = all(torch.equal(ops.matmul(a[i:i + 1], b, b_layout=bl), full[i:i + 1])
                    for i in range(8))
         check(same, f"streamed_matmul 8x{k}x{n} b={bl}: a row alone differs from the batch")
     log("[kernel] streamed_matmul decode rows 1..8: each row alone equals its row among 8, "
-        "bitwise (2304x2304, 2304x5760, 5760x2304 and the tied head 2304x122753)")
+        "bitwise (2304x2304, 2304x5760, 5760x2304, the tied head 2304x122753 and, on "
+        "decode_deep, 73728x18432)")
+    # and m = 9 .. 16 share one instance and one split: the first m rows of
+    # 16 alone equal their rows among 16 (decode_deep at starcoder2's K)
+    a, b = _operands(16, 24576, 6144, "mk", "kn", 8)
+    full = ops.matmul(a, b)
+    same = all(torch.equal(ops.matmul(a[:r], b), full[:r]) for r in range(9, 16))
+    check(same, "streamed_matmul 16x24576x6144: rows 1..m of 16 alone differ from the batch")
+    log("[kernel] streamed_matmul decode_deep rows 9..16: the first m rows alone (m = 9 .. 15) "
+        "equal their rows among 16, bitwise (24576x6144)")
 
 
-def check_matmul_f32() -> float:
+# The deep-K decode products (m ≤ 16, A's K share past a decode block):
+# nemotron-4-340b's down projection at 1, 4 and 8 rows, and at 16 rows its
+# up projection, starcoder2-15b's and qwen2-vl-7b's down projections and
+# nemotron's head with B as (k, n) and as (n, k)
+DEEP_SHAPES = [(1, 73728, 18432, "kn"), (4, 73728, 18432, "kn"), (8, 73728, 18432, "kn"),
+               (16, 18432, 73728, "kn"), (16, 24576, 6144, "kn"), (16, 18944, 3584, "kn"),
+               (16, 18432, 256000, "kn"), (16, 18432, 256000, "nk")]
+
+
+def _deep_operands(m, k, n, bl, i):
+    a = randn((m, k), torch.bfloat16, 10 * i + 1)
+    return a, randn((k, n) if bl == "kn" else (n, k), torch.bfloat16, 10 * i + 2, k ** -0.5)
+
+
+def check_matmul_deep(rows: dict) -> None:
+    """``decode_deep`` at :data:`DEEP_SHAPES` against its plain version
+    within two bf16 ulps, its variant and its K split, timed beside the
+    plain version, ``torch.matmul`` and ``decode_wmma`` forced on the same
+    operands (the variant these products took before ``decode_deep``;
+    ``decode_wmma`` takes no (n, k) B)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, k, n, bl in DEEP_SHAPES:
+        sets = copies_past_l2(lambda i, m=m, k=k, n=n, bl=bl: _deep_operands(m, k, n, bl, i),
+                              (m * k + k * n) * 2)
+        a, b = sets[0]
+        got, variant = matmul_variant(lambda: ops.matmul(a, b, b_layout=bl))
+        want = ref.matmul_ref(a, b, b_layout=bl)
+        torch.cuda.synchronize()
+        check(variant == "decode_deep", f"streamed_matmul {m}x{k}x{n} b={bl} took {variant}")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 ** -6 * want.float().abs().max().item()
+        check(err <= tol, f"decode_deep {m}x{k}x{n} b={bl}: max err {err} > {tol}")
+        ms, enqueue = bench_ms(lambda a, b: ops.matmul(a, b, b_layout=bl), sets, 50)
+        plain, _ = bench_ms(lambda a, b: ref.matmul_ref(a, b, b_layout=bl), sets, 3)
+        lib, _ = bench_ms(lambda a, b: torch.matmul(a, b if bl == "kn" else b.T), sets, 50)
+        nbytes, flops = (m * k + k * n + m * n) * 2, 2.0 * m * n * k
+        b_ms, b_by = bound(nbytes, flops, "bf16")
+        old = "decode_wmma takes no (n, k) B"
+        if bl == "kn":
+            old_c, old_variant = matmul_variant(
+                lambda: streamed_matmul(a, b, variant="decode_wmma"))
+            torch.cuda.synchronize()
+            check(old_variant == "decode_wmma", f"{m}x{k}x{n} forced: took {old_variant}")
+            old_err = (old_c.float() - want.float()).abs().max().item()
+            check(old_err <= tol, f"decode_wmma {m}x{k}x{n}: max err {old_err} > {tol}")
+            old_ms, _ = bench_ms(lambda a, b: streamed_matmul(a, b, variant="decode_wmma"),
+                                 sets, 20)
+            old = f"decode_wmma_ms={old_ms:.4f} ({nbytes / old_ms / 1e9:.3f} TB/s)"
+            if (m, k, n) == (4, 73728, 18432):
+                _variant_row(rows, "decode_wmma", f"{m}x{k}x{n} a=mk b=kn (forced)",
+                             max_abs_err=old_err, ms=old_ms, plain_ms=plain, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib)
+            del old_c
+        del got, want
+        if (m, k, n) == (4, 73728, 18432):
+            _variant_row(rows, "decode_deep", f"{m}x{k}x{n} a=mk b={bl}", max_abs_err=err,
+                         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        log(f"[kernel] streamed_matmul {m}x{k}x{n} a=mk b={bl} variant={variant} "
+            f"split={deep_split(m, n, k, sms)}: max_abs_err={err:.3g} (tol {tol:.3g}) "
+            f"ms={ms:.4f} ({nbytes / ms / 1e9:.3f} TB/s, {b_ms / ms:.1%} of the bound) "
+            f"enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}); earlier {old}")
+        del sets, a, b
+        torch.cuda.empty_cache()
+
+
+def check_matmul_f32(rows: dict) -> float:
     """The fp32 variant (``simt_f32``) against its plain version at ragged
     shapes, at m ≤ 16 and at Cannon's local product (4096³), in the default
     layouts and with B as (n, k) or A as (k, m); timed at 4096³, 1000 × 264 ×
@@ -349,6 +441,8 @@ def check_matmul_f32() -> float:
         b_ms, b_by = bound(nbytes, flops, "fp32")
         if (m, k, n) == (4096, 4096, 4096):
             rate = flops / ms * 1e3
+            _variant_row(rows, "simt_f32", f"{m}x{k}x{n} fp32", max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         log(f"{head} ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the bound) "
             f"enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} (TF32 off) "
             f"bound_ms={b_ms:.4f} ({b_by})")
@@ -1381,7 +1475,8 @@ def serve_engine(cfg, params, machine) -> None:
         check(c["streamed_matmul.decode"] == c["streamed_matmul"] == mlp * eng.segment_len,
               f"engine segment {i}: matmul launches {c}")
     check(total["streamed_matmul.wgmma"] > 0 and total["streamed_matmul.decode"] > 0
-          and total["streamed_matmul.wmma"] == total["streamed_matmul.decode_wmma"] == 0,
+          and total["streamed_matmul.wmma"] == total["streamed_matmul.decode_wmma"]
+          == total["streamed_matmul.decode_deep"] == 0,
           f"engine matmul variants {total}")
     log(f"[engine] matmul launches per segment: decode {mlp * eng.segment_len} "
         f"({mlp} per packed step, every segment); whole run: {json.dumps(total)}")
@@ -1916,8 +2011,13 @@ def serve_family(name: str, machine) -> dict:
     want = serve_variants(cfg, batch, prompt_len, block, steps)
     # the prefill reads its cache with torch ops, not flash
     check(all(c[f"streamed_matmul.{v}"] == n for v, n in want.items())
-          and c["streamed_matmul"] == sum(want.values()) and c["flash_attention"] == 0,
+          and c["streamed_matmul"] == sum(want.values()) and c["flash_attention"] == 0
+          and c["streamed_matmul.decode_wmma"] == 0,
           f"{name} generate launches {c}, expected {want}")
+    if name == "nemotron-4-340b":   # K = 73728 down projections: one a layer
+        check(decode_variants(cfg, batch) == {"decode": 21, "decode_deep": 4}
+              and c["streamed_matmul.decode_deep"] == 4 * steps,
+              f"nemotron decode step variants {decode_variants(cfg, batch)}, generate {c}")
     log(f"[families] {name} generate: prefill_ms={stats.prefill_seconds * 1e3:.2f} "
         f"(block {block}) decode_tok_s="
         f"{steps * batch / stats.decode_total_seconds:.1f} ({steps} tokens x batch {batch} in "
@@ -1988,11 +2088,11 @@ def serve_variants(cfg, batch: int, prompt_len: int, block: int, steps: int) -> 
 def decode_variants(cfg, m: int) -> dict[str, int]:
     """The matmul variant each product of one decode step at ``m`` rows
     takes, counted: the decode variant where A's K share fits a block
-    (``decode_fits``), decode_wmma where it does not (nemotron-4-340b's down
+    (``decode_fits``), decode_deep where it does not (nemotron-4-340b's down
     projection, K = 73728)."""
-    out = {"decode": 0, "decode_wmma": 0}
+    out = {"decode": 0, "decode_deep": 0}
     for k, _ in product_shapes(cfg):
-        out["decode" if decode_fits(m, k) else "decode_wmma"] += 1
+        out["decode" if decode_fits(m, k) else "decode_deep"] += 1
     return out
 
 
@@ -2006,12 +2106,13 @@ def counts_now() -> dict:
 
 def main_path(name: str, drive) -> dict:
     """Drive one main path with every launch count set to 0 just before it;
-    return the counts read just after."""
+    return the counts read just after (per kernel, and the matmul's per
+    variant and per layout)."""
     ops.reset_launch_counts()
     with phase(name):
         drive()
-    launches = ops.launch_counts()
-    log(f"[main path] {name}: launches {json.dumps(counts_now())}")
+    launches = counts_now()
+    log(f"[main path] {name}: launches {json.dumps(launches)}")
     return launches
 
 
@@ -2040,10 +2141,11 @@ def main() -> int:
     rows: dict[str, dict] = {}
     with phase("kernel checks"):
         check_matmul(rows)
+        check_matmul_deep(rows)
         check_dot(rows)
         check_flash(rows)
         check_ssm(rows)
-        rate_f32 = check_matmul_f32()
+        rate_f32 = check_matmul_f32(rows)
 
     with phase("calibration"):
         machine = default_machine(device="cuda")
@@ -2097,6 +2199,12 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_META.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name], **rows[name]})
+    # the matmul's variants, each at the shape its row was timed at, with its
+    # launches on the main paths (0 for the variants no main path takes)
+    matmul = next(row for row in kernels if row["name"] == "streamed_matmul")
+    matmul["variants"] = [
+        {"name": v, "launches": launches[f"streamed_matmul.{v}"], **rows[f"streamed_matmul.{v}"]}
+        for v in VARIANTS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,8 @@
 //
 // The K stream is a loop inside the block, as the plan's "arbitrary" axis
 // says; ragged edges are masked in the kernel (no padding copies). Operands
-// are bf16 for four variants and fp32 for the fifth; other dtypes are
-// refused. Five variants (the wrapper's variant_for picks one from the
+// are bf16 for five variants and fp32 for simt_f32; other dtypes are
+// refused. Six variants (the wrapper's variant_for picks one from the
 // dtype, shapes, strides and alignment; `variant` names it here):
 //
 // decode — m ≤ 16 when TMA can describe B (base 16-byte aligned, rows a
@@ -39,6 +39,17 @@
 // barrier every block sums its share of the tile's elements over ranks
 // 0, 1, .., splits-1 in that order through distributed shared memory and
 // stores it: one launch, no partial tensor, no atomics, deterministic.
+//
+// decode_deep — m ≤ 16 when TMA can describe B but A's K share does not fit
+// a decode block (the deep-K products: nemotron-4-340b's down projection at
+// K = 73728, and at 9-16 rows any K past 15872). The decode kernel with A
+// streamed instead of held: each ring stage also holds A's m × 64 slice of
+// its K tile (rows 144 bytes apart, 1 or 2 KB a stage), which the producer
+// warp's 32 lanes copy with 16-byte cp.async (plain loads where A's rows are
+// not 16-byte aligned) and hand to the stage's full barrier beside the
+// TMA's bytes. So k is unbounded and a block's shared memory is the same
+// at every k (70 or 75 KB: three blocks an SM); the products, the cluster
+// split and its sum in rank order are the decode variant's, one launch.
 //
 // wgmma — m > 16 when TMA can describe both operands (the forward and the
 // prefill). A 128×128 output tile per block, K streamed 64 at a time through
@@ -73,12 +84,12 @@
 // tensor cores work on the current ones (double buffered in shared memory);
 // the accumulator goes out through the plan's scratch tile.
 //
-// decode_wmma — m ≤ 16 when the decode variant cannot take the operands:
-// the same wmma loop on a 16×64×64 tile with a 1×4 warp grid. When the
-// output tiles alone cannot fill the card, the K stream is split over a
-// third grid axis: each split writes an fp32 partial tile and a second
-// launch sums the splits in a fixed order and casts — deterministic, no
-// atomics. wmma uses the same split rule.
+// decode_wmma — m ≤ 16 when TMA cannot describe B (a row stride or a base
+// address not 16-byte aligned): the same wmma loop on a 16×64×64 tile with
+// a 1×4 warp grid. When the output tiles alone cannot fill the card, the K
+// stream is split over a third grid axis: each split writes an fp32 partial
+// tile and a second launch sums the splits in a fixed order and casts —
+// deterministic, no atomics. wmma uses the same split rule.
 //
 // simt_f32 — fp32 operands at any m, in all three layouts: exact fp32 FMAs
 // with fp32 accumulation, no TF32 and no tensor-core emulation (the
@@ -585,6 +596,7 @@ constexpr int RING = STAGES * STAGE_BYTES;    // 64 KB of weights in flight per 
 constexpr int CG = NB;                        // 16-column groups per consumer warp
 constexpr int MAX_SPLIT = 8;                  // the portable cluster size
 constexpr int A_PAD = 8;                      // bf16 past each A row: rows 4 banks apart
+constexpr int A_ROW = BK + A_PAD;             // DEEP: a stage's A slice row (elements)
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -634,24 +646,68 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// bytes of A the block holds: its whole K share of m rows (decode), or
+// (DEEP) one 8·NT-row slice of BK k per ring stage
+template <int NT, bool DEEP>
+__host__ __device__ __forceinline__ int a_bytes(int m, int per) {
+  return DEEP ? STAGES * 8 * NT * A_ROW * 2 : m * (per * BK + A_PAD) * 2;
+}
+
+// DEEP: lane `lane` of the producer warp's share of the copies of A's
+// m × BK slice at k0 into the stage's slice at shared address `dst` (rows
+// A_ROW apart), zero past k; rows at or past m are not written (their
+// consumer lanes use 0). With a_vec (A's base and rows 16-byte aligned)
+// 16-byte cp.async copies whose completion the lane hands to the stage's
+// full barrier; else plain loads and stores, then the lane's arrival.
+__device__ __forceinline__ void stage_a(uint32_t dst, const raw16* __restrict__ a,
+                                        long long lda, int m, int k, int k0, bool a_vec,
+                                        int lane, uint32_t full) {
+  for (int ch = lane; ch < m * (BK / 8); ch += 32) {
+    const int r = ch / (BK / 8), col = (ch % (BK / 8)) * 8;
+    const uint32_t d = dst + (r * A_ROW + col) * 2;
+    if (a_vec) {
+      const int bytes = max(0, min(16, 2 * (k - k0 - col)));
+      const raw16* src = a + (long long)r * lda + (bytes > 0 ? k0 + col : 0);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                   "r"(bytes));
+    } else {
+      const uint4 v = load8(a, lda, m, k, r, k0 + col);
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(d), "r"(v.x),
+                   "r"(v.y), "r"(v.z), "r"(v.w)
+                   : "memory");
+    }
+  }
+  if (a_vec)
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(full)
+                 : "memory");
+  else
+    wg::mbar_arrive(full);
+}
+
 // Cᵀ = Bᵀ·Aᵀ: the weight columns fill the 16 rows of m16n8k16, the ≤ 8·NT
 // activation rows its N side. Block (rank, j) of a cluster of `splits`
 // along x streams K tiles [rank·per, rank·per + per) of column tile j.
 // BKM: B is given as (n, k) rows (a stage's box bx holds weight columns
 // n0 + 64·bx .. +64 as 64 rows of 64 k); else as (k, n) rows (box bx holds
 // 64 k-rows of those 64 columns).
-template <int NT, typename Out, bool BKM>
+// DEEP (decode_deep): A is streamed beside B instead of held whole — each
+// ring stage also holds A's m × 64 slice of its K tile, copied by the
+// producer warp's 32 lanes, so A's K share no longer bounds k. The stage's
+// full barrier then counts 33 arrivals: the TMA's expect_tx and one per
+// producer lane once its A copies have landed.
+template <int NT, typename Out, bool BKM, bool DEEP>
 __global__ void __launch_bounds__(kThreads)
 matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ a,
               Out* __restrict__ c, int m, int n, int k, long long lda, long long ldc,
-              int k_tiles, int per) {
+              int k_tiles, int per, int a_vec) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = wg::smem_u32(smem_raw);
   const uint32_t ring = (base + 1023) & ~1023u;              // the swizzle wants 1 KB
   unsigned char* ring_p = smem_raw + (ring - base);
-  const int lds = per * BK + A_PAD;                          // A share row stride (elements)
-  raw16* as = reinterpret_cast<raw16*>(ring_p + RING);       // (m, lds)
-  const uint32_t full = ring + RING + ((m * lds * 2 + 15) & ~15);
+  // A share row stride (elements): the whole share's, or a stage slice's
+  const int lds = DEEP ? A_ROW : per * BK + A_PAD;
+  raw16* as = reinterpret_cast<raw16*>(ring_p + RING);       // (m, lds), DEEP: [STAGES][8·NT][lds]
+  const uint32_t full = ring + RING + ((a_bytes<NT, DEEP>(m, per) + 15) & ~15);
   const uint32_t empty = full + STAGES * 8;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const uint32_t rank = cluster_rank(), splits = cluster_size();
@@ -662,7 +718,7 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      wg::mbar_init(full + 8 * s, 1);                        // the producer's expect_tx
+      wg::mbar_init(full + 8 * s, DEEP ? 33 : 1);            // expect_tx (+ A's 32 lanes)
       wg::mbar_init(empty + 8 * s, kConsumers);              // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -675,10 +731,12 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
 #pragma unroll
     for (int t = 0; t < NT; ++t) d[j][t][0] = d[j][t][1] = d[j][t][2] = d[j][t][3] = 0.f;
   if (warp == kConsumers) {                                  // producer: the weight stream
-    if (lane == 0) {
-      for (int t = 0; t < tiles; ++t) {
-        const int s = t % STAGES;
-        if (t >= STAGES) wg::mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
+    // lane 0 issues the TMA boxes; in DEEP every lane also copies its part
+    // of A's slice into the same stage
+    for (int t = 0; t < tiles && (DEEP || lane == 0); ++t) {
+      const int s = t % STAGES;
+      if (t >= STAGES) wg::mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
+      if (lane == 0) {
         wg::mbar_expect_tx(full + 8 * s, STAGE_BYTES);
 #pragma unroll
         for (int bx = 0; bx < NB; ++bx) {
@@ -690,16 +748,23 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
                          n0 + 64 * bx, k0 + t * BK);
         }
       }
+      if (DEEP)
+        stage_a(ring + RING + s * (8 * NT * A_ROW * 2), a, lda, m, k, k0 + t * BK, a_vec, lane,
+                full + 8 * s);
     }
+    if (DEEP) asm volatile("cp.async.wait_all;\n" ::: "memory");
   } else {
-    // the block's K share of A, once, while the first stages are in flight;
-    // zero past k (rows at or past m are never stored: their lanes use 0)
-    const int row_chunks = per * BK / 8;
-    for (int ch = tid; ch < m * row_chunks; ch += 32 * kConsumers) {
-      const int r = ch / row_chunks, col = (ch % row_chunks) * 8;
-      *reinterpret_cast<uint4*>(as + r * lds + col) = load8(a, lda, m, k, r, k0 + col);
+    if (!DEEP) {
+      // the block's K share of A, once, while the first stages are in
+      // flight; zero past k (rows at or past m are never stored: their
+      // lanes use 0)
+      const int row_chunks = per * BK / 8;
+      for (int ch = tid; ch < m * row_chunks; ch += 32 * kConsumers) {
+        const int r = ch / row_chunks, col = (ch % row_chunks) * 8;
+        *reinterpret_cast<uint4*>(as + r * lds + col) = load8(a, lda, m, k, r, k0 + col);
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
     }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
 
     // warp w takes the 16-column groups w·CG .. w·CG + CG-1 of every stage;
     // group gc lies in box gc / 4 at chunks 2·(gc % 4) and + 1. ldmatrix
@@ -734,9 +799,11 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
       const int s = t % STAGES;
       wg::mbar_wait(full + 8 * s, (t / STAGES) & 1);
       const uint32_t st = ring + s * STAGE_BYTES;
+      // A's columns of this K tile: in the share, or in the stage's slice
+      const int a0 = DEEP ? s * 8 * NT * lds : t * BK;
 #pragma unroll
       for (int kq = 0; kq < BK / 16; ++kq) {
-        const int kk = t * BK + 16 * kq;
+        const int kk = a0 + 16 * kq;
         uint32_t b[NT][2];
 #pragma unroll
         for (int u = 0; u < NT; ++u) {
@@ -793,7 +860,7 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
   cluster_sync();                                            // no block leaves while read
 }
 
-template <int NT, typename Out, bool BKM>
+template <int NT, typename Out, bool BKM, bool DEEP>
 cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream_t stream,
                    const void* a, const void* b, void* c, int m, int n, int k, long long lda,
                    long long ldb, long long ldc) {
@@ -802,16 +869,17 @@ cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream
   if (grid.z != 1 || splits > MAX_SPLIT || (int)grid.y != (n + BN - 1) / BN || m > 8 * NT ||
       (splits - 1) * per >= k_tiles || splits * per < k_tiles)
     return cudaErrorInvalidValue;
-  const int a_bytes = m * (per * BK + A_PAD) * 2;
-  if (scratch_bytes != RING + a_bytes) return cudaErrorInvalidValue;  // plan and kernel disagree
-  const int smem = 1024 + RING + ((a_bytes + 15) & ~15) + 2 * STAGES * 8;
+  const int a_share = a_bytes<NT, DEEP>(m, per);
+  if (scratch_bytes != RING + a_share) return cudaErrorInvalidValue;  // plan and kernel disagree
+  const int smem = 1024 + RING + ((a_share + 15) & ~15) + 2 * STAGES * 8;
+  const int a_vec = reinterpret_cast<uintptr_t>(a) % 16 == 0 && lda % 8 == 0;
   wg::EncodeTiled enc = wg::encoder();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap tb;
   const bool b_ok = BKM ? wg::encode(enc, &tb, b, n, k, ldb, 64, BK)
                         : wg::encode(enc, &tb, b, k, n, ldb, BK, 64);
   if (!b_ok) return cudaErrorInvalidValue;
-  auto kernel = matmul_decode<NT, Out, BKM>;
+  auto kernel = matmul_decode<NT, Out, BKM, DEEP>;
   cudaError_t err = bsps::prepare_smem(kernel, device, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -827,7 +895,7 @@ cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, tb, static_cast<const raw16*>(a), static_cast<Out*>(c),
-                           m, n, k, lda, ldc, k_tiles, per);
+                           m, n, k, lda, ldc, k_tiles, per, a_vec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1099,19 +1167,20 @@ cudaError_t launch(int device, dim3 grid, int k_tiles, int scratch_bytes, cudaSt
 }  // namespace sf
 
 // the variant codes of the wrapper's VARIANTS, in its order
-enum Variant { kDecode = 0, kWgmma = 1, kWmma = 2, kDecodeWmma = 3, kSimtF32 = 4 };
+enum Variant { kDecode = 0, kWgmma = 1, kWmma = 2, kDecodeWmma = 3, kSimtF32 = 4,
+               kDecodeDeep = 5 };
 // the operand layout bits of the wrapper's b_layout / a_layout
 enum Layout { kBRowsN = 1, kAColMajor = 2 };
 
-template <typename Out, bool BKM>
+template <typename Out, bool BKM, bool DEEP>
 cudaError_t decode(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
                    const void* a, const void* b, void* c, int m, int n, int k, long long lda,
                    long long ldb, long long ldc) {
   if (m <= 8)
-    return gv::launch<1, Out, BKM>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n,
-                                   k, lda, ldb, ldc);
-  return gv::launch<2, Out, BKM>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
-                                 lda, ldb, ldc);
+    return gv::launch<1, Out, BKM, DEEP>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
+                                         m, n, k, lda, ldb, ldc);
+  return gv::launch<2, Out, BKM, DEEP>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m,
+                                       n, k, lda, ldb, ldc);
 }
 
 template <typename Out>
@@ -1128,10 +1197,16 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
   switch (variant) {
     case kDecode:
       if (layout == kBRowsN)
-        return decode<Out, true>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
-                                 lda, ldb, ldc);
-      return decode<Out, false>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m, n, k,
-                                lda, ldb, ldc);
+        return decode<Out, true, false>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m,
+                                        n, k, lda, ldb, ldc);
+      return decode<Out, false, false>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m,
+                                       n, k, lda, ldb, ldc);
+    case kDecodeDeep:
+      if (layout == kBRowsN)
+        return decode<Out, true, true>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m,
+                                       n, k, lda, ldb, ldc);
+      return decode<Out, false, true>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m,
+                                      n, k, lda, ldb, ldc);
     case kWgmma:
       if (layout == kBRowsN)
         return wg::launch<Out, false, true>(device, grid, k_steps, scratch_bytes, stream, a, b,
@@ -1169,8 +1244,8 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
 // (decode, wgmma and simt_f32); kAColMajor — A is given as its (k, m)
 // transpose, rows lda apart (wgmma and simt_f32).
 // `variant` (enum Variant) picks the kernel:
-// decode — grid (splits, n tiles), one cluster of `splits` per column tile,
-// loop = K tiles per split, B TMA-describable; wgmma — grid (n tiles, m
+// decode and decode_deep — grid (splits, n tiles), one cluster of `splits`
+// per column tile, loop = K tiles per split, B TMA-describable; wgmma — grid (n tiles, m
 // tiles), loop = K tiles, A and B TMA-describable; wmma and decode_wmma —
 // grid (n tiles, m tiles, splits), loop = K tiles per split, and with
 // splits > 1 `partials` holds splits·m·n floats; simt_f32 — grid (n tiles,

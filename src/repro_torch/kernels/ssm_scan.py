@@ -192,6 +192,13 @@ def ssm_scan(
         raise ValueError("selective-scan operands on different devices")
     if x.device.type == "cpu":
         return ref.ssm_scan_ref(x, dt, b, c, a, d)
+    # the kernel's output carries no graph: under autograd every gradient
+    # upstream of the scan would be lost without an error
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, b, c, a, d)):
+        raise RuntimeError(
+            "ssm_scan has no backward on the card (the selective scan's backward, ROADMAP "
+            "Queue 2, coverage item 1): call it under torch.no_grad() or with operands that "
+            "do not require grad")
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on CUDA or CPU tensors, not {x.device}")
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, b, c)):

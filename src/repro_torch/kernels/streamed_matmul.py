@@ -14,12 +14,12 @@ When the output tiles alone cannot fill the card — decode, where m is the
 batch — the K stream is split: in the ``wmma`` variants over a third
 "parallel" axis (``split_k``), each split streaming its share of K into an
 fp32 partial tile and a closing launch summing the partials; in the
-``decode`` variant over the blocks of a cluster (:func:`decode_plan`),
+``decode`` variants over the blocks of a cluster (:func:`decode_plan`),
 summed inside the launch.
 
-The kernel has five variants (``csrc/streamed_matmul.cu``), and
+The kernel has six variants (``csrc/streamed_matmul.cu``), and
 :func:`variant_for` picks one from the dtype, shapes, strides and alignment
-alone — four for bf16 operands:
+alone — five for bf16 operands:
 
 * ``"decode"`` — m ≤ 16 when TMA can describe B (base 16-byte aligned, rows
   a multiple of 16 bytes apart) and A's K share fits a block
@@ -28,12 +28,18 @@ alone — four for bf16 operands:
   the weight on the 16-row side), K split over a thread-block cluster of
   :func:`decode_split` blocks whose partials are summed through distributed
   shared memory: one launch per product, :func:`decode_plan`;
+* ``"decode_deep"`` — m ≤ 16 when TMA can describe B and A's K share does
+  not fit a block: the decode kernel with A streamed beside B, each ring
+  stage holding A's m × 64 slice of its K tile, so no k is too deep; the
+  same products and cluster sum, one launch, the K split of
+  :func:`deep_split` (:func:`decode_plan` with ``deep=True``);
 * ``"wgmma"`` — m > 16 when TMA can describe both operands: 128×128 output
   tiles, K streamed 64 at a time by TMA through an ``mbarrier`` ring into
   ``wgmma``, no split;
 * ``"wmma"`` — m > 16 otherwise: a 64×64×32 ``wmma`` tile with split K;
-* ``"decode_wmma"`` — m ≤ 16 otherwise: a 16×64×64 ``wmma`` tile with split K
-  (:func:`split_for`) and a second launch that sums the splits;
+* ``"decode_wmma"`` — m ≤ 16 when TMA cannot describe B: a 16×64×64
+  ``wmma`` tile with split K (:func:`split_for`) and a second launch that
+  sums the splits;
 
 and one for fp32 operands, at any m:
 
@@ -47,7 +53,7 @@ and one for fp32 operands, at any m:
 Operand layouts. ``b_layout="nk"`` takes B as its (n, k) transpose, k
 contiguous: the tied LM head x·Eᵀ reads the (V, d) embedding so, and the
 input gradient dC·Wᵀ reads a (k, n) weight so, with no copy. The decode
-variant streams such a B by TMA boxes over its rows and reads them with
+variants stream such a B by TMA boxes over its rows and reads them with
 ``ldmatrix`` untransposed; ``wgmma`` takes it as the K-major operand.
 ``a_layout="km"`` takes A as its (k, m) transpose, m contiguous — the
 weight gradient Aᵀ·dC reads the activations so — for bf16 on ``wgmma``
@@ -76,18 +82,19 @@ from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.kernels import pipeline, ref
 
 __all__ = ["streamed_matmul", "matmul_plan", "decode_plan", "variant_for", "split_for",
-           "decode_split", "decode_fits", "VARIANTS", "LAYOUTS"]
+           "decode_split", "deep_split", "decode_fits", "VARIANTS", "LAYOUTS"]
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the (a_layout, b_layout) pairs the kernel takes, and their code on the C side
 LAYOUTS = {("mk", "kn"): 0, ("mk", "nk"): 1, ("km", "kn"): 2}
 #: (block_m, block_n, block_k) of each kernel variant, in the C side's code
-#: order; the decode variant's block_m is the most rows it takes
+#: order; the decode variants' block_m is the most rows they take
 VARIANTS = {"decode": (16, 128, 64), "wgmma": (128, 128, 64), "wmma": (64, 64, 32),
-            "decode_wmma": (16, 64, 64), "simt_f32": (256, 128, 32)}
+            "decode_wmma": (16, 64, 64), "simt_f32": (256, 128, 32),
+            "decode_deep": (16, 128, 64)}
 _CODES = {name: i for i, name in enumerate(VARIANTS)}
 _TMA_ALIGN = 16   # bytes: TMA's base-address and row-stride granule
-DECODE_STAGES = 4              # the decode variant's ring of 16 KB weight stages
+DECODE_STAGES = 4              # the decode variants' ring of 16 KB weight stages
 DECODE_MAX_SPLIT = 8           # the portable thread-block cluster size
 DECODE_A_MAX = 64 * 1024       # bytes of A's K share one block may hold
 _DECODE_A_PAD = 8              # bf16 past each row of the share (bank spread)
@@ -168,16 +175,19 @@ def matmul_plan(
 
 
 def decode_plan(m: int, k: int, n: int, split: int, *,
-                out_dtype=torch.bfloat16) -> StreamPlan:
-    """Launch plan of the decode variant for C = A·B, (m, k) × (k, n), m ≤ 16.
+                out_dtype=torch.bfloat16, deep: bool = False) -> StreamPlan:
+    """Launch plan of the decode variants for C = A·B, (m, k) × (k, n), m ≤ 16.
 
     Grid (column tile j, split sp, hyperstep s) = (parallel, parallel,
     arbitrary): the ``split`` blocks of column tile j form one cluster, block
     sp streams K tiles ``sp·S .. sp·S + S - 1`` (S = ⌈k tiles / split⌉) of
-    B's 128-column panel j, and A's whole K share (m, S·64) is loaded once
-    per block. All ``split`` blocks own C's tile j: their partials are
-    summed inside the cluster, so C streams up once per tile and no partial
-    tensor exists. Scratch: the ring of weight boxes and the A share.
+    B's 128-column panel j. In ``decode``, A's whole K share (m, S·64) is
+    loaded once per block; with ``deep`` (``decode_deep``) A streams beside
+    B, its (m, 64) token of hyperstep s in the same ring stage as B's. All
+    ``split`` blocks own C's tile j: their partials are summed inside the
+    cluster, so C streams up once per tile and no partial tensor exists.
+    Scratch: the ring of weight boxes, and the A share or (``deep``) the
+    ring's A slices of :func:`_rows` of m rows.
     """
     _, bn, bk = VARIANTS["decode"]
     tiles, k_tiles = -(-n // bn), -(-k // bk)
@@ -185,12 +195,20 @@ def decode_plan(m: int, k: int, n: int, split: int, *,
     if not 1 <= split <= min(DECODE_MAX_SPLIT, k_tiles) or (split - 1) * per >= k_tiles:
         raise ValueError(f"bad decode split {split} of {k_tiles} K tiles")
     k_pad = split * per * bk
+    if deep:
+        a_token = TokenSpec("A", (m, bk), lambda j, sp, s, S=per: (0, sp * S + s),
+                            dtype=torch.bfloat16, full_shape=(m, k_pad))
+        a_scratch = ScratchSpec("A_ring", (DECODE_STAGES, _rows(m), bk + _DECODE_A_PAD),
+                                torch.bfloat16)
+    else:
+        a_token = TokenSpec("A", (m, per * bk), lambda j, sp, s: (0, sp),
+                            dtype=torch.bfloat16, full_shape=(m, k_pad))
+        a_scratch = ScratchSpec("A_share", (m, per * bk + _DECODE_A_PAD), torch.bfloat16)
     return StreamPlan(
-        name=f"matmul_decode_{m}x{k}x{n}_s{split}",
+        name=f"matmul_decode{'_deep' if deep else ''}_{m}x{k}x{n}_s{split}",
         grid=(tiles, split, per),
         inputs=(
-            TokenSpec("A", (m, per * bk), lambda j, sp, s: (0, sp),
-                      dtype=torch.bfloat16, full_shape=(m, k_pad)),
+            a_token,
             TokenSpec("B", (bk, bn), lambda j, sp, s, S=per: (sp * S + s, j),
                       dtype=torch.bfloat16, full_shape=(k_pad, tiles * bn)),
         ),
@@ -198,8 +216,7 @@ def decode_plan(m: int, k: int, n: int, split: int, *,
             TokenSpec("C", (m, bn), lambda j, sp, s: (0, j), dtype=out_dtype,
                       full_shape=(m, tiles * bn), direction="up"),
         ),
-        scratch=(ScratchSpec("ring", (DECODE_STAGES, bk, bn), torch.bfloat16),
-                 ScratchSpec("A_share", (m, per * bk + _DECODE_A_PAD), torch.bfloat16)),
+        scratch=(ScratchSpec("ring", (DECODE_STAGES, bk, bn), torch.bfloat16), a_scratch),
         dimension_semantics=("parallel", "parallel", "arbitrary"),
         flops_per_hyperstep=2.0 * m * bn * bk,
     )
@@ -221,16 +238,34 @@ def _rows(m: int) -> int:
 def decode_fits(m: int, k: int) -> bool:
     """Whether A's K share, sized for :func:`_rows` of m, fits one decode
     block at the widest cluster: one answer for every m of an instance, so
-    m = 1 .. 8 all take the decode variant or all take ``decode_wmma``."""
+    m = 1 .. 8 all take the decode variant or all take ``decode_deep``."""
     k_tiles = -(-k // VARIANTS["decode"][2])
     return _a_share_bytes(_rows(m), k_tiles, min(DECODE_MAX_SPLIT, k_tiles)) <= DECODE_A_MAX
 
 
-def _decode_blocks_per_sm(m: int, k_tiles: int, split: int) -> int:
+def _blocks_per_sm(a_bytes: int) -> int:
+    """Decode blocks an SM holds at once beside ``a_bytes`` of A."""
     _, bn, bk = VARIANTS["decode"]
-    smem = (DECODE_STAGES * bk * bn * 2 + _a_share_bytes(m, k_tiles, split)
-            + _DECODE_SMEM_EXTRA + _SM_BLOCK_RESERVE)
+    smem = DECODE_STAGES * bk * bn * 2 + a_bytes + _DECODE_SMEM_EXTRA + _SM_BLOCK_RESERVE
     return max(1, SM_SMEM // smem)
+
+
+def _deep_blocks_per_sm(m: int) -> int:
+    """``decode_deep`` blocks an SM holds at once: the ring's A slices are
+    sized for :func:`_rows` of m and do not depend on k or the split."""
+    bk = VARIANTS["decode_deep"][2]
+    return _blocks_per_sm(DECODE_STAGES * _rows(m) * (bk + _DECODE_A_PAD) * 2)
+
+
+def _fill_split(tiles: int, k_tiles: int, sms: int, splits, blocks_per_sm) -> int:
+    """The largest of ``splits`` whose ``tiles`` clusters fill at most 7/8 of
+    the card's slots (``blocks_per_sm(split)`` an SM), else the first;
+    trimmed so no block of a cluster gets an empty K share."""
+    split = splits[0]
+    for s in splits:
+        if 8 * tiles * s <= 7 * sms * blocks_per_sm(s):
+            split = s
+    return -(-k_tiles // -(-k_tiles // split))
 
 
 def decode_split(m: int, n: int, k: int, sms: int) -> int:
@@ -251,11 +286,23 @@ def decode_split(m: int, n: int, k: int, sms: int) -> int:
             if _a_share_bytes(m, k_tiles, s) <= DECODE_A_MAX]
     if not fits:
         raise ValueError(f"A's K share of {m} rows at k = {k} overflows a decode block")
-    split = fits[0]
-    for s in fits:
-        if 8 * tiles * s <= 7 * sms * _decode_blocks_per_sm(m, k_tiles, s):
-            split = s
-    return -(-k_tiles // -(-k_tiles // split))
+    return _fill_split(tiles, k_tiles, sms, fits,
+                       lambda s: _blocks_per_sm(_a_share_bytes(m, k_tiles, s)))
+
+
+def deep_split(m: int, n: int, k: int, sms: int) -> int:
+    """Cluster size (the K split) of ``decode_deep`` on ``sms``
+    multiprocessors, by :func:`decode_split`'s rule: the largest split (at
+    most 8 and at most the K tiles) whose blocks fill at most 7/8 of the
+    slots the card holds at once, counted with ``decode_deep``'s shared
+    memory (:func:`_deep_blocks_per_sm`), then trimmed so no block gets an
+    empty share. A function of :func:`_rows` of m, n, k and ``sms`` only, so
+    m = 1 .. 8 (and m = 9 .. 16) take one split: one summation order."""
+    _, bn, bk = VARIANTS["decode_deep"]
+    tiles, k_tiles = -(-n // bn), -(-k // bk)
+    per_sm = _deep_blocks_per_sm(m)
+    return _fill_split(tiles, k_tiles, sms, range(1, min(DECODE_MAX_SPLIT, k_tiles) + 1),
+                       lambda s: per_sm)
 
 
 def _check_layouts(a_layout: str, b_layout: str) -> None:
@@ -278,10 +325,11 @@ def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
     16-byte aligned and whose row stride (``lda·2``, ``ldb·2`` bytes) is a
     multiple of 16. m ≤ 16 is ``"decode"`` when TMA can describe B and A's
     K share fits a block (:func:`decode_fits`; A is read with plain loads),
-    ``"decode_wmma"`` when not; m > 16 is ``"wgmma"`` when TMA can describe
-    both operands and ``"wmma"`` when not. A bf16 (k, m) A always takes
-    ``"wgmma"``. A transposed bf16 operand that the chosen variant cannot
-    read raises ``ValueError``.
+    ``"decode_deep"`` when TMA can describe B and the share does not fit,
+    ``"decode_wmma"`` when TMA cannot describe B; m > 16 is ``"wgmma"``
+    when TMA can describe both operands and ``"wmma"`` when not. A bf16
+    (k, m) A always takes ``"wgmma"``. A transposed bf16 operand that the
+    chosen variant cannot read raises ``ValueError``.
     """
     _check_layouts(a_layout, b_layout)
     if dtype == torch.float32:
@@ -291,7 +339,8 @@ def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
     if a_layout == "km" or m > VARIANTS["decode"][0]:
         variant = "wgmma" if a_tma and b_tma else "wmma"
     else:
-        variant = "decode" if b_tma and decode_fits(m, k) else "decode_wmma"
+        variant = (("decode" if decode_fits(m, k) else "decode_deep") if b_tma
+                   else "decode_wmma")
     if variant in ("wmma", "decode_wmma") and (a_layout, b_layout) != ("mk", "kn"):
         raise ValueError(f"a={a_layout!r}, b={b_layout!r} operands need TMA: 16-byte "
                          f"aligned bases and row strides (lda {lda}, ldb {ldb} elements)")
@@ -307,8 +356,9 @@ def split_for(tiles: int, k_tiles: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _decode_plan(m: int, k: int, n: int, split: int, out_dtype: torch.dtype) -> StreamPlan:
-    return decode_plan(m, k, n, split, out_dtype=out_dtype)
+def _decode_plan(m: int, k: int, n: int, split: int, out_dtype: torch.dtype,
+                 deep: bool) -> StreamPlan:
+    return decode_plan(m, k, n, split, out_dtype=out_dtype, deep=deep)
 
 
 @functools.lru_cache(maxsize=256)
@@ -321,7 +371,7 @@ def _plan(m: int, k: int, n: int, tile: tuple[int, int, int], out_dtype: torch.d
 
 def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
                     out_dtype: torch.dtype | None = None, a_layout: str = "mk",
-                    b_layout: str = "kn") -> torch.Tensor:
+                    b_layout: str = "kn", variant: str | None = None) -> torch.Tensor:
     """C = A @ B with BSPS block streaming: (m, k) x (k, n) -> (m, n), A given
     as (m, k) (``a_layout="mk"``) or as its (k, m) transpose (``"km"``), B as
     (k, n) (``b_layout="kn"``) or as its (n, k) transpose (``"nk"``).
@@ -330,6 +380,10 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     bf16 or fp32 operands (both the same) whose stored rows are contiguous,
     output bf16 or float32 (rows n elements apart, n odd or even). CPU
     tensors go to :func:`repro_torch.kernels.ref.matmul_ref`.
+
+    ``variant="decode_wmma"`` runs that variant where the rule gives a
+    decode variant to default layouts (``chip_smoke.py`` times it so beside
+    ``decode_deep``); any other forced variant raises ``ValueError``.
     """
     _check_layouts(a_layout, b_layout)
     if a.dim() != 2 or b.dim() != 2:
@@ -356,12 +410,19 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return c.zero_()
-    variant = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k,
-                          a_layout=a_layout, b_layout=b_layout, dtype=a.dtype)
+    picked = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k,
+                         a_layout=a_layout, b_layout=b_layout, dtype=a.dtype)
+    if variant not in (None, picked) and not (
+            variant == "decode_wmma" and picked in ("decode", "decode_deep")
+            and (a_layout, b_layout) == ("mk", "kn")):
+        raise ValueError(f"variant {variant!r} cannot take the {m}x{k}x{n} {a.dtype} product "
+                         f"a={a_layout!r}, b={b_layout!r} (the rule gives {picked!r})")
+    variant = variant or picked
     partials = None
-    if variant == "decode":
-        split = decode_split(m, n, k, pipeline.sm_count(a.device))
-        plan = _decode_plan(m, k, n, split, out_dtype)
+    if variant in ("decode", "decode_deep"):
+        deep = variant == "decode_deep"
+        split = (deep_split if deep else decode_split)(m, n, k, pipeline.sm_count(a.device))
+        plan = _decode_plan(m, k, n, split, out_dtype, deep)
     else:
         tile = VARIANTS[variant]
         bm, bn, bk = tile

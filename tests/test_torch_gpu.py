@@ -110,7 +110,7 @@ def test_decode_product_is_one_launch(cuda):
     ops.matmul(a, b)
     assert ops.launch_counts()["streamed_matmul"] == 1
     assert ops.matmul_variant_counts() == {"decode": 1, "wgmma": 0, "wmma": 0, "decode_wmma": 0,
-                                           "simt_f32": 0}
+                                           "simt_f32": 0, "decode_deep": 0}
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -1004,14 +1004,16 @@ def test_flash_other_head_dims_raise(cuda, d, dtype):
 # 2048, sLSTM w_in 2048 -> 8192 and w_out) and nemotron-4-340b's MLP (18432 <->
 # 73728): decode at m = 4, forward at m = 1024. K = 73728 at m <= 16 needs
 # 8 x 9224 bf16 of A share a block (147 KB, past DECODE_A_MAX), so nemotron's
-# decode down projection takes decode_wmma
+# decode down projection takes decode_deep (A streamed beside B); at 16 rows
+# K = 18432 does too
 @pytest.mark.parametrize("m,k,n,variant", [
     (4, 2048, 4096, "decode"), (4, 4096, 2048, "decode"), (4, 2048, 8192, "decode"),
     (4, 2048, 2048, "decode"), (1024, 2048, 4096, "wgmma"), (1024, 4096, 2048, "wgmma"),
     (1024, 2048, 8192, "wgmma"),
-    (4, 18432, 73728, "decode"), (4, 73728, 18432, "decode_wmma"),
-    (1, 73728, 18432, "decode_wmma"), (1024, 18432, 73728, "wgmma"),
+    (4, 18432, 73728, "decode"), (4, 73728, 18432, "decode_deep"),
+    (1, 73728, 18432, "decode_deep"), (1024, 18432, 73728, "wgmma"),
     (1024, 73728, 18432, "wgmma"), (4, 18432, 256000, "decode"),
+    (16, 18432, 73728, "decode_deep"), (16, 24576, 6144, "decode_deep"),
 ])
 def test_matmul_at_the_families_shapes(cuda, m, k, n, variant):
     from repro_torch.kernels.streamed_matmul import decode_fits
@@ -1020,9 +1022,105 @@ def test_matmul_at_the_families_shapes(cuda, m, k, n, variant):
     a = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
     b = (torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5).to(torch.bfloat16)
     assert (m > 16 or decode_fits(m, k)) == (variant in ("decode", "wgmma"))
+    assert (m <= 16 and not decode_fits(m, k)) == (variant == "decode_deep")
     before = ops.matmul_variant_counts()[variant]
     got = streamed_matmul(a, b)
     assert ops.matmul_variant_counts()[variant] == before + 1
     want = ref.matmul_ref(a, b)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# decode_deep past the decode block's A share: ragged n and k (TMA zero-fills
+# B's edge, A's slice copies zero past k, k = 32333 inside a 16-byte chunk),
+# A's rows a multiple of 16 bytes apart (cp.async) or not (plain loads), B as
+# (n, k), and fp32 output
+@pytest.mark.parametrize("m,k,n,b_layout", [
+    (1, 32328, 136, "kn"), (4, 32333, 200, "kn"), (8, 40000, 1000, "kn"),
+    (9, 16000, 520, "kn"), (16, 20000, 264, "nk"), (13, 33000, 72, "nk"),
+])
+@pytest.mark.parametrize("a_pad", [0, 3])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_decode_deep_matches_plain(cuda, m, k, n, b_layout, a_pad, out_dtype):
+    a = _rand((m, -(-k // 8) * 8 + a_pad), torch.bfloat16, cuda, 71)[:, :k]
+    b = _rand((k, n) if b_layout == "kn" else (n, k), torch.bfloat16, cuda, 72) * k ** -0.5
+    before = ops.matmul_variant_counts()["decode_deep"]
+    got = streamed_matmul(a, b, out_dtype=out_dtype, b_layout=b_layout)
+    want = ref.matmul_ref(a, b, out_dtype=out_dtype, b_layout=b_layout)
+    torch.cuda.synchronize()
+    assert ops.matmul_variant_counts()["decode_deep"] == before + 1
+    tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_decode_deep_rows_are_batch_invariant(cuda):
+    """At nemotron's K = 73728 every m ≤ 8 takes decode_deep with one K
+    split: a row alone gives the bits it gives among 8, and the first rows of
+    16 alone (m = 9 .. 15) the bits they give among 16."""
+    gen = torch.Generator(device=cuda).manual_seed(73)
+    a = torch.randn((16, 73728), generator=gen, device=cuda).to(torch.bfloat16)
+    b = (torch.randn((73728, 2048), generator=gen, device=cuda) * 73728 ** -0.5).to(
+        torch.bfloat16)
+    full = streamed_matmul(a[:8], b)
+    for i in range(8):
+        assert torch.equal(streamed_matmul(a[i:i + 1], b), full[i:i + 1])
+    full = streamed_matmul(a, b)
+    for r in (9, 12, 15):
+        assert torch.equal(streamed_matmul(a[:r], b), full[:r])
+    assert all(torch.equal(full, streamed_matmul(a, b)) for _ in range(2))
+
+
+def test_decode_deep_is_one_launch(cuda):
+    a = _rand((4, 73728), torch.bfloat16, cuda, 74)
+    b = _rand((73728, 256), torch.bfloat16, cuda, 75)
+    ops.reset_launch_counts()
+    ops.matmul(a, b)
+    assert ops.launch_counts()["streamed_matmul"] == 1
+    assert ops.matmul_variant_counts()["decode_deep"] == 1
+
+
+def test_forced_decode_wmma_matches_the_rule(cuda):
+    """``variant="decode_wmma"`` runs the old variant where the rule gives a
+    decode variant (chip_smoke.py times it so): the same product within two
+    ulps; any other forced variant raises."""
+    for k in (40000, 5760):                      # decode_deep, decode
+        a = _rand((4, k), torch.bfloat16, cuda, 76)
+        b = _rand((k, 2304), torch.bfloat16, cuda, 77) * k ** -0.5
+        want = streamed_matmul(a, b, out_dtype=torch.float32)
+        before = ops.matmul_variant_counts()["decode_wmma"]
+        got = streamed_matmul(a, b, out_dtype=torch.float32, variant="decode_wmma")
+        assert ops.matmul_variant_counts()["decode_wmma"] == before + 1
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    for variant, layout in (("wgmma", "kn"), ("decode_deep", "kn"), ("decode_wmma", "nk")):
+        with pytest.raises(ValueError, match="cannot take"):
+            streamed_matmul(a, b if layout == "kn" else b.T.contiguous(), b_layout=layout,
+                            variant=variant)
+
+
+def test_jamba_train_step_raises_at_the_scan_on_the_card(cuda):
+    """The scan kernel has no backward: a jamba train step on the card
+    raises at the first Mamba layer instead of returning zero gradients for
+    every parameter upstream of the scan. Under no_grad the same forward
+    launches the kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b", smoke=True), d_model=256,
+                              num_heads=4, num_kv_heads=2, d_ff=512, moe_d_ff=512,
+                              ssm_d_state=16, moe_capacity_factor=8.0, dtype="bfloat16")
+    params = M.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(5))
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    opt = AdamW(constant(1e-3))
+    before = ops.launch_counts()["ssm_scan"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        make_train_step(cfg, opt, device=cuda)(params, opt.init(params), batch)
+    assert ops.launch_counts()["ssm_scan"] == before
+    with torch.no_grad():
+        M.loss_fn(cfg, params, batch["tokens"], batch["labels"], device=cuda)
+    assert ops.launch_counts()["ssm_scan"] > before

@@ -28,14 +28,17 @@ from repro.kernels.streamed_matmul import streamed_matmul as j_matmul
 from repro_torch.core import bsp as tbsp
 from repro_torch.kernels import ops, pipeline, ref
 from repro_torch.kernels.flash_attention import attention_plan
-from repro_torch.kernels.ssm_scan import launch_geometry, lanes_for, ssm_plan
+from repro_torch.kernels.ssm_scan import launch_geometry, lanes_for, ssm_plan, ssm_scan
 from repro_torch.kernels.streamed_dot import dot_plan
 from repro_torch.kernels.streamed_matmul import (
     DECODE_A_MAX,
+    SM_SMEM,
     VARIANTS,
     decode_fits,
     decode_plan,
     decode_split,
+    _deep_blocks_per_sm,
+    deep_split,
     matmul_plan,
     split_for,
     variant_for,
@@ -163,7 +166,7 @@ def _bf16(shape):
     ("decode", "decode"),              # m ≤ 16, B TMA-describable
     ("decode_odd_lda", "decode"),      # A's rows 194 bytes apart: A takes plain loads
     ("decode_odd_ldb", "decode_wmma"),  # n = 9: B's rows 18 bytes apart
-    ("decode_deep_k", "decode_wmma"),  # m 16, k 65536: A's K share overflows a block
+    ("decode_deep_k", "decode_deep"),  # m 16, k 65536: A's K share overflows a block
     ("forward", "wgmma"),              # minicpm's up projection
     ("odd_ldb", "wmma"),               # n = 130: B's rows 260 bytes apart
     ("odd_lda", "wmma"),               # k = 37: A's rows 74 bytes apart
@@ -223,12 +226,52 @@ def test_decode_fits_bounds_the_a_share():
 
 
 def test_decode_past_the_a_share_takes_one_variant():
-    """Where 8 rows' K share fits no split, every m ≤ 8 takes decode_wmma
+    """Where 8 rows' K share fits no split, every m ≤ 8 takes decode_deep
     (one summation order for all of them) and decode_split raises."""
     k = 8 * 63 * 64 + 64
-    assert {variant_for(m, 0, k, 0, 4096, k) for m in range(1, 9)} == {"decode_wmma"}
+    assert {variant_for(m, 0, k, 0, 4096, k) for m in range(1, 9)} == {"decode_deep"}
     with pytest.raises(ValueError, match="overflows a decode block"):
         decode_split(1, 4096, k, 132)
+
+
+# (m, k, n, b_layout) -> decode_deep's cluster size on 132 SMs: the deep-K
+# decode products (nemotron-4-340b's down projection at 1, 4 and 8 rows; at
+# 16 rows its up projection, starcoder2-15b's and qwen2-vl-7b's down
+# projections, nemotron's head with B as (k, n) and as (n, k)). Three 70 or
+# 75 KB blocks an SM: 346 of 396 slots, so 144 column tiles take 2
+@pytest.mark.parametrize("m,k,n,b_layout,split", [
+    (1, 73728, 18432, "kn", 2), (4, 73728, 18432, "kn", 2), (8, 73728, 18432, "kn", 2),
+    (16, 18432, 73728, "kn", 1), (16, 24576, 6144, "kn", 7), (16, 18944, 3584, "kn", 8),
+    (16, 18432, 256000, "kn", 1), (16, 18432, 256000, "nk", 1),
+])
+def test_deep_split(m, k, n, b_layout, split):
+    ldb = n if b_layout == "kn" else k
+    assert variant_for(m, 0, k, 0, ldb, k, b_layout=b_layout) == "decode_deep"
+    assert deep_split(m, n, k, 132) == split
+    k_tiles = -(-k // 64)
+    per = -(-k_tiles // split)
+    assert (split - 1) * per < k_tiles <= split * per       # no empty share
+    rows = 8 if m <= 8 else 16
+    # one K split (one summation order) for every m of the kernel instance
+    assert {deep_split(r, n, k, 132) for r in range(rows - 7, rows + 1)} == {split}
+    plan = decode_plan(m, k, n, split, deep=True)
+    assert plan.grid == (-(-n // 128), split, per)
+    # the ring of 16 KB weight stages and 4 stages of A slices of `rows` rows
+    assert plan.scratch_bytes == 4 * 64 * 128 * 2 + 4 * rows * 72 * 2
+    blocks = _deep_blocks_per_sm(m)
+    assert blocks == 3 and blocks * (plan.scratch_bytes + 1024 + 64 + 1024) <= SM_SMEM
+    assert 8 * plan.grid[0] * split <= 7 * 132 * blocks or split == 1
+
+
+def test_deep_plan_streams_a_beside_b():
+    """decode_deep's A is a token of the K stream, (m, 64) at hyperstep s,
+    where the decode variant holds each block's whole K share."""
+    deep, share = decode_plan(4, 73728, 18432, 2, deep=True), decode_plan(4, 2304, 5760, 6)
+    assert deep.inputs[0].block_shape == (4, 64) and deep.inputs[1].block_shape == (64, 128)
+    assert deep.inputs[0].index_map(3, 1, 5) == (0, 576 + 5)
+    assert deep.inputs[1].index_map(3, 1, 5) == (576 + 5, 3)
+    assert share.inputs[0].block_shape == (4, 6 * 64)
+    assert deep.fingerprint() != decode_plan(4, 73728, 18432, 2, deep=False).fingerprint()
 
 
 @pytest.mark.parametrize("k,n", [(2304, 2304), (2304, 5760), (5760, 2304), (2304, 122753),
@@ -372,13 +415,42 @@ def test_simt_f32_sweep_refuses_without_a_card(monkeypatch):
         sweep_simt_f32.main()
 
 
+def _scan_operands(device, grad):
+    shapes = [(1, 8, 16), (1, 8, 16), (1, 8, 8), (1, 8, 8), (16, 8), (16,)]
+    ts = [torch.ones(s, device=device) for s in shapes]
+    ts[-2] = -ts[-2]
+    ts[grad].requires_grad_(True)
+    return ts
+
+
+@pytest.mark.parametrize("grad", range(6))   # x, dt, b, c, a, d
+def test_ssm_scan_raises_under_autograd_off_the_cpu(grad):
+    """The kernel's output carries no graph, so off the CPU an operand that
+    requires grad raises under grad mode instead of losing its gradient
+    (on any device: ``meta`` here); under no_grad the wrapper goes on to
+    its device check."""
+    args = _scan_operands("meta", grad)
+    with pytest.raises(RuntimeError, match="no backward on the card"):
+        ssm_scan(*args)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA or CPU tensors"):
+        ssm_scan(*args)
+
+
+def test_ssm_scan_on_the_cpu_keeps_its_graph():
+    """On the CPU the plain scan runs under autograd as before."""
+    args = _scan_operands("cpu", 0)
+    y = ssm_scan(*args)
+    y.sum().backward()
+    assert y.grad_fn is not None and args[0].grad is not None
+
+
 def test_reset_clears_the_variant_counts():
     from repro_torch.kernels.streamed_matmul import streamed_matmul
 
     streamed_matmul.launches_by_variant["wgmma"] += 3
     ops.reset_launch_counts()
     assert ops.matmul_variant_counts() == {"decode": 0, "wgmma": 0, "wmma": 0, "decode_wmma": 0,
-                                           "simt_f32": 0}
+                                           "simt_f32": 0, "decode_deep": 0}
 
 
 def test_cpu_tensors_never_reach_the_library(rng, monkeypatch):

@@ -20,6 +20,7 @@ machine pack. Tolerances:
 
 import dataclasses
 import os
+import types
 
 import jax
 import numpy as np
@@ -267,27 +268,60 @@ def test_train_host_loop_fetch_wait_deepens_prefetch():
     assert any("prefetch depth ->" in line for line in logs)
 
 
-def test_train_reprices_prefetch_on_drift():
+@pytest.fixture
+def virtual_clock(monkeypatch):
+    """Both packages' runner clocks made of their injected delays alone:
+    ``sleep`` advances the clock, compute takes no time. The walls the loop
+    reads (each record's step, compute and fetch-wait seconds) are then the
+    delays the FaultPlan declares, however loaded the host is: on the wall
+    clock a stall counts as drift only while the eager steps are fast."""
+    from repro.core import hyperstep as jhyperstep
+    from repro_torch.core import hyperstep as thyperstep
+
+    now = [0.0]
+
+    def sleep(d: float) -> None:
+        now[0] += d
+
+    clock = types.SimpleNamespace(perf_counter=lambda: now[0], sleep=sleep)
+    for mod in (thyperstep, jhyperstep):
+        monkeypatch.setattr(mod, "time", clock)
+    return now
+
+
+# the drift drill's compute and stall per hyperstep, in virtual seconds
+BASE_S, STALL_S = 0.005, 0.05
+
+
+def test_train_reprices_prefetch_on_drift(virtual_clock):
     """Sustained stall mid-train -> BSPS220 -> refit from the store -> the
     prefetch depth is re-priced by the measured link slowdown (BSPS221), in
-    the port as in the reference (the same drill on each)."""
+    the port as in the reference (the same drill on each), on the virtual
+    clock."""
     jc, tc = _cfgs()
     results = {}
+    # on the virtual clock compute takes no time, so every hyperstep's
+    # compute is an injected straggler of BASE_S, in the seeding run too
+    base, stall = dict(at=tuple(range(64)), delay_s=BASE_S), dict(at=tuple(range(4, 64)),
+                                                                  delay_s=STALL_S)
     for name, run, store, plan in (
-            ("port", _port, CalibrationStore(), lambda: FaultPlan(
-                [FaultSpec("dma_stall", at=tuple(range(4, 64)), delay_s=0.05)])),
-            ("ref", _ref, JStore(), lambda: JFaultPlan(
-                [JFaultSpec("dma_stall", at=tuple(range(4, 64)), delay_s=0.05)]))):
+            ("port", _port, CalibrationStore(), lambda stalled: FaultPlan(
+                [FaultSpec("straggler", **base)]
+                + [FaultSpec("dma_stall", **stall)] * stalled)),
+            ("ref", _ref, JStore(), lambda stalled: JFaultPlan(
+                [JFaultSpec("straggler", **base)]
+                + [JFaultSpec("dma_stall", **stall)] * stalled))):
         cfg = tc if name == "port" else jc
         lines: list[str] = []
-        run(cfg, 4, compiled=False, machine=None, calibstore=store)  # seeds the band
+        run(cfg, 4, compiled=False, machine=None, calibstore=store,  # seeds the band
+            faults=plan(False).replay())
         assert len(store.records()) == 1
         rec = store.records()[0]
         for _ in range(4):                   # the drifted reality, same band
             store.add(dataclasses.replace(
                 rec, measured_seconds=rec.measured_seconds * 8, faulty=True))
         res = run(cfg, 16, compiled=False, machine=None, calibstore=store,
-                  faults=plan().replay(), log=lines.append)
+                  faults=plan(True).replay(), log=lines.append)
         results[name] = (res["health"], lines)
     for health, lines in results.values():
         codes = health["count_by_code"]
