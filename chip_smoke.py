@@ -12,9 +12,11 @@ and ``decode_deep`` at the deep-K decode products beside ``decode_wmma``
 forced on the same operands), times it beside the plain version and one
 library call where there is one, and checks 2-layer full-width cuts of
 minicpm-2b and jamba-v0.1-52b on the card against float32 on the CPU, the
-forward and, for minicpm-2b, the loss and every gradient. Then it drives
-seven main paths, each with the launch counts set to 0 before it and read
-after: the paper's §3.1 inner product through the hyperstep runner in
+forward and, for minicpm-2b, the loss and every gradient; the scan's
+backward kernel against its plain reverse walk at jamba's train shapes and
+ragged ones, bit for bit across runs, lane counts and batch rows. Then it
+drives eight main paths, each with the launch counts set to 0 before it
+and read after: the paper's §3.1 inner product through the hyperstep runner in
 both execution modes plus minicpm-2b served at full width and depth;
 minicpm-2b's train step at full width and depth (4 AdamW steps, the loss
 falling); the training loop (``train-loop``:
@@ -24,8 +26,13 @@ for bit and each step launching what the bare step launches, then a
 crash/resume drill at full width and 2 layers with 4.9 GB checkpoints,
 resumed bit for bit in both modes); jamba-v0.1-52b served at full width
 with its depth cut to one period of 8 layers (random weights from a seed),
-each served model through ``generate`` and ``make_prefill_step``; and the
-paper's algorithms (``bsps``): the §3.1 inner product over 16 cores from
+each served model through ``generate`` and ``make_prefill_step``;
+jamba-v0.1-52b trained (``jamba-train``: a 2-layer published-width cut's
+loss and every gradient leaf, bf16 and fp32 on the card, against fp32 on
+the CPU; 4 AdamW steps at ``card_train_config``, 8 layers and 4 experts at
+published widths, each step launching the scan 14 times, its backward 7
+and flash twice; ``train()`` 3 steps in each mode, the losses equal bit
+for bit); and the paper's algorithms (``bsps``): the §3.1 inner product over 16 cores from
 cyclic streams, and two-level Cannon (Algorithm 2) at n = 16384, M = 4 on
 one core and on a 4 × 4 grid, fp32 (the matmul's ``simt_f32`` variant)
 and bf16 (``wgmma``), in both execution modes, each run beside its Eq. 2
@@ -85,7 +92,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import Block, card_config, get_config  # noqa: E402
+from repro_torch.configs import Block, card_config, card_train_config, get_config  # noqa: E402
 from repro_torch.core.calibrate import default_machine, measure_fetch_model  # noqa: E402
 from repro_torch.core.cost import cannon_k_equal, inner_product_cost  # noqa: E402
 from repro_torch.core.faults import FaultPlan, FaultSpec  # noqa: E402
@@ -95,7 +102,13 @@ from repro_torch.core.stream import StreamSet  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.distributed.cannon import gather_c, make_cannon_runner  # noqa: E402
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
-from repro_torch.kernels.ssm_scan import LANE_CHOICES, lanes_for, ssm_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    LANE_CHOICES,
+    bwd_segment,
+    lanes_for,
+    ssm_scan,
+    ssm_scan_bwd,
+)
 from repro_torch.kernels.streamed_matmul import (  # noqa: E402
     VARIANTS,
     decode_fits,
@@ -107,13 +120,14 @@ from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.serve import generate, make_prefill, prefill_block_size  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.mamba import chunked_selective_scan  # noqa: E402
 from repro_torch.models.flash import FlashAttention  # noqa: E402
 from repro_torch.optim.adamw import AdamW, leaves  # noqa: E402
 from repro_torch.optim.compress import tree_map  # noqa: E402
 from repro_torch.optim.schedule import wsd  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
-from repro_torch.train.steps import make_prefill_step, make_train_step  # noqa: E402
+from repro_torch.train.steps import make_grad_fn, make_prefill_step, make_train_step  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is
 # the larger of its bytes over the memory rate and its operations over the
@@ -145,6 +159,10 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention.py:40"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:35"),
+    # the JAX package has no Pallas backward: jax.grad through its
+    # chunked_selective_scan
+    "ssm_scan_bwd": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     "src/repro/models/mamba.py:63"),
 }
 
 
@@ -649,6 +667,121 @@ def check_ssm(rows: dict) -> None:
     row = ops.selective_scan(*(t[1:2].contiguous() for t in (x, dt, bb, c)), a, d)
     check(torch.equal(full[1:2], row), "ssm_scan batch rows leak state")
     log("[kernel] ssm_scan batch-row isolation: row 1 alone equals row 1 in the batch")
+
+
+# the scan's backward as a function of (x, Δ, B, C, A, D, dy): fp32
+# operations per (position, channel, state) that it needs, with each
+# position's exp(Δ_t A) taken once. The states h_{t-1} are not among its
+# inputs, so one forward walk is part of the work (Δ_t A, the update's
+# product and fma: 4); the reverse step: g's fma, g·e, that times h_{t-1},
+# dA's fma, the two sums over states (Σ A g e h, Σ g B: an fma each), the
+# dB and dC terms and their sums over channels (14). The kernel does more
+# (ssm_bwd_plan's 22 and three exponentials: a second forward walk over
+# each segment from its checkpoint, and the reverse step's own exp): that
+# is its design, not the function's work, and is not counted.
+SSM_BWD_FLOPS = 18.0
+BWD_NAMES = ("dx", "ddt", "db", "dc", "da", "dd")
+
+
+def _scan_bwd_bound(b, seq, di, ds, item, lanes) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, the exponentials' time, the bound with
+    the checkpoint tape) of one backward launch. The bound is the larger
+    of the function's bytes (x, Δ, B, C, dy, A, D read once; dx, dΔ, dB,
+    dC, dA, dD written once) over the memory rate, its fp32 operations
+    (:data:`SSM_BWD_FLOPS`) over the fp32 peak, and its exponentials, one
+    per (position, channel, state), at the special-function unit's 16 a
+    clock per SM. Beside it, the same with the design's checkpoint tape
+    written and read back added to the bytes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seg = min(bwd_segment(lanes, ds), seq)
+    tape = b * -(-seq // seg) * di * ds * 4
+    nbytes = (5 * b * seq * di + 4 * b * seq * ds) * item + 2 * (di * ds + di) * 4
+    exp_ms = b * seq * di * ds / (16 * sms * SPIN_CYCLES_PER_S) * 1e3
+    b_ms, b_by = bound(nbytes, SSM_BWD_FLOPS * b * seq * di * ds, "fp32")
+    if exp_ms > b_ms:
+        b_ms, b_by = exp_ms, "operations"
+    return b_ms, b_by, exp_ms, max(b_ms, (nbytes + 2 * tape) / PEAK_BYTES_PER_S * 1e3)
+
+
+def check_ssm_bwd(rows: dict) -> None:
+    """The scan's backward kernel against ``ssm_scan_bwd_ref`` on the same
+    inputs. Tolerances: fp32 sums in another order and ex2.approx for exp,
+    1e-4 of each gradient's largest entry; bf16 streams, the same fp32 walk
+    from the same bf16 inputs with dx, dΔ, dB, dC rounded once to bf16 on
+    each side (two bf16 ulps of the largest), dA and dD fp32 (1e-4). Every
+    case's gradients are the same bits in a second run and for every other
+    lane count; at jamba's shapes each lane count is timed. Beside: the
+    plain walk's time and torch autograd through the port's
+    ``chunked_selective_scan`` (forward and backward), for scale."""
+    cases = [(4, 256, 8192, 16, torch.bfloat16, 2),      # jamba's train step
+             (4, 256, 8192, 16, torch.float32, 2),
+             (2, 300, 1000, 16, torch.bfloat16, 3),      # ragged d_inner and L
+             (1, 130, 200, 8, torch.float32, 3)]         # d_state 8, ragged
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for idx, (b, seq, di, ds, dtype, plain_iters) in enumerate(cases):
+        item = torch.tensor([], dtype=dtype).element_size()
+        nbytes = (3 * b * seq * di + 2 * b * seq * ds) * item
+
+        def make(i, b=b, seq=seq, di=di, ds=ds, dtype=dtype):
+            return (*_ssm_inputs(b, seq, di, ds, dtype, 10 * i + 60),
+                    randn((b, seq, di), dtype, 10 * i + 65))
+
+        sets = copies_past_l2(make, nbytes)
+        got = ssm_scan_bwd(*sets[0])
+        want = ref.ssm_scan_bwd_ref(*sets[0])
+        torch.cuda.synchronize()
+        errs, abs_err = [], 0.0
+        for name, g, w in zip(BWD_NAMES, got, want):
+            check(bool(torch.isfinite(g).all()), f"ssm_scan_bwd {name}: non-finite")
+            err = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            tol = 2 * 2 ** -8 if g.dtype == torch.bfloat16 else 1e-4
+            check(err <= tol * scale, f"ssm_scan_bwd b{b} L{seq} di{di} ds{ds} {dtype} "
+                  f"{name}: max err {err} > {tol} x {scale}")
+            errs.append(f"{name} {err / scale:.3g} (tol {tol:.3g})")
+            abs_err = max(abs_err, err)
+        check(all(torch.equal(g, h) for g, h in zip(got, ssm_scan_bwd(*sets[0]))),
+              f"ssm_scan_bwd b{b} L{seq}: two runs differ")
+        rule = lanes_for(b, di, ds, sms)
+        lane_ms = {}
+        for lanes in (n for n in LANE_CHOICES if 2 * n <= ds):
+            if lanes != rule:
+                other = ssm_scan_bwd(*sets[0], lanes=lanes)
+                check(all(torch.equal(g, h) for g, h in zip(got, other)),
+                      f"ssm_scan_bwd b{b} L{seq}: lanes={lanes} differs from {rule}")
+            if idx < 2 or lanes == rule:
+                lane_ms[lanes], _ = bench_ms(lambda *a, n=lanes: ssm_scan_bwd(*a, lanes=n),
+                                             sets, 20)
+        ms = lane_ms[rule]
+        plain, _ = bench_ms(ref.ssm_scan_bwd_ref, sets, plain_iters)
+
+        def chunked_fwd_bwd(x, dt, bb, c, a, d, dy):
+            live = [t.detach().requires_grad_(True) for t in (x, dt, bb, c, a, d)]
+            y, _ = chunked_selective_scan(*live)
+            return torch.autograd.grad(y, live, dy.float())
+
+        chunked, _ = bench_ms(chunked_fwd_bwd, sets, 3)
+        b_ms, b_by, exp_ms, tape_ms = _scan_bwd_bound(b, seq, di, ds, item, rule)
+        log(f"[kernel] ssm_scan_bwd b{b} L{seq} di{di} ds{ds} {str(dtype)[6:]} lanes={rule} "
+            f"segment={min(bwd_segment(rule, ds), seq)}: max err / max |grad| "
+            f"{'; '.join(errs)}; bit-equal across 2 runs and lanes "
+            f"{[n for n in LANE_CHOICES if 2 * n <= ds]}; ms={ms:.4f} (by lanes "
+            f"{ {n: round(v, 4) for n, v in lane_ms.items()} }) plain_ms={plain:.4f} "
+            f"chunked_autograd_ms={chunked:.4f} library=none bound_ms={b_ms:.4f} ({b_by}; "
+            f"exponentials {exp_ms:.4f}) bound_with_tape_ms={tape_ms:.4f} ({ms / b_ms:.1f}x "
+            f"the bound)")
+        if idx == 0:
+            rows["ssm_scan_bwd"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
+                                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # a row alone gives the bits it gives in the batch (2 lanes for 4 rows, 4 for 1)
+    args = make(0, 4, 100, 8192, 16, torch.bfloat16)
+    full = ssm_scan_bwd(*args)
+    row = ssm_scan_bwd(*(t[1:2].contiguous() for t in args[:4]), *args[4:6],
+                       args[6][1:2].contiguous())
+    check(all(torch.equal(g[1:2], r) for g, r in zip(full[:4], row[:4])),
+          "ssm_scan_bwd: a row alone differs from the row in its batch")
+    log("[kernel] ssm_scan_bwd batch-row isolation: row 1's dx, dΔ, dB, dC alone equal "
+        "the batch's")
 
 
 # -- phase 3: the §3.1 inner product through the hyperstep runner --------------------
@@ -1721,6 +1854,191 @@ def serve_jamba(machine) -> dict:
     return counts
 
 
+# -- jamba-v0.1-52b's train step -----------------------------------------------------
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.float().cpu() - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def jamba_train_reference() -> None:
+    """A 2-layer cut of jamba at published widths (Mamba + MoE, attention +
+    dense; 4 experts top-2), B 2 x S 64: the loss and every gradient leaf
+    on the card in bf16 (the scan's kernels forward and backward, the
+    matmul kernel forward and backward, the flash kernel forward) and in
+    fp32 (the same kernels' fp32 paths, ``simt_f32``) against fp32 autograd
+    on the CPU through the plain versions, every MoE layer on the routes of
+    the bf16 run (``moe.route_hook``). fp32: sums in another order over
+    4096- to 14336-term products and a 64-step recurrence, each leaf within
+    1e-3 (relative L2). bf16 weights, activations and gradients against
+    fp32: the loss within 1%, each leaf within 0.1 (relative L2; a one-period
+    cut at smoke widths came within 0.02-0.061 over 8 layers)."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=2, moe_experts=4,
+                              pattern=(Block("mamba", "moe"), Block("attn", "dense")))
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    n = M.count_params(cfg)
+    check(6 * 4 * n <= host_available_bytes(),
+          f"jamba train cut: {n / 1e9:.3f} B fp32 params and their gradients do not fit the host")
+    params = M.init_params(cfg, 0, device="cuda")
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 65))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+    routes: list[torch.Tensor] = []
+
+    def grads_on(cfg, params, device, hook):
+        with moe_mod.route_hook(hook):
+            return _loss_and_grads(cfg, params, {k: v.to(device) for k, v in batch.items()},
+                                   device)
+
+    def record(probs, top_e):
+        routes.append(top_e.cpu())
+        return top_e
+
+    def replay():
+        it = iter(routes)
+        return lambda probs, top_e: next(it).to(top_e.device)
+
+    before = counts_now()
+    loss, got = grads_on(cfg, params, "cuda", record)
+    check(counts_now()["ssm_scan_bwd"] - before["ssm_scan_bwd"] == 1,
+          "jamba train cut: the scan's backward kernel was not launched once")
+    got = [g.float().cpu() for g in got]
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    loss32, got32 = grads_on(f32, p32, "cuda", replay())
+    got32 = [g.cpu() for g in got32]
+    cpu = tree_map(lambda t: t.cpu(), p32)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_loss, want = grads_on(f32, cpu, "cpu", replay())
+    e16 = [_rel_l2(g, w) for g, w in zip(got, want)]
+    e32 = [_rel_l2(g, w) for g, w in zip(got32, want)]
+    check(all(bool(torch.isfinite(g).all()) for g in got), "jamba train cut: non-finite grads")
+    check(max(e32) <= 1e-3, f"jamba train cut: fp32 card gradients vs the CPU's {e32}")
+    check(abs(loss - want_loss) <= 0.01 * want_loss,
+          f"jamba train cut: loss {loss} on the card vs {want_loss} on the CPU")
+    check(max(e16) <= 0.1, f"jamba train cut: bf16 card gradients vs fp32 {e16}")
+    log(f"[jamba-train] reference: 2 layers {[(b.mixer, b.mlp) for b in cfg.pattern]}, "
+        f"{cfg.moe_experts} experts, {n / 1e9:.3f} B params, B 2 x S 64, {len(routes)} MoE "
+        f"routings replayed; loss card bf16 {loss:.5f} / fp32 {loss32:.5f} vs cpu fp32 "
+        f"{want_loss:.5f}; {len(e16)} gradient leaves, relative L2 vs cpu fp32: bf16 max "
+        f"{max(e16):.4g} (tol 0.1) median {float(np.median(e16)):.4g}, fp32 max "
+        f"{max(e32):.3g} (tol 1e-3)")
+    log(f"[jamba-train] reference: bf16 relative L2 per leaf {[round(e, 4) for e in e16]}")
+
+
+def train_jamba() -> dict:
+    """jamba-v0.1-52b's train step at ``card_train_config`` (8 layers, 4
+    experts top-2, published widths; bf16, remat "full"), B 4 x S 256,
+    AdamW on WSD: 4 steps on one batch from a seed, then the loss and
+    gradients and the AdamW update timed apart."""
+    cfg = card_train_config("jamba-v0.1-52b")
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16", f"jamba: {cfg.remat}, {cfg.dtype}")
+    batch, seq, steps = 4, 256, 4
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device="cuda")
+    opt = AdamW(wsd(peak_lr=2e-3, warmup=4, total=100))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (batch, seq + 1))
+    data = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device="cuda"),
+            "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int64, device="cuda")}
+    step = make_train_step(cfg, opt, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    walls, dev_ms, losses, norms, per_step = [], [], [], [], []
+    for _ in range(steps):
+        before = counts_now()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        params, state, m = step(params, state, data)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        dev_ms.append(start.elapsed_time(end))
+        per_step.append({k: v - before[k] for k, v in counts_now().items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)) and min(norms) > 0,
+          f"jamba train losses {losses}, grad norms {norms}")
+    # per step: 7 Mamba layers' scans forward and in the period's recompute
+    # under remat "full", each backward once; flash forward and recompute;
+    # every product on wgmma: the forward's (4 attention, 12 dense MLP, the
+    # head), the recompute's (all but the head) and dX, dW of each
+    prods = products_per_forward(cfg)
+    for c in per_step:
+        check(c["ssm_scan"] == 14 and c["ssm_scan_bwd"] == 7 and c["flash_attention"] == 2
+              and c["streamed_matmul"] == c["streamed_matmul.wgmma"] == 4 * prods - 1,
+              f"jamba train step launches {c}")
+    grads_of = make_grad_fn(cfg, device="cuda")
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.synchronize()
+    start.record()
+    grads, _ = grads_of(params, data)
+    mid.record()
+    opt.update(grads, state, params)
+    end.record()
+    end.synchronize()
+    grad_ms, adamw_ms = start.elapsed_time(mid), mid.elapsed_time(end)
+    wall = float(np.median(walls))
+    log(f"[jamba-train] jamba-v0.1-52b card_train_config: {cfg.num_layers} of "
+        f"{get_config('jamba-v0.1-52b').num_layers} layers, {cfg.moe_experts} of "
+        f"{get_config('jamba-v0.1-52b').moe_experts} experts top-{cfg.moe_top_k}, "
+        f"{M.count_params(cfg) / 1e9:.3f} B params, remat {cfg.remat}, B {batch} x S {seq}, "
+        f"init {init_s:.1f} s: losses {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(x, 4) for x in norms]}")
+    log(f"[jamba-train] step wall median {wall * 1e3:.1f} ms (all "
+        f"{[round(w * 1e3, 1) for w in walls]}), {batch * seq / wall:.0f} tokens/s, device ms "
+        f"per step (CUDA events) {[round(d, 1) for d in dev_ms]}; apart: loss and gradients "
+        f"{grad_ms:.1f} ms, AdamW {adamw_ms:.1f} ms; max_memory_allocated {peak / 1e9:.2f} GB")
+    log(f"[jamba-train] launches per step: {json.dumps(per_step[-1])} (products per forward "
+        f"{prods})")
+    del params, state, grads, step, grads_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_step[-1]
+
+
+def train_loop_jamba(machine, bare: dict) -> None:
+    """``train/loop.train`` at ``card_train_config``'s jamba: 3 steps in
+    each execution mode from a fresh seed-0 init, no checkpoint directory
+    (a checkpoint would be ~58 GB): the losses equal bit for bit between
+    the modes, each step launching what the bare step launches."""
+    cfg = card_train_config("jamba-v0.1-52b")
+    runs = {}
+    for compiled in (True, False):
+        t0 = time.perf_counter()
+        out, _, launched = _loop(cfg, 3, compiled, machine)
+        wall = time.perf_counter() - t0
+        losses = [h["loss"] for h in out["history"]]
+        steps_ms = [round(h["step_seconds"] * 1e3, 1) for h in out["history"]]
+        mode = "compiled" if compiled else "host loop"
+        check(all(np.isfinite(losses)), f"jamba train loop ({mode}) losses {losses}")
+        want = {k: 3 * v for k, v in bare.items()}
+        check(launched == want, f"jamba train loop ({mode}) launches {launched}, 3 bare {want}")
+        runs[compiled] = losses
+        log(f"[jamba-train] loop {mode}: 3 steps in {wall:.1f} s with the init, losses "
+            f"{[round(x, 4) for x in losses]}, step ms {steps_ms}")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(runs[True] == runs[False],
+          f"jamba train loop: compiled losses {runs[True]} != host loop {runs[False]}")
+    log("[jamba-train] loop: compiled and host-loop losses equal bit for bit")
+
+
+def jamba_train_path(machine) -> None:
+    jamba_train_reference()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bare = train_jamba()
+    train_loop_jamba(machine, bare)
+
+
 # -- the remaining families: xlstm-1.3b and the six attention configs -----------------
 
 
@@ -2145,6 +2463,7 @@ def main() -> int:
         check_dot(rows)
         check_flash(rows)
         check_ssm(rows)
+        check_ssm_bwd(rows)
         rate_f32 = check_matmul_f32(rows)
 
     with phase("calibration"):
@@ -2173,6 +2492,9 @@ def main() -> int:
     hybrid = main_path("jamba-v0.1-52b", lambda: serve_jamba(machine))
     gc.collect()
     torch.cuda.empty_cache()
+    hybrid_train = main_path("jamba-train", lambda: jamba_train_path(machine))
+    gc.collect()
+    torch.cuda.empty_cache()
     recurrent = main_path("xlstm-1.3b", lambda: xlstm_path(machine))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2187,12 +2509,14 @@ def main() -> int:
         check(loop[name] > 0, f"{name} was not launched on the train-loop path")
     for name in ("streamed_matmul", "flash_attention", "ssm_scan"):
         check(hybrid[name] > 0, f"{name} was not launched on the jamba path")
+    for name in ("ssm_scan", "ssm_scan_bwd", "streamed_matmul", "flash_attention"):
+        check(hybrid_train[name] > 0, f"{name} was not launched on the jamba-train path")
     check(recurrent["streamed_matmul"] > 0, "streamed_matmul was not launched on the xlstm path")
     for name in ("streamed_matmul", "flash_attention"):
         check(families[name] > 0, f"{name} was not launched on the families path")
     for name in ("streamed_dot", "streamed_matmul"):
         check(paper[name] > 0, f"{name} was not launched on the bsps path")
-    paths = (dense, train, loop, hybrid, recurrent, families, paper)
+    paths = (dense, train, loop, hybrid, hybrid_train, recurrent, families, paper)
     launches = {k: sum(p[k] for p in paths) for k in dense}
 
     kernels = []

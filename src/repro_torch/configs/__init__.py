@@ -7,7 +7,8 @@ and vision (M-RoPE) backbones that take frontend embeddings.
 ``get_config(name)`` returns the published config;
 ``get_config(name, smoke=True)`` the reduced same-family config of the CPU
 parity tests; ``card_config(name)`` the published widths at the depth one
-80 GB card holds.
+80 GB card holds, ``card_train_config(name)`` at the depth and expert count
+it trains.
 """
 
 from repro_torch.configs.base import (
@@ -18,6 +19,7 @@ from repro_torch.configs.base import (
     ShapeSpec,
     applicable_shapes,
     card_config,
+    card_train_config,
     get_config,
     list_configs,
 )
@@ -47,6 +49,7 @@ __all__ = [
     "ShapeSpec",
     "applicable_shapes",
     "card_config",
+    "card_train_config",
     "get_config",
     "list_configs",
 ]

@@ -243,6 +243,27 @@ def card_config(name: str) -> ModelConfig:
     return dataclasses.replace(cfg, num_layers=CARD_LAYERS.get(name, cfg.num_layers))
 
 
+# The depth and expert count at which one 80 GB card trains a config whose
+# training state does not fit it. The port's AdamW keeps bf16 parameters
+# and gradients and fp32 moments, 12 B a parameter. One jamba-v0.1-52b
+# period at 16 experts is 13.295 B parameters (160 GB). Its non-MoE part is
+# ~2.02 B: 7 Mamba mixers at ~105 M, one attention block at 42 M, 4 dense
+# MLPs at 176 M, the embedding and the untied head at 537 M; an expert is
+# 3 x 4096 x 14336 = 176 M, 4 MoE layers a period. At 4 experts the period
+# is 2.02 + 4 x 4 x 0.176 = 4.84 B (58 GB of state); AdamW's transients add
+# 3-4 GB (the largest leaf, (4, 4096, 14336), is 0.94 GB in fp32) and the
+# activations of B 4 x S 256 under remat "full" under 3 GB: ~65 GB. 8
+# experts would be 7.66 B, 92 GB.
+CARD_TRAIN = {"jamba-v0.1-52b": dict(num_layers=8, moe_experts=4)}
+
+
+def card_train_config(name: str) -> ModelConfig:
+    """The published config at the depth and expert count one card trains
+    (``CARD_TRAIN``; top-k and every width kept), else :func:`card_config`."""
+    cut = CARD_TRAIN.get(name)
+    return dataclasses.replace(get_config(name), **cut) if cut else card_config(name)
+
+
 def list_configs() -> list[str]:
     import repro_torch.configs  # noqa: F401
 

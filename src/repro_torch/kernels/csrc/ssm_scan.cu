@@ -307,3 +307,417 @@ BSPS_EXPORT int bsps_ssm_scan(int device, int gx, int gy, int gz, int loop, int 
                                    d_inner, d_state, chunk);
   return cudaErrorInvalidValue;
 }
+
+// ---------------------------------------------------------------------------
+// The backward: (dx, dΔ, dB, dC, dA, dD) of the scan above for the output
+// gradient dy.
+//
+// Replaces: jax.grad through the JAX package's chunked_selective_scan
+// (src/repro/models/mamba.py:63), its training path; it has no Pallas
+// backward. With g_t = ∂L/∂h_t, carried from the last position to the first,
+//   g_t  = C_t dy_t + exp(Δ_{t+1}A) ⊙ g_{t+1}
+//   dx_t = D dy_t + Δ_t Σ_s g_t B_t          dΔ_t = Σ_s g_t (A e_t h_{t-1} + B_t x_t)
+//   dB_t = Σ_i g_t Δ_t x_t                   dC_t = Σ_i dy_t h_t
+//   dA   = Σ_{b,t} g_t Δ_t e_t h_{t-1}       dD   = Σ_{b,t} dy_t x_t
+// with e_t = exp(Δ_t A), s over states and i over channels.
+//
+// Bound on this card: operations. The function needs one exponential and
+// about 18 fp32 operations per (position, channel, state); this design does
+// about 22 and three exponentials (a forward sweep, a recompute and a
+// reverse step per position), and moves a checkpoint tape besides.
+//
+// Design. The grid and lane groups are the forward's: (channel tiles, batch
+// rows), G lanes a channel, SPL = d_state / G states a lane. The recurrence
+// is not run backwards: h_{t-1} = (h_t - Δ_t B_t x_t) / e_t divides by decays
+// down to exp(-16Δ) and loses the state. Instead the block first walks its
+// channels forward (sweep 1) and stores the state before every segment of
+// `chunk` positions to an fp32 checkpoint tape (B, n_chunks, d_inner,
+// d_state) in device memory; then it walks the segments in reverse (sweep
+// 2), recomputes a segment's states from its checkpoint into registers (the
+// forward's arithmetic, so the forward's bits) and steps g back through
+// them. A segment is 8 positions at 8 states a lane, 16 at fewer, so the
+// recomputed states stay in registers. Each segment's x, Δ, dy, B_t, C_t are
+// staged in shared memory by cp.async, the next one's while this one runs.
+//
+// No atomics, and the same bits for every G, every batch and every run:
+// - the per-channel sums over states (Σ g B, Σ A e h g) take the forward's
+//   C_t·h_t order: state pairs fused, a balanced tree over the pairs, its
+//   last log2(G) levels across the group;
+// - dA and dD sum over positions in one thread, last position first, and
+//   the per-row partials are summed in row order by a second kernel;
+// - dB and dC sum over channels that live in other blocks. Each position's
+//   per-(channel, state) terms go to shared memory, kBatch positions at a
+//   time, and are summed in channel order over groups of kGroup = 16
+//   channels (the tile at G = 8); the second kernel sums the groups'
+//   partials (B, L, 2, ceil(d_inner / 16), d_state) in group order.
+// The chunk sets only where the checkpoints fall, so the bits do not depend
+// on it either.
+
+namespace {
+
+constexpr int kBatch = 8;    // positions per dB/dC reduction through shared memory
+constexpr int kGroup = 16;   // channels per dB/dC partial
+
+// positions per segment: the segment's recomputed states stay in registers
+__host__ __device__ constexpr int seg_len(int spl) { return spl >= 8 ? 8 : 16; }
+
+template <typename T, int DS>
+__host__ __device__ constexpr int bwd_buffer_elems(int bd, int chunk) {
+  // x, Δ, dy (chunk × bd) and B, C (chunk × DS), each piece 16-byte aligned
+  return ((3 * chunk * bd + 2 * chunk * DS) * (int)sizeof(T) + 15) / 16 * 16 / (int)sizeof(T);
+}
+
+template <typename T, int DS>
+__host__ __device__ constexpr size_t bwd_red_offset(int bd, int chunk) {
+  // bytes before the reduction buffer: two stages, then dx's and dΔ's stage
+  return ((2 * (size_t)bwd_buffer_elems<T, DS>(bd, chunk) + 2 * (size_t)chunk * bd) *
+              sizeof(T) + 15) / 16 * 16;
+}
+
+// Σ_s p_s q_s over a channel's states in the forward's C_t·h_t order, the
+// sum in every lane of the group
+template <int SPL, int G>
+__device__ __forceinline__ float channel_dot(const float (&p)[SPL], const float (&q)[SPL]) {
+  float pr[SPL / 2];
+#pragma unroll
+  for (int k = 0; k < SPL / 2; ++k) pr[k] = fmaf(p[2 * k], q[2 * k], p[2 * k + 1] * q[2 * k + 1]);
+#pragma unroll
+  for (int w = 1; w < SPL / 2; w *= 2)
+#pragma unroll
+    for (int k = 0; k + w < SPL / 2; k += 2 * w) pr[k] += pr[k + w];
+  float acc = pr[0];
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* p, float (&o)[N]) {
+#pragma unroll
+  for (int s = 0; s < N; ++s) o[s] = bsps::to_float(p[s]);
+}
+
+template <typename T, int DS, int G>
+__global__ void __launch_bounds__(kThreads)
+ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                    const T* __restrict__ bm, const T* __restrict__ cm,
+                    const float* __restrict__ a, const float* __restrict__ dskip,
+                    const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ ddt,
+                    float* __restrict__ hck, float* __restrict__ pbc, float* __restrict__ pa,
+                    float* __restrict__ pd, int seq, int d_inner, int chunk, int n_chunks,
+                    int n16) {
+  constexpr int BD = kThreads / G;            // channels per block
+  constexpr int SPL = DS / G;                 // states per lane
+  constexpr int K = seg_len(SPL);             // most positions per segment
+  constexpr int NG = BD / kGroup;             // dB/dC channel groups per tile
+  static_assert(SPL >= 2 && BD % kGroup == 0, "lane group geometry");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int buf_elems = bwd_buffer_elems<T, DS>(BD, chunk);
+  T* bufs = reinterpret_cast<T*>(smem);              // two stages, buf_elems apart
+  T* dxs = bufs + 2 * buf_elems;                     // (chunk, BD): this segment's dx
+  T* ddts = dxs + chunk * BD;                        // and dΔ
+  // (kBatch, 2, BD, DS): each position's g_t Δ_t x_t and dy_t h_t terms
+  float* red = reinterpret_cast<float*>(smem + bwd_red_offset<T, DS>(BD, chunk));
+  const int row = blockIdx.y, c0 = blockIdx.x * BD;
+  const int ch = threadIdx.x / G, lane_s = threadIdx.x % G;
+  const int i = c0 + ch;
+  const bool active = i < d_inner;
+  const int valid_cols = d_inner - c0;
+  const long long row_pos = (long long)row * seq;
+
+  float a_s[SPL], a2[SPL];
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) {
+    a_s[s] = active ? a[(long long)i * DS + lane_s * SPL + s] : 0.f;
+    a2[s] = a_s[s] * kLog2e;                  // the forward's exponent
+  }
+  const float d_i = active ? dskip[i] : 0.f;
+  // this lane's states in the checkpoint of segment ci (the state before it)
+  auto ckpt = [&](int ci) {
+    return hck + (((long long)row * n_chunks + ci) * d_inner + i) * DS + lane_s * SPL;
+  };
+  auto stage = [&](int ci, T* dst, bool reverse) {  // issue segment ci's copies; no wait
+    const int t0 = ci * chunk, len = min(chunk, seq - t0);
+    const long long p0 = (row_pos + t0) * d_inner + c0;
+    stage_tile(dst, x + p0, d_inner, chunk, BD, len, valid_cols);
+    stage_tile(dst + chunk * BD, dt + p0, d_inner, chunk, BD, len, valid_cols);
+    const long long q0 = (row_pos + t0) * DS;
+    stage_tile(dst + 3 * chunk * BD, bm + q0, DS, chunk, DS, len, DS);
+    if (reverse) {
+      stage_tile(dst + 2 * chunk * BD, dy + p0, d_inner, chunk, BD, len, valid_cols);
+      stage_tile(dst + 3 * chunk * BD + chunk * DS, cm + q0, DS, chunk, DS, len, DS);
+    }
+    cp_async_commit();
+  };
+
+  // sweep 1: forward, the state before every segment but the first to the
+  // tape (the last segment's end state is not needed)
+  {
+    float h[SPL];
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) h[s] = 0.f;
+    const int n_fwd = n_chunks - 1;
+    if (n_fwd > 0) stage(0, bufs, false);
+    for (int ci = 0; ci < n_fwd; ++ci) {
+      if (ci + 1 < n_fwd) {
+        stage(ci + 1, bufs + ((ci + 1) & 1) * buf_elems, false);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* xs = bufs + (ci & 1) * buf_elems;
+      const T* dts = xs + chunk * BD;
+      const T* bs = xs + 3 * chunk * BD;
+      // only the last segment is ragged, and it is not walked here
+#pragma unroll 4
+      for (int t = 0; t < chunk; ++t) {
+        const float x_t = bsps::to_float(xs[t * BD + ch]);
+        const float dt_t = bsps::to_float(dts[t * BD + ch]);
+        const float u = dt_t * x_t;
+        float b_t[SPL];
+        load_row(bs + t * DS + lane_s * SPL, b_t);
+#pragma unroll
+        for (int s = 0; s < SPL; ++s) h[s] = fmaf(ex2(dt_t * a2[s]), h[s], u * b_t[s]);
+      }
+      if (active) {
+        float* p = ckpt(ci + 1);
+#pragma unroll
+        for (int s = 0; s < SPL; ++s) p[s] = h[s];
+      }
+      __syncthreads();                        // this stage is free for segment ci + 2
+    }
+  }
+
+  // sweep 2: the segments in reverse
+  float gn[SPL], da_acc[SPL];                 // e_{t+1} ⊙ g_{t+1}; Σ_t g Δ e h_{t-1}
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) gn[s] = da_acc[s] = 0.f;
+  float dd_acc = 0.f;
+  // kBatch positions' terms summed over each group of kGroup channels in
+  // channel order, to the partials (B, L, 2, n16, DS)
+  auto flush = [&](long long pos0, int nb) {
+    for (int o = threadIdx.x; o < nb * 2 * NG * DS; o += kThreads) {
+      const int s = o % DS, grp = (o / DS) % NG, kind = (o / (DS * NG)) % 2;
+      const int tt = o / (2 * NG * DS);
+      const int gg = c0 / kGroup + grp;
+      if (gg >= n16) continue;                // a group wholly past d_inner
+      const float* src = red + ((tt * 2 + kind) * BD + grp * kGroup) * DS + s;
+      float acc = src[0];
+#pragma unroll
+      for (int j = 1; j < kGroup; ++j) acc += src[j * DS];
+      pbc[(((pos0 + tt) * 2 + kind) * n16 + gg) * DS + s] = acc;
+    }
+  };
+  stage(n_chunks - 1, bufs + ((n_chunks - 1) & 1) * buf_elems, true);
+  for (int ci = n_chunks - 1; ci >= 0; --ci) {
+    if (ci > 0) {
+      stage(ci - 1, bufs + ((ci - 1) & 1) * buf_elems, true);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* xs = bufs + (ci & 1) * buf_elems;
+    const T* dts = xs + chunk * BD;
+    const T* dys = xs + 2 * chunk * BD;
+    const T* bs = xs + 3 * chunk * BD;
+    const T* cs = bs + chunk * DS;
+    const int t0 = ci * chunk, len = min(chunk, seq - t0);
+    // hs[0] the state before the segment, hs[t + 1] the state after position t
+    float hs[K + 1][SPL];
+    if (ci > 0 && active) {
+      const float* p = ckpt(ci);
+#pragma unroll
+      for (int s = 0; s < SPL; ++s) hs[0][s] = p[s];
+    } else {
+#pragma unroll
+      for (int s = 0; s < SPL; ++s) hs[0][s] = 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      if (t < len) {
+        const float x_t = bsps::to_float(xs[t * BD + ch]);
+        const float dt_t = bsps::to_float(dts[t * BD + ch]);
+        const float u = dt_t * x_t;
+        float b_t[SPL];
+        load_row(bs + t * DS + lane_s * SPL, b_t);
+#pragma unroll
+        for (int s = 0; s < SPL; ++s)
+          hs[t + 1][s] = fmaf(ex2(dt_t * a2[s]), hs[t][s], u * b_t[s]);
+      }
+    }
+#pragma unroll
+    for (int t = K - 1; t >= 0; --t) {
+      if (t < len) {
+        const float x_t = bsps::to_float(xs[t * BD + ch]);
+        const float dt_t = bsps::to_float(dts[t * BD + ch]);
+        const float dy_t = bsps::to_float(dys[t * BD + ch]);
+        const float u = dt_t * x_t;
+        float b_t[SPL], c_t[SPL], g[SPL], geh[SPL];
+        load_row(bs + t * DS + lane_s * SPL, b_t);
+        load_row(cs + t * DS + lane_s * SPL, c_t);
+        float* rb = red + ((t % kBatch) * 2 * BD + ch) * DS + lane_s * SPL;   // g Δ x
+        float* rc = rb + BD * DS;                                             // dy h
+#pragma unroll
+        for (int s = 0; s < SPL; ++s) {
+          g[s] = fmaf(c_t[s], dy_t, gn[s]);
+          const float ge = g[s] * ex2(dt_t * a2[s]);
+          geh[s] = ge * hs[t][s];
+          da_acc[s] = fmaf(dt_t, geh[s], da_acc[s]);
+          rb[s] = g[s] * u;
+          rc[s] = dy_t * hs[t + 1][s];
+          gn[s] = ge;
+        }
+        const float sgb = channel_dot<SPL, G>(g, b_t);
+        const float sgah = channel_dot<SPL, G>(a_s, geh);
+        if (lane_s == 0) {
+          dxs[t * BD + ch] = bsps::from_float<T>(fmaf(dt_t, sgb, d_i * dy_t));
+          ddts[t * BD + ch] = bsps::from_float<T>(fmaf(x_t, sgb, sgah));
+          dd_acc = fmaf(dy_t, x_t, dd_acc);
+        }
+        if (t % kBatch == 0) {                // positions t .. t + kBatch - 1 are in
+          __syncthreads();
+          flush(row_pos + t0 + t, min(kBatch, len - t));
+          __syncthreads();                    // red is free; dxs, ddts whole; the stage read
+        }
+      }
+    }
+    store_tile(dx + (row_pos + t0) * d_inner + c0, dxs, d_inner, BD, len, valid_cols);
+    store_tile(ddt + (row_pos + t0) * d_inner + c0, ddts, d_inner, BD, len, valid_cols);
+    // the next segment's first writes to dxs come after its __syncthreads
+  }
+  if (active) {
+    float* p = pa + ((long long)row * d_inner + i) * DS + lane_s * SPL;
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) p[s] = da_acc[s];
+    if (lane_s == 0) pd[(long long)row * d_inner + i] = dd_acc;
+  }
+}
+
+// dB, dC: each (row, position, state)'s channel-group partials summed in
+// group order; dA, dD: the per-row partials summed in row order
+template <typename T>
+__global__ void ssm_scan_bwd_sum_kernel(const float* __restrict__ pbc,
+                                        const float* __restrict__ pa,
+                                        const float* __restrict__ pd, T* __restrict__ db,
+                                        T* __restrict__ dc, float* __restrict__ da,
+                                        float* __restrict__ dd, int rows, int seq, int d_inner,
+                                        int ds, int n16) {
+  const long long n_bc = (long long)rows * seq * 2 * ds, n_a = (long long)d_inner * ds;
+  long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o < n_bc) {
+    const long long rtk = o / ds;             // (row, position, kind)
+    const int s = (int)(o % ds);
+    const float* src = pbc + rtk * n16 * ds + s;
+    float acc = src[0];
+    for (int j = 1; j < n16; ++j) acc += src[(long long)j * ds];
+    (rtk % 2 ? dc : db)[rtk / 2 * ds + s] = bsps::from_float<T>(acc);
+    return;
+  }
+  o -= n_bc;
+  if (o < n_a) {
+    float acc = pa[o];
+    for (int r = 1; r < rows; ++r) acc += pa[r * n_a + o];
+    da[o] = acc;
+    return;
+  }
+  o -= n_a;
+  if (o < d_inner) {
+    float acc = pd[o];
+    for (int r = 1; r < rows; ++r) acc += pd[(long long)r * d_inner + o];
+    dd[o] = acc;
+  }
+}
+
+struct BwdArgs {
+  const void *x, *dt, *b, *c;
+  const float *a, *d;
+  const void* dy;
+  void *dx, *ddt, *db, *dc;
+  float *da, *dd, *hck, *pbc, *pa, *pd;
+  int seq, d_inner, chunk, n_chunks, n16;
+};
+
+template <typename T, int DS, int G>
+cudaError_t launch_bwd(int device, int tiles, int rows, cudaStream_t stream, const BwdArgs& p) {
+  constexpr int BD = kThreads / G;
+  if (p.chunk > seg_len(DS / G)) return cudaErrorInvalidValue;
+  const size_t smem = bwd_red_offset<T, DS>(BD, p.chunk) +
+                      (size_t)kBatch * 2 * BD * DS * sizeof(float);
+  cudaError_t err = bsps::prepare_smem(ssm_scan_bwd_kernel<T, DS, G>, device, smem);
+  if (err != cudaSuccess) return err;
+  ssm_scan_bwd_kernel<T, DS, G><<<dim3(tiles, rows, 1), kThreads, smem, stream>>>(
+      static_cast<const T*>(p.x), static_cast<const T*>(p.dt), static_cast<const T*>(p.b),
+      static_cast<const T*>(p.c), p.a, p.d, static_cast<const T*>(p.dy), static_cast<T*>(p.dx),
+      static_cast<T*>(p.ddt), p.hck, p.pbc, p.pa, p.pd, p.seq, p.d_inner, p.chunk, p.n_chunks,
+      p.n16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long total = (long long)rows * p.seq * 2 * DS + (long long)p.d_inner * DS + p.d_inner;
+  constexpr int kSumThreads = 256;
+  ssm_scan_bwd_sum_kernel<T><<<(unsigned)((total + kSumThreads - 1) / kSumThreads), kSumThreads,
+                               0, stream>>>(p.pbc, p.pa, p.pd, static_cast<T*>(p.db),
+                                            static_cast<T*>(p.dc), p.da, p.dd, rows, p.seq,
+                                            p.d_inner, DS, p.n16);
+  return cudaGetLastError();
+}
+
+template <typename T, int DS>
+cudaError_t bwd_by_group(int lanes, int device, int tiles, int rows, cudaStream_t stream,
+                         const BwdArgs& p) {
+  if (lanes == 2) return launch_bwd<T, DS, 2>(device, tiles, rows, stream, p);
+  if (lanes == 4) return launch_bwd<T, DS, 4>(device, tiles, rows, stream, p);
+  if constexpr (DS >= 16) {
+    if (lanes == 8) return launch_bwd<T, DS, 8>(device, tiles, rows, stream, p);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t bwd_dispatch(int lanes, int device, int tiles, int rows, int d_state,
+                         cudaStream_t stream, const BwdArgs& p) {
+  if (d_state == 8) return bwd_by_group<T, 8>(lanes, device, tiles, rows, stream, p);
+  if (d_state == 16) return bwd_by_group<T, 16>(lanes, device, tiles, rows, stream, p);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// (dx, dΔ, dB, dC, dA, dD) of bsps_ssm_scan for dy. grid (channel tiles,
+// batch rows, 1), loop = segments per row (both sweeps walk them); x, Δ, dy,
+// dx, dΔ (B, seq, d_inner) and B, C, dB, dC (B, seq, d_state) contiguous in
+// `dtype`; A, dA (d_inner, d_state) and D, dD (d_inner,) fp32. `chunk`
+// positions a segment (at most 8 at 8 states a lane, else 16). fp32 work
+// buffers, none read before this launch writes it: hck the checkpoint tape
+// (B, loop, d_inner, d_state); pbc the dB/dC partials (B, seq, 2, n_groups,
+// d_state), `group` channels a partial; pa (B, d_inner, d_state) and pd
+// (B, d_inner) the per-row dA and dD. The caller allocates them: `group`
+// must be kGroup and n_groups ceil(d_inner / kGroup), or nothing runs.
+// `scratch_bytes` is the plan's per-tile h and g, 2 × block_d × d_state
+// fp32, which the kernel keeps in registers.
+BSPS_EXPORT int bsps_ssm_scan_bwd(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
+                                  void* stream, const void* x, const void* dt, const void* b,
+                                  const void* c, const float* a, const float* d, const void* dy,
+                                  void* dx, void* ddt, void* db, void* dc, float* da, float* dd,
+                                  float* hck, float* pbc, float* pa, float* pd, int seq,
+                                  int d_inner, int d_state, int chunk, int block_d, int n_groups,
+                                  int group, int dtype) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if ((block_d != 16 && block_d != 32 && block_d != 64) || gz != 1 || gy < 1 || seq < 1 ||
+      d_inner < 1 || chunk < 1 || gx != (d_inner + block_d - 1) / block_d ||
+      loop != (seq + chunk - 1) / chunk || group != kGroup ||
+      n_groups != (d_inner + kGroup - 1) / kGroup ||
+      scratch_bytes != 2 * block_d * d_state * (int)sizeof(float))
+    return cudaErrorInvalidValue;
+  const int lanes = kThreads / block_d;
+  if (2 * lanes > d_state) return cudaErrorInvalidValue;
+  const BwdArgs p{x,  dt, b,  c,   a,   d,   dy,  dx,  ddt,     db,      dc,
+                  da, dd, hck, pbc, pa, pd, seq, d_inner, chunk, loop, n_groups};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == bsps::kFloat32) return bwd_dispatch<float>(lanes, device, gx, gy, d_state, s, p);
+  if (dtype == bsps::kBFloat16)
+    return bwd_dispatch<__nv_bfloat16>(lanes, device, gx, gy, d_state, s, p);
+  return cudaErrorInvalidValue;
+}

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 from repro_torch.kernels.streamed_dot import streamed_dot
 from repro_torch.kernels.streamed_matmul import streamed_matmul
 
@@ -30,6 +30,7 @@ KERNELS = {
     "streamed_matmul": streamed_matmul,
     "flash_attention": flash_attention,
     "ssm_scan": ssm_scan,
+    "ssm_scan_bwd": ssm_scan_bwd,
 }
 
 
@@ -96,6 +97,8 @@ def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None,
 
 
 def selective_scan(x, dt, b, c, a, d, *, chunk: int = 128):
+    """The scan; differentiable where a gradient is being taken (its
+    backward launches ``ssm_scan_bwd``)."""
     return ssm_scan(x, dt, b, c, a, d, chunk=chunk)
 
 

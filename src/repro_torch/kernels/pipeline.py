@@ -66,6 +66,7 @@ ENTRIES: dict[str, list[Any]] = {
     "bsps_matmul": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I],
     "bsps_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P],
     "bsps_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    "bsps_ssm_scan_bwd": [_P] * 17 + [_I] * 8,
 }
 _LIBRARY_ENTRIES = {"bsps_smem_optin": [_I], **{name: _PREFIX + args
                                                  for name, args in ENTRIES.items()}}

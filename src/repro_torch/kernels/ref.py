@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["matmul_ref", "dot_ref", "attention_ref", "attention_ref_lse", "ssm_scan_ref"]
+__all__ = ["matmul_ref", "dot_ref", "attention_ref", "attention_ref_lse", "ssm_scan_ref",
+           "ssm_scan_bwd_ref"]
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None, *, a_layout: str = "mk",
@@ -78,16 +79,15 @@ def ssm_scan_ref(
     x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     a: torch.Tensor, d: torch.Tensor,
 ) -> torch.Tensor:
-    """Sequential selective scan, one step per position, all in fp32 with one
-    cast to ``x``'s dtype at the end.
+    """Sequential selective scan, one step per position, all in fp32 (fp64
+    for fp64 inputs) with one cast to ``x``'s dtype at the end.
 
     x, dt: (B, L, d_inner); b, c: (B, L, d_state); a: (d_inner, d_state);
     d: (d_inner,). The state h (B, d_inner, d_state) starts at 0 per row.
     """
-    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
-    af, df = a.float(), d.float()
+    xf, dtf, bf, cf, af, df = _widen(x, dt, b, c, a, d)
     bsz, seq, d_inner = x.shape
-    h = torch.zeros((bsz, d_inner, a.shape[1]), dtype=torch.float32, device=x.device)
+    h = xf.new_zeros((bsz, d_inner, a.shape[1]))
     ys = []
     for t in range(seq):
         dt_t, x_t = dtf[:, t], xf[:, t]                            # (B, di)
@@ -96,3 +96,59 @@ def ssm_scan_ref(
         ys.append(torch.einsum("bis,bs->bi", h, cf[:, t]) + df * x_t)
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
     return y.to(x.dtype)
+
+
+def _widen(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """The operands in fp32, or fp64 where any is fp64 (``gradcheck``)."""
+    wide = torch.float32
+    for t in ts:
+        wide = torch.promote_types(wide, t.dtype)
+    return [t.to(wide) for t in ts]
+
+
+def ssm_scan_bwd_ref(
+    x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    a: torch.Tensor, d: torch.Tensor, dy: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """The gradients ``(dx, dΔ, dB, dC, dA, dD)`` of :func:`ssm_scan_ref`
+    for the output gradient ``dy``, by an explicit reverse-time walk in fp32
+    (fp64 for fp64 inputs), each cast once to its input's dtype.
+
+    The walk recomputes every state h_t forward, then carries
+    g_t = C_t·dy_t + exp(Δ_{t+1}A) ⊙ g_{t+1} (the gradient of the loss with
+    respect to h_t) from the last position to the first and accumulates
+
+        dx_t = D·dy_t + Δ_t·Σ_s g_t B_t
+        dΔ_t = Σ_s g_t ⊙ (A ⊙ exp(Δ_t A) ⊙ h_{t-1} + B_t x_t)
+        dB_t = Σ_i g_t Δ_t x_t          dC_t = Σ_i dy_t h_t
+        dA   = Σ_{b,t} g_t Δ_t exp(Δ_t A) h_{t-1}
+        dD   = Σ_{b,t} dy_t x_t
+
+    (sums over s are over states, over i over channels).
+    """
+    xf, dtf, bf, cf, af, df, dyf = _widen(x, dt, b, c, a, d, dy)
+    bsz, seq, d_inner = x.shape
+    h = xf.new_zeros((bsz, d_inner, a.shape[1]))
+    hs = []
+    for t in range(seq):
+        da = torch.exp(dtf[:, t, :, None] * af)
+        h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        hs.append(h)
+    dx, ddt, db, dc = (torch.zeros_like(v) for v in (xf, dtf, bf, cf))
+    da_sum, dd_sum = torch.zeros_like(af), torch.zeros_like(df)
+    carry = torch.zeros_like(h)                        # exp(Δ_{t+1}A) ⊙ g_{t+1}
+    for t in reversed(range(seq)):
+        x_t, dt_t, dy_t = xf[:, t], dtf[:, t], dyf[:, t]          # (B, di)
+        e = torch.exp(dt_t[..., None] * af)                       # (B, di, ds)
+        g = cf[:, t, None, :] * dy_t[..., None] + carry
+        geh = g * e * (hs[t - 1] if t else torch.zeros_like(g))
+        gb = (g * bf[:, t, None, :]).sum(-1)                      # (B, di)
+        dx[:, t] = df * dy_t + dt_t * gb
+        ddt[:, t] = (geh * af).sum(-1) + x_t * gb
+        db[:, t] = (g * (dt_t * x_t)[..., None]).sum(1)
+        dc[:, t] = (dy_t[..., None] * hs[t]).sum(1)
+        da_sum += (geh * dt_t[..., None]).sum(0)
+        dd_sum += (dy_t * x_t).sum(0)
+        carry = g * e
+    return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(b.dtype), dc.to(c.dtype),
+            da_sum.to(a.dtype), dd_sum.to(d.dtype))

@@ -1,8 +1,10 @@
 """Where a decode step's or a train step's time goes: torch.profiler over
-the serve path, or over the train step with ``--train``.
+the serve path, or over the train step with ``--train`` (at the depth and
+expert count one card trains, ``configs.card_train_config``, printed where
+it cuts the published config).
 
 ``python -m repro_torch.launch.profile_serve [--arch minicpm-2b] [--steps 4] [--context N]``
-``python -m repro_torch.launch.profile_serve --train [--batch 4 --prompt-len 256]``
+``python -m repro_torch.launch.profile_serve --train [--arch A] [--batch 4 --prompt-len 256]``
 ``python -m repro_torch.launch.profile_serve --train-loop [--steps 8]``
 
 Serves ``--arch`` at full width on the CUDA card (random weights from a seed;
@@ -38,7 +40,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import card_config
+from repro_torch.configs import card_config, card_train_config, get_config
 from repro_torch.launch.serve import compiled_serve_fns, make_prefill, prefill_block_size
 from repro_torch.models import model as M
 from repro_torch.train.steps import make_prefill_step
@@ -212,7 +214,16 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
 
-    cfg = card_config(args.arch)
+    if args.train or args.train_loop:
+        # the depth and expert count one card trains (configs.card_train_config)
+        cfg, full = card_train_config(args.arch), get_config(args.arch)
+        if (cfg.num_layers, cfg.moe_experts) != (full.num_layers, full.moe_experts):
+            print(f"[profile] {args.arch} cut to train on one card: {cfg.num_layers} of "
+                  f"{full.num_layers} layers, {cfg.moe_experts} of {full.moe_experts} experts "
+                  f"(top-{cfg.moe_top_k}), published widths, {M.count_params(cfg) / 1e9:.3f} B "
+                  f"parameters")
+    else:
+        cfg = card_config(args.arch)
     if args.train_loop:
         profile_train_loop(cfg, args)
         return

@@ -425,12 +425,13 @@ def _scan_operands(device, grad):
 
 @pytest.mark.parametrize("grad", range(6))   # x, dt, b, c, a, d
 def test_ssm_scan_raises_under_autograd_off_the_cpu(grad):
-    """The kernel's output carries no graph, so off the CPU an operand that
-    requires grad raises under grad mode instead of losing its gradient
-    (on any device: ``meta`` here); under no_grad the wrapper goes on to
-    its device check."""
+    """An operand that requires grad sends the call through the autograd
+    Function (``SelectiveScan``), which makes the wrapper's device check:
+    on a device that is neither CUDA nor the CPU (``meta`` here) the call
+    raises under grad mode as under no_grad, and never returns an output
+    without its graph."""
     args = _scan_operands("meta", grad)
-    with pytest.raises(RuntimeError, match="no backward on the card"):
+    with pytest.raises(ValueError, match="CUDA or CPU tensors"):
         ssm_scan(*args)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA or CPU tensors"):
         ssm_scan(*args)
