@@ -76,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import re
 import shutil
@@ -104,10 +105,14 @@ from repro_torch.distributed.cannon import gather_c, make_cannon_runner  # noqa:
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     LANE_CHOICES,
-    bwd_segment,
+    SEGMENT,
+    bwd_geometry,
+    bwd_kernel_attrs,
+    bwd_work_shapes,
     lanes_for,
     ssm_scan,
     ssm_scan_bwd,
+    ssm_scan_with_tape,
 )
 from repro_torch.kernels.streamed_matmul import (  # noqa: E402
     VARIANTS,
@@ -628,7 +633,13 @@ def check_ssm(rows: dict) -> None:
         sets = copies_past_l2(lambda i, b=b, seq=seq, di=di, ds=ds, dtype=dtype:
                               _ssm_inputs(b, seq, di, ds, dtype, 10 * i + 20), nbytes)
         got, want = ops.selective_scan(*sets[0]), ref.ssm_scan_ref(*sets[0])
+        with_tape = ssm_scan_with_tape(*sets[0])[0]
         torch.cuda.synchronize()
+        # the tape's stores leave y's arithmetic alone: the same bits, and a
+        # hash to hold against another checkout's forward on these inputs
+        check(torch.equal(with_tape, got), f"ssm_scan b{b} L{seq}: y differs with the tape")
+        digest = hashlib.sha1(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+                              .cpu().numpy().tobytes()).hexdigest()[:16]
         err = (got.float() - want.float()).abs().max().item()
         tol = (2 * 2 ** -8 if dtype == torch.bfloat16 else 1e-4) * want.float().abs().max().item()
         check(bool(torch.isfinite(got).all()), f"ssm_scan b{b} L{seq}: non-finite output")
@@ -641,7 +652,8 @@ def check_ssm(rows: dict) -> None:
         log(f"[kernel] ssm_scan b{b} L{seq} di{di} ds{ds} {str(dtype)[6:]} "
             f"lanes={lanes_for(b, di, ds, sms)}: max_abs_err={err:.3g} "
             f"(tol {tol:.3g}) ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} "
-            f"library=none bound_ms={b_ms:.4f} ({b_by}) exp_floor_ms={exp_floor:.4f}")
+            f"library=none bound_ms={b_ms:.4f} ({b_by}) exp_floor_ms={exp_floor:.4f}; y the "
+            f"same bits with the tape, sha1 {digest}")
         if idx < 2:
             # the lanes-per-channel trade-off at the forward shape and at B 1:
             # each halving of the states per lane doubles the warps and adds
@@ -675,26 +687,25 @@ def check_ssm(rows: dict) -> None:
 # inputs, so one forward walk is part of the work (Δ_t A, the update's
 # product and fma: 4); the reverse step: g's fma, g·e, that times h_{t-1},
 # dA's fma, the two sums over states (Σ A g e h, Σ g B: an fma each), the
-# dB and dC terms and their sums over channels (14). The kernel does more
-# (ssm_bwd_plan's 22 and three exponentials: a second forward walk over
-# each segment from its checkpoint, and the reverse step's own exp): that
-# is its design, not the function's work, and is not counted.
+# dB and dC terms and their sums over channels (14). The kernel's own
+# overheads (the checkpoint tape, the partials, the sums' data movement)
+# are its design, not the function's work, and are not counted.
 SSM_BWD_FLOPS = 18.0
 BWD_NAMES = ("dx", "ddt", "db", "dc", "da", "dd")
 
 
-def _scan_bwd_bound(b, seq, di, ds, item, lanes) -> tuple[float, str, float, float]:
+def _scan_bwd_bound(b, seq, di, ds, item) -> tuple[float, str, float, float]:
     """(bound ms, what bounds it, the exponentials' time, the bound with
-    the checkpoint tape) of one backward launch. The bound is the larger
-    of the function's bytes (x, Δ, B, C, dy, A, D read once; dx, dΔ, dB,
-    dC, dA, dD written once) over the memory rate, its fp32 operations
+    the checkpoint tape) of the backward from its inputs. The bound is the
+    larger of the function's bytes (x, Δ, B, C, dy, A, D read once; dx, dΔ,
+    dB, dC, dA, dD written once) over the memory rate, its fp32 operations
     (:data:`SSM_BWD_FLOPS`) over the fp32 peak, and its exponentials, one
     per (position, channel, state), at the special-function unit's 16 a
     clock per SM. Beside it, the same with the design's checkpoint tape
-    written and read back added to the bytes."""
+    (``bwd_work_shapes``' "h_ckpt", written by the forward and read back)
+    added to the bytes."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    seg = min(bwd_segment(lanes, ds), seq)
-    tape = b * -(-seq // seg) * di * ds * 4
+    tape = int(np.prod(bwd_work_shapes(b, seq, di, ds)["h_ckpt"])) * 4
     nbytes = (5 * b * seq * di + 4 * b * seq * ds) * item + 2 * (di * ds + di) * 4
     exp_ms = b * seq * di * ds / (16 * sms * SPIN_CYCLES_PER_S) * 1e3
     b_ms, b_by = bound(nbytes, SSM_BWD_FLOPS * b * seq * di * ds, "fp32")
@@ -703,20 +714,47 @@ def _scan_bwd_bound(b, seq, di, ds, item, lanes) -> tuple[float, str, float, flo
     return b_ms, b_by, exp_ms, max(b_ms, (nbytes + 2 * tape) / PEAK_BYTES_PER_S * 1e3)
 
 
+def device_ms_by_kernel(fn, args, iters: int, names) -> dict[str, float | None]:
+    """Mean device ms a call of ``fn(*args)`` of each CUDA kernel whose
+    name holds one of ``names``, from ``torch.profiler`` over ``iters``
+    calls; None where the profiler shows no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn(*args)
+        torch.cuda.synchronize()
+    out: dict[str, float | None] = {n: None for n in names}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for n in names:
+            if re.search(n, ev.key) and us > 0:
+                out[n] = (out[n] or 0.0) + us / 1e3 / iters
+    return out
+
+
 def check_ssm_bwd(rows: dict) -> None:
     """The scan's backward kernel against ``ssm_scan_bwd_ref`` on the same
     inputs. Tolerances: fp32 sums in another order and ex2.approx for exp,
     1e-4 of each gradient's largest entry; bf16 streams, the same fp32 walk
     from the same bf16 inputs with dx, dΔ, dB, dC rounded once to bf16 on
-    each side (two bf16 ulps of the largest), dA and dD fp32 (1e-4). Every
-    case's gradients are the same bits in a second run and for every other
-    lane count; at jamba's shapes each lane count is timed. Beside: the
-    plain walk's time and torch autograd through the port's
-    ``chunked_selective_scan`` (forward and backward), for scale."""
+    each side (two bf16 ulps of the largest), dA and dD fp32 (1e-4). The
+    forward's tape is held against the plain walk's states (1e-4 of the
+    largest: ex2.approx), its y against y without the tape (bit for bit).
+    Every case's gradients are the same bits in a second run and from the
+    tape of every forward lane grouping. Times: the backward launch from a
+    tape, the forward's time with and without the tape, the backward from
+    its inputs (the forward with the tape, then the backward: the row's
+    ms), and the profiler's split of the backward into its kernel and its
+    sum step. Beside: the plain walk's time and torch autograd through the
+    port's ``chunked_selective_scan`` (forward and backward), for scale."""
     cases = [(4, 256, 8192, 16, torch.bfloat16, 2),      # jamba's train step
              (4, 256, 8192, 16, torch.float32, 2),
              (2, 300, 1000, 16, torch.bfloat16, 3),      # ragged d_inner and L
-             (1, 130, 200, 8, torch.float32, 3)]         # d_state 8, ragged
+             (1, 130, 200, 8, torch.float32, 3),         # d_state 8, ragged
+             (1, 4000, 8192, 16, torch.bfloat16, 1)]     # B 1, long
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for idx, (b, seq, di, ds, dtype, plain_iters) in enumerate(cases):
         item = torch.tensor([], dtype=dtype).element_size()
@@ -727,6 +765,16 @@ def check_ssm_bwd(rows: dict) -> None:
                     randn((b, seq, di), dtype, 10 * i + 65))
 
         sets = copies_past_l2(make, nbytes)
+        # the tape: y the same bits, the states the plain walk's
+        y_plain = ssm_scan(*sets[0][:6])
+        y, tape = ssm_scan_with_tape(*sets[0][:6])
+        check(torch.equal(y, y_plain), f"ssm_scan b{b} L{seq}: y differs with the tape")
+        want_tape = ref.ssm_scan_tape_ref(*sets[0][:3], sets[0][4], SEGMENT)
+        check(tape is not None and tape.shape == want_tape.shape,
+              f"ssm_scan b{b} L{seq}: tape {None if tape is None else tuple(tape.shape)}")
+        tape_err = (tape - want_tape).abs().max().item() / want_tape.abs().max().item()
+        check(tape_err <= 1e-4, f"ssm_scan b{b} L{seq}: tape vs the plain walk {tape_err}")
+        del want_tape
         got = ssm_scan_bwd(*sets[0])
         want = ref.ssm_scan_bwd_ref(*sets[0])
         torch.cuda.synchronize()
@@ -740,19 +788,24 @@ def check_ssm_bwd(rows: dict) -> None:
                   f"{name}: max err {err} > {tol} x {scale}")
             errs.append(f"{name} {err / scale:.3g} (tol {tol:.3g})")
             abs_err = max(abs_err, err)
+        del want
         check(all(torch.equal(g, h) for g, h in zip(got, ssm_scan_bwd(*sets[0]))),
               f"ssm_scan_bwd b{b} L{seq}: two runs differ")
-        rule = lanes_for(b, di, ds, sms)
-        lane_ms = {}
-        for lanes in (n for n in LANE_CHOICES if 2 * n <= ds):
-            if lanes != rule:
-                other = ssm_scan_bwd(*sets[0], lanes=lanes)
-                check(all(torch.equal(g, h) for g, h in zip(got, other)),
-                      f"ssm_scan_bwd b{b} L{seq}: lanes={lanes} differs from {rule}")
-            if idx < 2 or lanes == rule:
-                lane_ms[lanes], _ = bench_ms(lambda *a, n=lanes: ssm_scan_bwd(*a, lanes=n),
-                                             sets, 20)
-        ms = lane_ms[rule]
+        groupings = [n for n in LANE_CHOICES if 2 * n <= ds]
+        for lanes in groupings:
+            other = ssm_scan_bwd(*sets[0], tape=ssm_scan_with_tape(*sets[0][:6], lanes=lanes)[1])
+            check(all(torch.equal(g, h) for g, h in zip(got, other)),
+                  f"ssm_scan_bwd b{b} L{seq}: the tape of a {lanes}-lane forward differs")
+        del got, other
+        iters = 20 if seq * b * di < 2 ** 24 else 10
+        taped = [(*s, ssm_scan_with_tape(*s[:6])[1]) for s in sets]
+        bwd_ms, _ = bench_ms(lambda *a: ssm_scan_bwd(*a[:7], tape=a[7]), taped, iters)
+        fwd_ms, _ = bench_ms(lambda *a: ssm_scan(*a[:6]), sets, iters)
+        fwd_tape_ms, _ = bench_ms(lambda *a: ssm_scan_with_tape(*a[:6]), sets, iters)
+        ms, _ = bench_ms(ssm_scan_bwd, sets, iters)
+        split = device_ms_by_kernel(lambda *a: ssm_scan_bwd(*a[:7], tape=a[7]), taped[0], 5,
+                                    ("ssm_scan_bwd_kernel", "ssm_scan_bwd_sum_kernel"))
+        del taped
         plain, _ = bench_ms(ref.ssm_scan_bwd_ref, sets, plain_iters)
 
         def chunked_fwd_bwd(x, dt, bb, c, a, d, dy):
@@ -760,20 +813,32 @@ def check_ssm_bwd(rows: dict) -> None:
             y, _ = chunked_selective_scan(*live)
             return torch.autograd.grad(y, live, dy.float())
 
-        chunked, _ = bench_ms(chunked_fwd_bwd, sets, 3)
-        b_ms, b_by, exp_ms, tape_ms = _scan_bwd_bound(b, seq, di, ds, item, rule)
-        log(f"[kernel] ssm_scan_bwd b{b} L{seq} di{di} ds{ds} {str(dtype)[6:]} lanes={rule} "
-            f"segment={min(bwd_segment(rule, ds), seq)}: max err / max |grad| "
-            f"{'; '.join(errs)}; bit-equal across 2 runs and lanes "
-            f"{[n for n in LANE_CHOICES if 2 * n <= ds]}; ms={ms:.4f} (by lanes "
-            f"{ {n: round(v, 4) for n, v in lane_ms.items()} }) plain_ms={plain:.4f} "
-            f"chunked_autograd_ms={chunked:.4f} library=none bound_ms={b_ms:.4f} ({b_by}; "
-            f"exponentials {exp_ms:.4f}) bound_with_tape_ms={tape_ms:.4f} ({ms / b_ms:.1f}x "
-            f"the bound)")
+        chunked = bench_ms(chunked_fwd_bwd, sets, 3)[0] if b * seq <= 1024 else None
+        b_ms, b_by, exp_ms, tape_ms = _scan_bwd_bound(b, seq, di, ds, item)
+        lanes, block_d, seg, stage = bwd_geometry(ds)
+        attrs = bwd_kernel_attrs(ds, dtype, torch.device("cuda"))
+        kern, summ = (f"{v:.4f}" if v is not None else "not measured" for v in split.values())
+        log(f"[kernel] ssm_scan_bwd b{b} L{seq} di{di} ds{ds} {str(dtype)[6:]} lanes={lanes} "
+            f"block_d={block_d} segment={seg} stage={stage} registers={attrs['registers']} "
+            f"spill_bytes={attrs['spill_bytes']} smem={attrs['smem_bytes']} "
+            f"blocks_per_sm={attrs['blocks_per_sm']}: max err / max |grad| "
+            f"{'; '.join(errs)}; tape vs plain walk {tape_err:.3g} (tol 1e-4), y with the tape "
+            f"bit-equal; bit-equal across 2 runs and the tapes of {groupings}-lane forwards; "
+            f"ms={ms:.4f} from the inputs (forward with tape + backward); backward launch "
+            f"{bwd_ms:.4f} (kernel {kern}, sum step {summ}; profiler), forward {fwd_ms:.4f}, "
+            f"with tape {fwd_tape_ms:.4f} (tape overhead {fwd_tape_ms - fwd_ms:.4f}); backward + "
+            f"tape overhead {bwd_ms + fwd_tape_ms - fwd_ms:.4f}; plain_ms={plain:.4f} "
+            f"chunked_autograd_ms={'not measured' if chunked is None else f'{chunked:.4f}'} "
+            f"library=none bound_ms={b_ms:.4f} ({b_by}; exponentials {exp_ms:.4f}) "
+            f"bound_with_tape_ms={tape_ms:.4f} ({ms / b_ms:.1f}x the bound from the inputs, "
+            f"{(bwd_ms + fwd_tape_ms - fwd_ms) / b_ms:.1f}x as backward + tape overhead)")
         if idx == 0:
             rows["ssm_scan_bwd"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain,
                                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    # a row alone gives the bits it gives in the batch (2 lanes for 4 rows, 4 for 1)
+        del sets
+        gc.collect()
+        torch.cuda.empty_cache()
+    # a row alone gives the bits it gives in the batch
     args = make(0, 4, 100, 8192, 16, torch.bfloat16)
     full = ssm_scan_bwd(*args)
     row = ssm_scan_bwd(*(t[1:2].contiguous() for t in args[:4]), *args[4:6],

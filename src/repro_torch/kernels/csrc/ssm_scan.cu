@@ -36,6 +36,13 @@
 // chunk only sizes the stage (at most kMaxStage positions):
 // every (channel, state) walks the positions in order, so the bits do not
 // depend on it. Ragged L and d_inner are masked; nothing is padded.
+//
+// Under autograd the forward also writes the backward's checkpoint tape:
+// the state after every kSeg positions but the last, (B, ceil(L / kSeg) - 1,
+// d_inner, d_state) fp32, each lane storing its states where a segment
+// ends. That instantiation (kTape) adds only those stores to the walk, so
+// y is the same bits with and without the tape; serving passes no tape and
+// runs the instantiation without them.
 
 #include <type_traits>
 
@@ -45,6 +52,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxStage = 64;   // positions per stage (the wrapper's STAGE_BYTES / 2)
+constexpr int kSeg = 8;         // positions per checkpoint segment (the wrapper's SEGMENT)
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -67,12 +75,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // dst (rows × cols, dense) ← src rows `ld` apart; zero past valid_rows and
 // valid_cols. 16-byte pieces in range and aligned go by cp.async.
-template <typename T>
+template <typename T, int NT = kThreads>
 __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int rows,
                                            int cols, int valid_rows, int valid_cols) {
   constexpr int kVec = 16 / sizeof(T);
   const int per_row = cols / kVec;
-  for (int v = threadIdx.x; v < rows * per_row; v += kThreads) {
+  for (int v = threadIdx.x; v < rows * per_row; v += NT) {
     const int r = v / per_row, c = (v % per_row) * kVec;
     T* d = dst + r * cols + c;
     const T* s = src + (long long)r * ld + c;
@@ -123,18 +131,31 @@ __device__ __forceinline__ void load_floats(const float* p, float (&o)[N]) {
     }
   }
 }
+// and the stores: N consecutive floats, shared or device memory
+template <int N>
+__device__ __forceinline__ void store_floats(float* p, const float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) reinterpret_cast<float2*>(p)[i] = make_float2(v[2 * i], v[2 * i + 1]);
+  }
+}
 template <typename T, int DS>
 __host__ __device__ constexpr int buffer_elems(int bd, int stage) {
   // x, Δ (stage × bd) and B, C (stage × DS), each piece 16-byte aligned
   return ((2 * stage * bd + 2 * stage * DS) * (int)sizeof(T) + 15) / 16 * 16 / (int)sizeof(T);
 }
 
-template <typename T, int DS, int G>
+template <typename T, int DS, int G, bool kTape>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 const T* __restrict__ bm, const T* __restrict__ cm,
                 const float* __restrict__ a, const float* __restrict__ dskip,
-                T* __restrict__ y, int seq, int d_inner, int chunk, int n_chunks) {
+                T* __restrict__ y, float* __restrict__ tape, int seq, int d_inner, int chunk,
+                int n_chunks) {
   constexpr int BD = kThreads / G;            // channels per block
   constexpr int SPL = DS / G;                 // states per lane
   static_assert(SPL >= 2, "a lane holds at least one pair of states");
@@ -194,6 +215,8 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       bs = bcf;
     }
     const float* cs = bs + chunk * DS;
+    // the tape: the local position that ends the chunk's first segment
+    int seg_end = kSeg - 1 - t0 % kSeg;
     // unrolled for ILP across positions: only h is carried from one to the next
 #pragma unroll 8
     for (int t = 0; t < len; ++t) {
@@ -205,6 +228,15 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       load_floats(cs + t * DS + lane_s * SPL, c_t);
 #pragma unroll
       for (int s = 0; s < SPL; ++s) h[s] = fmaf(ex2(dt_t * a2[s]), h[s], u * b_t[s]);
+      if constexpr (kTape) {
+        if (t == seg_end) {                   // h is the state before segment k
+          const int k = (t0 + t + 1) / kSeg;
+          if (active && t0 + t + 1 < seq)
+            store_floats(tape + (((long long)row * ((seq - 1) / kSeg) + k - 1) * d_inner + i) * DS +
+                             lane_s * SPL, h);
+          seg_end += kSeg;
+        }
+      }
       // C_t·h_t in one order for every lane grouping: state pairs fused as
       // h0·c0 + (h1·c1), then a balanced tree over the pairs in index order,
       // its last log2(G) levels across the group (ascending xor offsets)
@@ -226,52 +258,51 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   }
 }
 
-template <typename T, int DS, int G>
-cudaError_t launch(int device, int tiles, int rows, int n_chunks, cudaStream_t stream,
-                   const void* x, const void* dt, const void* b, const void* c,
-                   const float* a, const float* d, void* y, int seq, int d_inner, int chunk) {
+struct FwdArgs {
+  const void *x, *dt, *b, *c;
+  const float *a, *d;
+  void* y;
+  float* tape;
+  int seq, d_inner, chunk, n_chunks;
+};
+
+template <typename T, int DS, int G, bool kTape>
+cudaError_t launch(int device, int tiles, int rows, cudaStream_t stream, const FwdArgs& p) {
   constexpr int BD = kThreads / G;
-  const size_t wide = std::is_same<T, float>::value ? 0 : 2 * (size_t)chunk * DS * sizeof(float);
-  const size_t smem = (2 * (size_t)buffer_elems<T, DS>(BD, chunk) + ((size_t)chunk * BD + 7) / 8 * 8) *
+  const size_t wide = std::is_same<T, float>::value ? 0 : 2 * (size_t)p.chunk * DS * sizeof(float);
+  const size_t smem = (2 * (size_t)buffer_elems<T, DS>(BD, p.chunk) + ((size_t)p.chunk * BD + 7) / 8 * 8) *
                           sizeof(T) + wide;
-  cudaError_t err = bsps::prepare_smem(ssm_scan_kernel<T, DS, G>, device, smem);
+  cudaError_t err = bsps::prepare_smem(ssm_scan_kernel<T, DS, G, kTape>, device, smem);
   if (err != cudaSuccess) return err;
-  ssm_scan_kernel<T, DS, G><<<dim3(tiles, rows, 1), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const T*>(b),
-      static_cast<const T*>(c), a, d, static_cast<T*>(y), seq, d_inner, chunk, n_chunks);
+  ssm_scan_kernel<T, DS, G, kTape><<<dim3(tiles, rows, 1), kThreads, smem, stream>>>(
+      static_cast<const T*>(p.x), static_cast<const T*>(p.dt), static_cast<const T*>(p.b),
+      static_cast<const T*>(p.c), p.a, p.d, static_cast<T*>(p.y), p.tape, p.seq, p.d_inner, p.chunk,
+      p.n_chunks);
   return cudaGetLastError();
 }
 
+template <typename T, int DS, int G>
+cudaError_t with_tape(int device, int tiles, int rows, cudaStream_t stream, const FwdArgs& p) {
+  return p.tape ? launch<T, DS, G, true>(device, tiles, rows, stream, p)
+                : launch<T, DS, G, false>(device, tiles, rows, stream, p);
+}
+
 template <typename T, int DS>
-cudaError_t by_group(int lanes, int device, int tiles, int rows, int n_chunks,
-                     cudaStream_t stream, const void* x, const void* dt, const void* b,
-                     const void* c, const float* a, const float* d, void* y, int seq,
-                     int d_inner, int chunk) {
-  if (lanes == 2)
-    return launch<T, DS, 2>(device, tiles, rows, n_chunks, stream, x, dt, b, c, a, d, y, seq,
-                            d_inner, chunk);
-  if (lanes == 4)
-    return launch<T, DS, 4>(device, tiles, rows, n_chunks, stream, x, dt, b, c, a, d, y, seq,
-                            d_inner, chunk);
+cudaError_t by_group(int lanes, int device, int tiles, int rows, cudaStream_t stream,
+                     const FwdArgs& p) {
+  if (lanes == 2) return with_tape<T, DS, 2>(device, tiles, rows, stream, p);
+  if (lanes == 4) return with_tape<T, DS, 4>(device, tiles, rows, stream, p);
   if constexpr (DS >= 16) {
-    if (lanes == 8)
-      return launch<T, DS, 8>(device, tiles, rows, n_chunks, stream, x, dt, b, c, a, d, y, seq,
-                              d_inner, chunk);
+    if (lanes == 8) return with_tape<T, DS, 8>(device, tiles, rows, stream, p);
   }
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t dispatch(int lanes, int device, int tiles, int rows, int n_chunks,
-                     cudaStream_t stream, const void* x, const void* dt, const void* b,
-                     const void* c, const float* a, const float* d, void* y, int seq,
-                     int d_inner, int d_state, int chunk) {
-  if (d_state == 8)
-    return by_group<T, 8>(lanes, device, tiles, rows, n_chunks, stream, x, dt, b, c, a, d, y,
-                          seq, d_inner, chunk);
-  if (d_state == 16)
-    return by_group<T, 16>(lanes, device, tiles, rows, n_chunks, stream, x, dt, b, c, a, d, y,
-                           seq, d_inner, chunk);
+cudaError_t dispatch(int lanes, int device, int tiles, int rows, int d_state, cudaStream_t stream,
+                     const FwdArgs& p) {
+  if (d_state == 8) return by_group<T, 8>(lanes, device, tiles, rows, stream, p);
+  if (d_state == 16) return by_group<T, 16>(lanes, device, tiles, rows, stream, p);
   return cudaErrorInvalidValue;
 }
 
@@ -285,28 +316,30 @@ cudaError_t dispatch(int lanes, int device, int tiles, int rows, int n_chunks,
 // `scratch_bytes` is the plan's per-tile state, block_d × d_state fp32,
 // which the kernel keeps in registers; its dynamic shared memory is the
 // double-buffered chunk stage (chunk ≤ kMaxStage positions) and y's stage.
+// `seg` 0 and a null `tape`: y alone. `seg` kSeg: `tape` (B, ceil(seq /
+// kSeg) - 1, d_inner, d_state) fp32 gets the state after every kSeg
+// positions but the last (null only where that is no state at all).
 BSPS_EXPORT int bsps_ssm_scan(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                               void* stream, const void* x, const void* dt, const void* b,
                               const void* c, const float* a, const float* d, void* y,
-                              int seq, int d_inner, int d_state, int chunk, int block_d,
-                              int dtype) {
+                              float* tape, int seq, int d_inner, int d_state, int chunk,
+                              int block_d, int seg, int dtype) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if ((block_d != 16 && block_d != 32 && block_d != 64) || gz != 1 || gy < 1 || seq < 1 ||
       d_inner < 1 || chunk < 1 || chunk > kMaxStage || gx != (d_inner + block_d - 1) / block_d ||
-      loop != (seq + chunk - 1) / chunk || scratch_bytes != block_d * d_state * (int)sizeof(float))
+      loop != (seq + chunk - 1) / chunk || scratch_bytes != block_d * d_state * (int)sizeof(float) ||
+      (seg != 0 && seg != kSeg) || (seg == 0 && tape) || (seg == kSeg && !tape && seq > kSeg))
     return cudaErrorInvalidValue;
   const int lanes = kThreads / block_d;
   if (2 * lanes > d_state) return cudaErrorInvalidValue;
+  const FwdArgs p{x, dt, b, c, a, d, y, seq > kSeg ? tape : nullptr, seq, d_inner, chunk, loop};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == bsps::kFloat32)
-    return dispatch<float>(lanes, device, gx, gy, loop, s, x, dt, b, c, a, d, y, seq, d_inner,
-                           d_state, chunk);
-  if (dtype == bsps::kBFloat16)
-    return dispatch<__nv_bfloat16>(lanes, device, gx, gy, loop, s, x, dt, b, c, a, d, y, seq,
-                                   d_inner, d_state, chunk);
+  if (dtype == bsps::kFloat32) return dispatch<float>(lanes, device, gx, gy, d_state, s, p);
+  if (dtype == bsps::kBFloat16) return dispatch<__nv_bfloat16>(lanes, device, gx, gy, d_state, s, p);
   return cudaErrorInvalidValue;
 }
+
 
 // ---------------------------------------------------------------------------
 // The backward: (dx, dΔ, dB, dC, dA, dD) of the scan above for the output
@@ -322,62 +355,109 @@ BSPS_EXPORT int bsps_ssm_scan(int device, int gx, int gy, int gz, int loop, int 
 // with e_t = exp(Δ_t A), s over states and i over channels.
 //
 // Bound on this card: operations. The function needs one exponential and
-// about 18 fp32 operations per (position, channel, state); this design does
-// about 22 and three exponentials (a forward sweep, a recompute and a
-// reverse step per position), and moves a checkpoint tape besides.
+// about 18 fp32 operations per (position, channel, state), each input read
+// and each output written once (chip_smoke.py's _scan_bwd_bound). This
+// design does that exponential and about 30 instructions (the segment's
+// recompute, the reverse step, the sums over states and over channels),
+// and moves the forward's checkpoint tape and one dB/dC partial per BD
+// channels besides. It is bound by instruction throughput: at two blocks
+// an SM the registers leave little room to run positions ahead of their
+// loads.
 //
-// Design. The grid and lane groups are the forward's: (channel tiles, batch
-// rows), G lanes a channel, SPL = d_state / G states a lane. The recurrence
-// is not run backwards: h_{t-1} = (h_t - Δ_t B_t x_t) / e_t divides by decays
-// down to exp(-16Δ) and loses the state. Instead the block first walks its
-// channels forward (sweep 1) and stores the state before every segment of
-// `chunk` positions to an fp32 checkpoint tape (B, n_chunks, d_inner,
-// d_state) in device memory; then it walks the segments in reverse (sweep
-// 2), recomputes a segment's states from its checkpoint into registers (the
-// forward's arithmetic, so the forward's bits) and steps g back through
-// them. A segment is 8 positions at 8 states a lane, 16 at fewer, so the
-// recomputed states stay in registers. Each segment's x, Δ, dy, B_t, C_t are
-// staged in shared memory by cp.async, the next one's while this one runs.
-//
-// No atomics, and the same bits for every G, every batch and every run:
-// - the per-channel sums over states (Σ g B, Σ A e h g) take the forward's
-//   C_t·h_t order: state pairs fused, a balanced tree over the pairs, its
-//   last log2(G) levels across the group;
-// - dA and dD sum over positions in one thread, last position first, and
-//   the per-row partials are summed in row order by a second kernel;
-// - dB and dC sum over channels that live in other blocks. Each position's
-//   per-(channel, state) terms go to shared memory, kBatch positions at a
-//   time, and are summed in channel order over groups of kGroup = 16
-//   channels (the tile at G = 8); the second kernel sums the groups'
-//   partials (B, L, 2, ceil(d_inner / 16), d_state) in group order.
-// The chunk sets only where the checkpoints fall, so the bits do not depend
-// on it either.
+// Design. The recurrence is not run backwards: h_{t-1} = (h_t - Δ_t B_t
+// x_t) / e_t divides by decays down to exp(-16Δ) and loses the state. The
+// forward writes the state before every segment of kSeg positions to a
+// tape (bsps_ssm_scan with a tape); the backward walks the segments in
+// reverse, recomputes a segment's states and decays from its checkpoint
+// into registers (the forward's arithmetic, so the forward's bits) and
+// steps g back through them.
+// - dB and dC are summed over the block's channels on chip, in an order
+//   fixed by channel index, with no atomics: a butterfly of shuffles over
+//   the warp's channels leaves each lane one (kind, state)'s sum, which goes
+//   to a block buffer by (position, warp); at the next stage's first
+//   barrier the block sums those over its warps in warp order and writes
+//   one partial per (row, position, kind, tile of BD channels, state),
+//   (B, L, 2, ceil(d_inner / BD), d_state) fp32: 16.8 MB at jamba's train
+//   shape where 16-channel partials took 67 MB. A second kernel sums the
+//   tiles' partials in a fixed order (four interleaved runs in tile order,
+//   then a tree over the four). Shared-memory transposes summed the warp's
+//   channels too, and were the slower on the H100 (PERF.md).
+// - One exponential per (position, channel, state): the reverse step takes
+//   e_t from the recompute's registers.
+// - The sums over states (Σ_s g B for dx, Σ_s A g e h for dΔ) leave the
+//   walk too: each lane writes its share to shared memory, and the stage's
+//   drain sums each (position, channel)'s shares as a tree over its lanes
+//   and writes dx and dΔ, coalesced. Per-position shuffles did the same
+//   and were the slower on the H100 (PERF.md).
+// - No forward sweep: the tape comes from the forward, and each stage's
+//   cp.async brings the checkpoints of its segments beside its streams.
+// - A geometry of its own: 256-thread blocks, kSpl = 4 states a lane, so
+//   G = d_state / 4 lanes a channel and BD = 64 channels a block at
+//   d_state 16 (128 at 8); grid (channel tiles, batch rows). A segment of
+//   kSeg = 8 positions keeps its 9 states and 8 decays in 68 registers, and
+//   the kernel fits 128 a thread with no spills: two blocks (16 warps) an
+//   SM at d_state 16, so jamba's 512 blocks fill 1.94 waves (one block an
+//   SM at d_state 8). One grouping: every batch size takes the same tiles
+//   and orders.
+// - Stages of kStage = 16 positions (two segments), double buffered; bf16
+//   B_t and C_t widened to fp32 once per block and stage. Two block
+//   barriers a stage: where it lands, and after the widening and the
+//   previous stage's drain. A segment past the sequence's end walks the
+//   stage's zeros, so every position runs unguarded.
+// - dA sums over positions in one thread, last position first, dD in a
+//   fixed order over the drain's threads; the per-row partials are summed
+//   in row order by the second kernel.
+// So the gradients are the same bits for every batch size and run.
 
 namespace {
 
-constexpr int kBatch = 8;    // positions per dB/dC reduction through shared memory
-constexpr int kGroup = 16;   // channels per dB/dC partial
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kSpl = 4;                      // states a lane
+constexpr int kStage = 16;                   // positions a stage (the wrapper's BWD_STAGE)
+constexpr int kSegs = kStage / kSeg;         // segments a stage
+constexpr int kSumSplit = 4;                 // lanes an output of the dB/dC tile sum
+static_assert(kStage % kSeg == 0, "whole segments a stage");
 
-// positions per segment: the segment's recomputed states stay in registers
-__host__ __device__ constexpr int seg_len(int spl) { return spl >= 8 ? 8 : 16; }
+__host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
 
+// the backward's geometry and shared-memory layout at d_state DS, streams T
 template <typename T, int DS>
-__host__ __device__ constexpr int bwd_buffer_elems(int bd, int chunk) {
-  // x, Δ, dy (chunk × bd) and B, C (chunk × DS), each piece 16-byte aligned
-  return ((3 * chunk * bd + 2 * chunk * DS) * (int)sizeof(T) + 15) / 16 * 16 / (int)sizeof(T);
+struct Bwd {
+  static constexpr int G = DS / kSpl;              // lanes a channel
+  static constexpr int BD = kBwdThreads / G;       // channels a block
+  static_assert(G >= 2 && 2 * kSpl <= 32 / G, "a lane's 2 × kSpl terms scatter over the warp");
+  // blocks an SM the registers are held to: two (128 registers a thread)
+  // at d_state 16; at 8 a block's 128 channels take more, and one block an
+  // SM keeps them out of local memory
+  static constexpr int kBlocksPerSM = DS >= 16 ? 2 : 1;
+  // a stage: x, Δ, dy (kStage × BD) and B, C (kStage × DS) in T, then the
+  // checkpoints of its segments (kSegs × BD × DS fp32)
+  static constexpr int kStreamBytes = align16(kStage * BD * (int)sizeof(T));
+  static constexpr int kTapeOff = 3 * kStreamBytes + align16(2 * kStage * DS * (int)sizeof(T));
+  static constexpr int kStageBytes = kTapeOff + kSegs * BD * DS * 4;
+  // after the two stages: B, C widened (bf16); the lanes' shares of the
+  // sums over states, (Σ g B, Σ A g e h) by (position, channel, lane); the
+  // block buffer of the warps' dB/dC sums (kStage, warps, 2, DS); dD's
+  // shares by thread
+  static constexpr int kWideOff = 2 * kStageBytes;
+  static constexpr int kSpOff = kWideOff + (std::is_same<T, float>::value ? 0 : 2 * kStage * DS * 4);
+  static constexpr int kXwOff = kSpOff + kStage * BD * G * 2 * 4;
+  static constexpr int kDdOff = kXwOff + kStage * kBwdWarps * 2 * DS * 4;
+  static constexpr int kSmem = kDdOff + kBwdThreads * 4;
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-template <typename T, int DS>
-__host__ __device__ constexpr size_t bwd_red_offset(int bd, int chunk) {
-  // bytes before the reduction buffer: two stages, then dx's and dΔ's stage
-  return ((2 * (size_t)bwd_buffer_elems<T, DS>(bd, chunk) + 2 * (size_t)chunk * bd) *
-              sizeof(T) + 15) / 16 * 16;
-}
-
-// Σ_s p_s q_s over a channel's states in the forward's C_t·h_t order, the
-// sum in every lane of the group
-template <int SPL, int G>
-__device__ __forceinline__ float channel_dot(const float (&p)[SPL], const float (&q)[SPL]) {
+// a lane's share of Σ_s p_s q_s over a channel's states, in the forward's
+// C_t·h_t order: its state pairs fused, then a balanced tree over the pairs
+// (the group's shares are then summed as a balanced tree over its lanes)
+template <int SPL>
+__device__ __forceinline__ float lane_dot(const float (&p)[SPL], const float (&q)[SPL]) {
   float pr[SPL / 2];
 #pragma unroll
   for (int k = 0; k < SPL / 2; ++k) pr[k] = fmaf(p[2 * k], q[2 * k], p[2 * k + 1] * q[2 * k + 1]);
@@ -385,237 +465,265 @@ __device__ __forceinline__ float channel_dot(const float (&p)[SPL], const float 
   for (int w = 1; w < SPL / 2; w *= 2)
 #pragma unroll
     for (int k = 0; k + w < SPL / 2; k += 2 * w) pr[k] += pr[k + w];
-  float acc = pr[0];
-#pragma unroll
-  for (int off = 1; off < G; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
+  return pr[0];
 }
 
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* p, float (&o)[N]) {
-#pragma unroll
-  for (int s = 0; s < N; ++s) o[s] = bsps::to_float(p[s]);
-}
-
-template <typename T, int DS, int G>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DS>
+__global__ void __launch_bounds__(kBwdThreads, Bwd<T, DS>::kBlocksPerSM)
 ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                     const T* __restrict__ bm, const T* __restrict__ cm,
                     const float* __restrict__ a, const float* __restrict__ dskip,
-                    const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ ddt,
-                    float* __restrict__ hck, float* __restrict__ pbc, float* __restrict__ pa,
-                    float* __restrict__ pd, int seq, int d_inner, int chunk, int n_chunks,
-                    int n16) {
-  constexpr int BD = kThreads / G;            // channels per block
-  constexpr int SPL = DS / G;                 // states per lane
-  constexpr int K = seg_len(SPL);             // most positions per segment
-  constexpr int NG = BD / kGroup;             // dB/dC channel groups per tile
-  static_assert(SPL >= 2 && BD % kGroup == 0, "lane group geometry");
+                    const T* __restrict__ dy, const float* __restrict__ tape,
+                    T* __restrict__ dx, T* __restrict__ ddt, float* __restrict__ pbc,
+                    float* __restrict__ pa, float* __restrict__ pd, int seq, int d_inner,
+                    int n_stages) {
+  using L = Bwd<T, DS>;
+  constexpr int G = L::G, BD = L::BD, SPL = kSpl;
+  constexpr bool kWide = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int buf_elems = bwd_buffer_elems<T, DS>(BD, chunk);
-  T* bufs = reinterpret_cast<T*>(smem);              // two stages, buf_elems apart
-  T* dxs = bufs + 2 * buf_elems;                     // (chunk, BD): this segment's dx
-  T* ddts = dxs + chunk * BD;                        // and dΔ
-  // (kBatch, 2, BD, DS): each position's g_t Δ_t x_t and dy_t h_t terms
-  float* red = reinterpret_cast<float*>(smem + bwd_red_offset<T, DS>(BD, chunk));
-  const int row = blockIdx.y, c0 = blockIdx.x * BD;
-  const int ch = threadIdx.x / G, lane_s = threadIdx.x % G;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* sp = reinterpret_cast<float*>(smem + L::kSpOff);
+  float* xw = reinterpret_cast<float*>(smem + L::kXwOff);
+  const int row = blockIdx.y, tile = blockIdx.x, n_tiles = gridDim.x, c0 = tile * BD;
+  const int ch = tid / G, ls = tid % G;
   const int i = c0 + ch;
   const bool active = i < d_inner;
-  const int valid_cols = d_inner - c0;
+  const int valid_cols = min(BD, d_inner - c0);
   const long long row_pos = (long long)row * seq;
+  const int n_seg = (seq + kSeg - 1) / kSeg;
 
   float a_s[SPL], a2[SPL];
 #pragma unroll
   for (int s = 0; s < SPL; ++s) {
-    a_s[s] = active ? a[(long long)i * DS + lane_s * SPL + s] : 0.f;
+    a_s[s] = active ? a[(long long)i * DS + ls * SPL + s] : 0.f;
     a2[s] = a_s[s] * kLog2e;                  // the forward's exponent
   }
-  const float d_i = active ? dskip[i] : 0.f;
-  // this lane's states in the checkpoint of segment ci (the state before it)
-  auto ckpt = [&](int ci) {
-    return hck + (((long long)row * n_chunks + ci) * d_inner + i) * DS + lane_s * SPL;
-  };
-  auto stage = [&](int ci, T* dst, bool reverse) {  // issue segment ci's copies; no wait
-    const int t0 = ci * chunk, len = min(chunk, seq - t0);
+  // the channel whose dx, dΔ and dD this thread finishes (the drain's)
+  const int fc = tid % BD;
+  const float d_f = fc < valid_cols ? dskip[c0 + fc] : 0.f;
+  float dd_f = 0.f;                           // Σ dy x over the thread's positions
+
+  auto stage_at = [&](int st) { return smem + (st & 1) * L::kStageBytes; };
+  auto stage_in = [&](int st) {               // start stage st's copies; no wait
+    unsigned char* buf = stage_at(st);
+    const int t0 = st * kStage, len = min(kStage, seq - t0);
     const long long p0 = (row_pos + t0) * d_inner + c0;
-    stage_tile(dst, x + p0, d_inner, chunk, BD, len, valid_cols);
-    stage_tile(dst + chunk * BD, dt + p0, d_inner, chunk, BD, len, valid_cols);
+    stage_tile<T, kBwdThreads>(reinterpret_cast<T*>(buf), x + p0, d_inner, kStage, BD, len,
+                               valid_cols);
+    stage_tile<T, kBwdThreads>(reinterpret_cast<T*>(buf + L::kStreamBytes), dt + p0, d_inner,
+                               kStage, BD, len, valid_cols);
+    stage_tile<T, kBwdThreads>(reinterpret_cast<T*>(buf + 2 * L::kStreamBytes), dy + p0, d_inner,
+                               kStage, BD, len, valid_cols);
+    T* bc = reinterpret_cast<T*>(buf + 3 * L::kStreamBytes);
     const long long q0 = (row_pos + t0) * DS;
-    stage_tile(dst + 3 * chunk * BD, bm + q0, DS, chunk, DS, len, DS);
-    if (reverse) {
-      stage_tile(dst + 2 * chunk * BD, dy + p0, d_inner, chunk, BD, len, valid_cols);
-      stage_tile(dst + 3 * chunk * BD + chunk * DS, cm + q0, DS, chunk, DS, len, DS);
+    stage_tile<T, kBwdThreads>(bc, bm + q0, DS, kStage, DS, len, DS);
+    stage_tile<T, kBwdThreads>(bc + kStage * DS, cm + q0, DS, kStage, DS, len, DS);
+    float* tp = reinterpret_cast<float*>(buf + L::kTapeOff);
+#pragma unroll
+    for (int j = 0; j < kSegs; ++j) {         // the state before each segment but the first
+      const int seg = st * kSegs + j;
+      if (seg >= 1 && seg < n_seg)
+        stage_tile<float, kBwdThreads>(
+            tp + j * BD * DS, tape + (((long long)row * (n_seg - 1) + seg - 1) * d_inner + c0) * DS,
+            DS, BD, DS, valid_cols, DS);
     }
     cp_async_commit();
   };
-
-  // sweep 1: forward, the state before every segment but the first to the
-  // tape (the last segment's end state is not needed)
-  {
-    float h[SPL];
+  // stage st's dB/dC terms summed over the block's warps in warp order to
+  // the partials; then each (position, channel)'s sums over states from
+  // its lanes' shares, and dx, dΔ
+  auto drain = [&](int st) {
+    constexpr int QP = DS / 2;                // quads a position: 2 kinds x DS / 4
+    const int t0 = st * kStage, len = min(kStage, seq - t0);
+    const unsigned char* buf = stage_at(st);
+    const T* xs = reinterpret_cast<const T*>(buf);
+    const T* dts = reinterpret_cast<const T*>(buf + L::kStreamBytes);
+    const T* dys = reinterpret_cast<const T*>(buf + 2 * L::kStreamBytes);
+    for (int o = tid; o < len * QP; o += kBwdThreads) {
+      const int t = o / QP, kind = (o % QP) / (DS / 4), s4 = o % (DS / 4);
+      const float* src = xw + t * kBwdWarps * 2 * DS + kind * DS + 4 * s4;
+      float4 acc = ld4(src);
 #pragma unroll
-    for (int s = 0; s < SPL; ++s) h[s] = 0.f;
-    const int n_fwd = n_chunks - 1;
-    if (n_fwd > 0) stage(0, bufs, false);
-    for (int ci = 0; ci < n_fwd; ++ci) {
-      if (ci + 1 < n_fwd) {
-        stage(ci + 1, bufs + ((ci + 1) & 1) * buf_elems, false);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* xs = bufs + (ci & 1) * buf_elems;
-      const T* dts = xs + chunk * BD;
-      const T* bs = xs + 3 * chunk * BD;
-      // only the last segment is ragged, and it is not walked here
-#pragma unroll 4
-      for (int t = 0; t < chunk; ++t) {
-        const float x_t = bsps::to_float(xs[t * BD + ch]);
-        const float dt_t = bsps::to_float(dts[t * BD + ch]);
-        const float u = dt_t * x_t;
-        float b_t[SPL];
-        load_row(bs + t * DS + lane_s * SPL, b_t);
-#pragma unroll
-        for (int s = 0; s < SPL; ++s) h[s] = fmaf(ex2(dt_t * a2[s]), h[s], u * b_t[s]);
-      }
-      if (active) {
-        float* p = ckpt(ci + 1);
-#pragma unroll
-        for (int s = 0; s < SPL; ++s) p[s] = h[s];
-      }
-      __syncthreads();                        // this stage is free for segment ci + 2
+      for (int w = 1; w < kBwdWarps; ++w) acc = add4(acc, ld4(src + w * 2 * DS));
+      st4(pbc + (((row_pos + t0 + t) * 2 + kind) * n_tiles + tile) * DS + 4 * s4, acc);
     }
-  }
-
-  // sweep 2: the segments in reverse
+    for (int t = tid / BD; t < len; t += kBwdThreads / BD) {
+      const float* sh = sp + (t * BD + fc) * G * 2;
+      float sgb[G], sgah[G];
+#pragma unroll
+      for (int l = 0; l < G; ++l) sgb[l] = sh[2 * l], sgah[l] = sh[2 * l + 1];
+#pragma unroll
+      for (int w = 1; w < G; w *= 2)          // a balanced tree over the lanes
+#pragma unroll
+        for (int l = 0; l + w < G; l += 2 * w) sgb[l] += sgb[l + w], sgah[l] += sgah[l + w];
+      const float x_t = bsps::to_float(xs[t * BD + fc]);
+      const float dt_t = bsps::to_float(dts[t * BD + fc]);
+      const float dy_t = bsps::to_float(dys[t * BD + fc]);
+      dd_f = fmaf(dy_t, x_t, dd_f);
+      if (fc < valid_cols) {
+        const long long o = (row_pos + t0 + t) * d_inner + c0 + fc;
+        dx[o] = bsps::from_float<T>(fmaf(dt_t, sgb[0], d_f * dy_t));
+        ddt[o] = bsps::from_float<T>(fmaf(x_t, sgb[0], sgah[0]));
+      }
+    }
+  };
+  // the lane's 2 × SPL dB/dC terms summed over the warp's channels, to the
+  // block buffer at stage position p: a butterfly over the lane bits that
+  // number the channel, highest first; each round keeps half the values and
+  // adds the partner lane's copy of that half, so each lane ends with one
+  // (kind, state)'s sum (where the warp has more channels than 2 × SPL, the
+  // last rounds add whole sums, and two lanes hold each). A fixed tree in
+  // channel index.
+  auto scatter = [&](const float (&tb)[SPL], const float (&tc)[SPL], int p) {
+    float v[2 * SPL];
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) v[s] = tb[s], v[SPL + s] = tc[s];
+    int idx = 0, dup = 0;
+#pragma unroll
+    for (int r = 0; (16 >> r) >= G; ++r) {
+      const int m = 16 >> r, nh = (2 * SPL >> r) / 2;
+      const bool hi = lane & m;
+      if (nh >= 1) {
+#pragma unroll
+        for (int j = 0; j < nh; ++j) {
+          const float keep = hi ? v[j + nh] : v[j], send = hi ? v[j] : v[j + nh];
+          v[j] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+        }
+        idx = 2 * idx + (hi ? 1 : 0);
+      } else {
+        v[0] += __shfl_xor_sync(0xffffffffu, v[0], m);
+        dup |= m;
+      }
+    }
+    if ((lane & dup) == 0)
+      xw[(p * kBwdWarps + warp) * 2 * DS + (idx / SPL) * DS + ls * SPL + idx % SPL] = v[0];
+  };
   float gn[SPL], da_acc[SPL];                 // e_{t+1} ⊙ g_{t+1}; Σ_t g Δ e h_{t-1}
 #pragma unroll
   for (int s = 0; s < SPL; ++s) gn[s] = da_acc[s] = 0.f;
-  float dd_acc = 0.f;
-  // kBatch positions' terms summed over each group of kGroup channels in
-  // channel order, to the partials (B, L, 2, n16, DS)
-  auto flush = [&](long long pos0, int nb) {
-    for (int o = threadIdx.x; o < nb * 2 * NG * DS; o += kThreads) {
-      const int s = o % DS, grp = (o / DS) % NG, kind = (o / (DS * NG)) % 2;
-      const int tt = o / (2 * NG * DS);
-      const int gg = c0 / kGroup + grp;
-      if (gg >= n16) continue;                // a group wholly past d_inner
-      const float* src = red + ((tt * 2 + kind) * BD + grp * kGroup) * DS + s;
-      float acc = src[0];
-#pragma unroll
-      for (int j = 1; j < kGroup; ++j) acc += src[j * DS];
-      pbc[(((pos0 + tt) * 2 + kind) * n16 + gg) * DS + s] = acc;
-    }
-  };
-  stage(n_chunks - 1, bufs + ((n_chunks - 1) & 1) * buf_elems, true);
-  for (int ci = n_chunks - 1; ci >= 0; --ci) {
-    if (ci > 0) {
-      stage(ci - 1, bufs + ((ci - 1) & 1) * buf_elems, true);
-      cp_async_wait<1>();
+  stage_in(n_stages - 1);
+  for (int st = n_stages - 1; st >= 0; --st) {
+    cp_async_wait<0>();
+    __syncthreads();                          // stage st landed; stage st + 1's terms whole
+    const unsigned char* buf = stage_at(st);
+    const T* xs = reinterpret_cast<const T*>(buf);
+    const T* dts = reinterpret_cast<const T*>(buf + L::kStreamBytes);
+    const T* dys = reinterpret_cast<const T*>(buf + 2 * L::kStreamBytes);
+    const float* bs;                          // B_t (kStage × DS) fp32, then C_t
+    if constexpr (kWide) {
+      bs = reinterpret_cast<const float*>(buf + 3 * L::kStreamBytes);
     } else {
-      cp_async_wait<0>();
+      const T* raw = reinterpret_cast<const T*>(buf + 3 * L::kStreamBytes);
+      float* wide = reinterpret_cast<float*>(smem + L::kWideOff);
+      for (int e = tid; e < 2 * kStage * DS; e += kBwdThreads) wide[e] = bsps::to_float(raw[e]);
+      bs = wide;
     }
-    __syncthreads();
-    const T* xs = bufs + (ci & 1) * buf_elems;
-    const T* dts = xs + chunk * BD;
-    const T* dys = xs + 2 * chunk * BD;
-    const T* bs = xs + 3 * chunk * BD;
-    const T* cs = bs + chunk * DS;
-    const int t0 = ci * chunk, len = min(chunk, seq - t0);
-    // hs[0] the state before the segment, hs[t + 1] the state after position t
-    float hs[K + 1][SPL];
-    if (ci > 0 && active) {
-      const float* p = ckpt(ci);
+    const float* cs = bs + kStage * DS;
+    if (st + 1 < n_stages) drain(st + 1);
+    __syncthreads();                          // B_t, C_t wide; stage st + 1 drained
+    if (st > 0) stage_in(st - 1);             // into stage st + 1's buffer, read by now
+    const float* tp = reinterpret_cast<const float*>(buf + L::kTapeOff);
+    const int len_st = min(kStage, seq - st * kStage);
+#pragma unroll 1
+    for (int j = (len_st - 1) / kSeg; j >= 0; --j) {   // the stage's segments, last first
+      // a segment past the sequence's end walks zeros (the stage is zero
+      // filled there): the states carry over unchanged and g stays 0, so the
+      // real positions get the same bits as with a shorter walk
+      const int lt0 = j * kSeg;
+      // hs[0] the state before the segment, hs[t + 1] after position t; es[t] = e_t
+      float hs[kSeg + 1][SPL], es[kSeg][SPL];
+      if (st * kSegs + j > 0) {
+        load_floats(tp + (j * BD + ch) * DS + ls * SPL, hs[0]);
+      } else {
 #pragma unroll
-      for (int s = 0; s < SPL; ++s) hs[0][s] = p[s];
-    } else {
+        for (int s = 0; s < SPL; ++s) hs[0][s] = 0.f;
+      }
 #pragma unroll
-      for (int s = 0; s < SPL; ++s) hs[0][s] = 0.f;
-    }
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-      if (t < len) {
-        const float x_t = bsps::to_float(xs[t * BD + ch]);
-        const float dt_t = bsps::to_float(dts[t * BD + ch]);
+      for (int t = 0; t < kSeg; ++t) {
+        const int p = lt0 + t;
+        const float x_t = bsps::to_float(xs[p * BD + ch]);
+        const float dt_t = bsps::to_float(dts[p * BD + ch]);
         const float u = dt_t * x_t;
         float b_t[SPL];
-        load_row(bs + t * DS + lane_s * SPL, b_t);
+        load_floats(bs + p * DS + ls * SPL, b_t);
 #pragma unroll
-        for (int s = 0; s < SPL; ++s)
-          hs[t + 1][s] = fmaf(ex2(dt_t * a2[s]), hs[t][s], u * b_t[s]);
+        for (int s = 0; s < SPL; ++s) {
+          es[t][s] = ex2(dt_t * a2[s]);
+          hs[t + 1][s] = fmaf(es[t][s], hs[t][s], u * b_t[s]);
+        }
       }
-    }
 #pragma unroll
-    for (int t = K - 1; t >= 0; --t) {
-      if (t < len) {
-        const float x_t = bsps::to_float(xs[t * BD + ch]);
-        const float dt_t = bsps::to_float(dts[t * BD + ch]);
-        const float dy_t = bsps::to_float(dys[t * BD + ch]);
+      for (int t = kSeg - 1; t >= 0; --t) {
+        const int p = lt0 + t;
+        const float x_t = bsps::to_float(xs[p * BD + ch]);
+        const float dt_t = bsps::to_float(dts[p * BD + ch]);
+        const float dy_t = bsps::to_float(dys[p * BD + ch]);
         const float u = dt_t * x_t;
         float b_t[SPL], c_t[SPL], g[SPL], geh[SPL];
-        load_row(bs + t * DS + lane_s * SPL, b_t);
-        load_row(cs + t * DS + lane_s * SPL, c_t);
-        float* rb = red + ((t % kBatch) * 2 * BD + ch) * DS + lane_s * SPL;   // g Δ x
-        float* rc = rb + BD * DS;                                             // dy h
+        load_floats(bs + p * DS + ls * SPL, b_t);
+        load_floats(cs + p * DS + ls * SPL, c_t);
 #pragma unroll
         for (int s = 0; s < SPL; ++s) {
           g[s] = fmaf(c_t[s], dy_t, gn[s]);
-          const float ge = g[s] * ex2(dt_t * a2[s]);
-          geh[s] = ge * hs[t][s];
+          gn[s] = g[s] * es[t][s];
+          geh[s] = gn[s] * hs[t][s];
           da_acc[s] = fmaf(dt_t, geh[s], da_acc[s]);
-          rb[s] = g[s] * u;
-          rc[s] = dy_t * hs[t + 1][s];
-          gn[s] = ge;
         }
-        const float sgb = channel_dot<SPL, G>(g, b_t);
-        const float sgah = channel_dot<SPL, G>(a_s, geh);
-        if (lane_s == 0) {
-          dxs[t * BD + ch] = bsps::from_float<T>(fmaf(dt_t, sgb, d_i * dy_t));
-          ddts[t * BD + ch] = bsps::from_float<T>(fmaf(x_t, sgb, sgah));
-          dd_acc = fmaf(dy_t, x_t, dd_acc);
-        }
-        if (t % kBatch == 0) {                // positions t .. t + kBatch - 1 are in
-          __syncthreads();
-          flush(row_pos + t0 + t, min(kBatch, len - t));
-          __syncthreads();                    // red is free; dxs, ddts whole; the stage read
-        }
+        *reinterpret_cast<float2*>(sp + ((p * BD + ch) * G + ls) * 2) =
+            make_float2(lane_dot(g, b_t), lane_dot(a_s, geh));
+        // the dB and dC terms after the shares, so that b_t and geh are dead
+        // by then: the walk stays within 128 registers
+        float tb[SPL], tc[SPL];
+#pragma unroll
+        for (int s = 0; s < SPL; ++s) tb[s] = g[s] * u, tc[s] = dy_t * hs[t + 1][s];
+        scatter(tb, tc, p);
       }
     }
-    store_tile(dx + (row_pos + t0) * d_inner + c0, dxs, d_inner, BD, len, valid_cols);
-    store_tile(ddt + (row_pos + t0) * d_inner + c0, ddts, d_inner, BD, len, valid_cols);
-    // the next segment's first writes to dxs come after its __syncthreads
   }
-  if (active) {
-    float* p = pa + ((long long)row * d_inner + i) * DS + lane_s * SPL;
+  __syncthreads();
+  drain(0);
+  if (active) store_floats(pa + ((long long)row * d_inner + i) * DS + ls * SPL, da_acc);
+  // dD: each channel's shares over its threads, in thread order
+  float* dd_sh = reinterpret_cast<float*>(smem + L::kDdOff);
+  dd_sh[tid] = dd_f;
+  __syncthreads();
+  if (tid < valid_cols) {
+    float acc = dd_sh[tid];
 #pragma unroll
-    for (int s = 0; s < SPL; ++s) p[s] = da_acc[s];
-    if (lane_s == 0) pd[(long long)row * d_inner + i] = dd_acc;
+    for (int k = 1; k < kBwdThreads / BD; ++k) acc += dd_sh[k * BD + tid];
+    pd[(long long)row * d_inner + c0 + tid] = acc;
   }
 }
 
-// dB, dC: each (row, position, state)'s channel-group partials summed in
-// group order; dA, dD: the per-row partials summed in row order
+// dB, dC: each (row, position, kind, state)'s tile partials summed in a
+// fixed order, kSumSplit runs over the tiles in tile order (run k: tiles
+// k, k + kSumSplit, ...) then a tree over the runs; dA, dD: the per-row
+// partials summed in row order
 template <typename T>
 __global__ void ssm_scan_bwd_sum_kernel(const float* __restrict__ pbc,
                                         const float* __restrict__ pa,
                                         const float* __restrict__ pd, T* __restrict__ db,
                                         T* __restrict__ dc, float* __restrict__ da,
                                         float* __restrict__ dd, int rows, int seq, int d_inner,
-                                        int ds, int n16) {
+                                        int ds, int n_tiles) {
+  static_assert(kSumSplit == 4, "a warp: 8 outputs x 4 runs");
+  // a multiple of 16 outputs (ds 8 or 16), so whole warps take the first branch
   const long long n_bc = (long long)rows * seq * 2 * ds, n_a = (long long)d_inner * ds;
   long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o < n_bc) {
-    const long long rtk = o / ds;             // (row, position, kind)
-    const int s = (int)(o % ds);
-    const float* src = pbc + rtk * n16 * ds + s;
-    float acc = src[0];
-    for (int j = 1; j < n16; ++j) acc += src[(long long)j * ds];
-    (rtk % 2 ? dc : db)[rtk / 2 * ds + s] = bsps::from_float<T>(acc);
+  if (o < n_bc * kSumSplit) {
+    const int lane = threadIdx.x % 32, k = lane / 8;
+    const long long out = o / 32 * 8 + lane % 8;
+    const long long rtk = out / ds;           // (row, position, kind)
+    const int s = (int)(out % ds);
+    const float* src = pbc + rtk * n_tiles * ds + s;
+    float acc = 0.f;
+    for (int j = k; j < n_tiles; j += kSumSplit) acc += src[(long long)j * ds];
+    acc += __shfl_xor_sync(0xffffffffu, acc, 8);    // runs 0 + 1 and 2 + 3
+    acc += __shfl_xor_sync(0xffffffffu, acc, 16);   // then the two
+    if (k == 0) (rtk % 2 ? dc : db)[rtk / 2 * ds + s] = bsps::from_float<T>(acc);
     return;
   }
-  o -= n_bc;
+  o -= n_bc * kSumSplit;
   if (o < n_a) {
     float acc = pa[o];
     for (int r = 1; r < rows; ++r) acc += pa[r * n_a + o];
@@ -634,90 +742,114 @@ struct BwdArgs {
   const void *x, *dt, *b, *c;
   const float *a, *d;
   const void* dy;
+  const float* tape;
   void *dx, *ddt, *db, *dc;
-  float *da, *dd, *hck, *pbc, *pa, *pd;
-  int seq, d_inner, chunk, n_chunks, n16;
+  float *da, *dd, *pbc, *pa, *pd;
+  int seq, d_inner, n_stages;
 };
 
-template <typename T, int DS, int G>
-cudaError_t launch_bwd(int device, int tiles, int rows, cudaStream_t stream, const BwdArgs& p) {
-  constexpr int BD = kThreads / G;
-  if (p.chunk > seg_len(DS / G)) return cudaErrorInvalidValue;
-  const size_t smem = bwd_red_offset<T, DS>(BD, p.chunk) +
-                      (size_t)kBatch * 2 * BD * DS * sizeof(float);
-  cudaError_t err = bsps::prepare_smem(ssm_scan_bwd_kernel<T, DS, G>, device, smem);
+// the kernel's shared memory, with all of the SM's to the carveout: two
+// blocks an SM
+template <typename T, int DS>
+cudaError_t prepare_bwd(int device) {
+  cudaError_t err = bsps::prepare_smem(ssm_scan_bwd_kernel<T, DS>, device, Bwd<T, DS>::kSmem);
   if (err != cudaSuccess) return err;
-  ssm_scan_bwd_kernel<T, DS, G><<<dim3(tiles, rows, 1), kThreads, smem, stream>>>(
+  return cudaFuncSetAttribute(ssm_scan_bwd_kernel<T, DS>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T, int DS>
+cudaError_t launch_bwd(int device, int tiles, int rows, cudaStream_t stream, const BwdArgs& p) {
+  constexpr size_t smem = Bwd<T, DS>::kSmem;
+  cudaError_t err = prepare_bwd<T, DS>(device);
+  if (err != cudaSuccess) return err;
+  ssm_scan_bwd_kernel<T, DS><<<dim3(tiles, rows, 1), kBwdThreads, smem, stream>>>(
       static_cast<const T*>(p.x), static_cast<const T*>(p.dt), static_cast<const T*>(p.b),
-      static_cast<const T*>(p.c), p.a, p.d, static_cast<const T*>(p.dy), static_cast<T*>(p.dx),
-      static_cast<T*>(p.ddt), p.hck, p.pbc, p.pa, p.pd, p.seq, p.d_inner, p.chunk, p.n_chunks,
-      p.n16);
+      static_cast<const T*>(p.c), p.a, p.d, static_cast<const T*>(p.dy), p.tape,
+      static_cast<T*>(p.dx), static_cast<T*>(p.ddt), p.pbc, p.pa, p.pd, p.seq, p.d_inner,
+      p.n_stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long total = (long long)rows * p.seq * 2 * DS + (long long)p.d_inner * DS + p.d_inner;
+  const long long total = (long long)rows * p.seq * 2 * DS * kSumSplit +
+                          (long long)p.d_inner * DS + p.d_inner;
   constexpr int kSumThreads = 256;
   ssm_scan_bwd_sum_kernel<T><<<(unsigned)((total + kSumThreads - 1) / kSumThreads), kSumThreads,
                                0, stream>>>(p.pbc, p.pa, p.pd, static_cast<T*>(p.db),
                                             static_cast<T*>(p.dc), p.da, p.dd, rows, p.seq,
-                                            p.d_inner, DS, p.n16);
+                                            p.d_inner, DS, tiles);
   return cudaGetLastError();
 }
 
+// registers a thread, spilled (local) bytes a thread, shared memory a block
+// and resident blocks an SM
 template <typename T, int DS>
-cudaError_t bwd_by_group(int lanes, int device, int tiles, int rows, cudaStream_t stream,
-                         const BwdArgs& p) {
-  if (lanes == 2) return launch_bwd<T, DS, 2>(device, tiles, rows, stream, p);
-  if (lanes == 4) return launch_bwd<T, DS, 4>(device, tiles, rows, stream, p);
-  if constexpr (DS >= 16) {
-    if (lanes == 8) return launch_bwd<T, DS, 8>(device, tiles, rows, stream, p);
-  }
-  return cudaErrorInvalidValue;
+cudaError_t bwd_attrs(int device, int* out) {
+  cudaError_t err = prepare_bwd<T, DS>(device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, ssm_scan_bwd_kernel<T, DS>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ssm_scan_bwd_kernel<T, DS>,
+                                                      kBwdThreads, Bwd<T, DS>::kSmem);
+  out[0] = fa.numRegs, out[1] = (int)fa.localSizeBytes, out[2] = Bwd<T, DS>::kSmem, out[3] = blocks;
+  return err;
 }
 
 template <typename T>
-cudaError_t bwd_dispatch(int lanes, int device, int tiles, int rows, int d_state,
-                         cudaStream_t stream, const BwdArgs& p) {
-  if (d_state == 8) return bwd_by_group<T, 8>(lanes, device, tiles, rows, stream, p);
-  if (d_state == 16) return bwd_by_group<T, 16>(lanes, device, tiles, rows, stream, p);
+cudaError_t bwd_dispatch(int device, int tiles, int rows, int d_state, cudaStream_t stream,
+                         const BwdArgs& p) {
+  if (d_state == 8) return launch_bwd<T, 8>(device, tiles, rows, stream, p);
+  if (d_state == 16) return launch_bwd<T, 16>(device, tiles, rows, stream, p);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // (dx, dΔ, dB, dC, dA, dD) of bsps_ssm_scan for dy. grid (channel tiles,
-// batch rows, 1), loop = segments per row (both sweeps walk them); x, Δ, dy,
+// batch rows, 1), loop = stages per row (kStage positions each); x, Δ, dy,
 // dx, dΔ (B, seq, d_inner) and B, C, dB, dC (B, seq, d_state) contiguous in
-// `dtype`; A, dA (d_inner, d_state) and D, dD (d_inner,) fp32. `chunk`
-// positions a segment (at most 8 at 8 states a lane, else 16). fp32 work
-// buffers, none read before this launch writes it: hck the checkpoint tape
-// (B, loop, d_inner, d_state); pbc the dB/dC partials (B, seq, 2, n_groups,
-// d_state), `group` channels a partial; pa (B, d_inner, d_state) and pd
-// (B, d_inner) the per-row dA and dD. The caller allocates them: `group`
-// must be kGroup and n_groups ceil(d_inner / kGroup), or nothing runs.
-// `scratch_bytes` is the plan's per-tile h and g, 2 × block_d × d_state
-// fp32, which the kernel keeps in registers.
+// `dtype`; A, dA (d_inner, d_state) and D, dD (d_inner,) fp32. `tape` the
+// forward's checkpoints (B, ceil(seq / seg) - 1, d_inner, d_state) fp32
+// (null only where that is empty). `block_d` must be 256 / (d_state / 4),
+// `stage` kStage, `seg` kSeg. fp32 work buffers, none read before this
+// launch writes it: pbc the dB/dC partials (B, seq, 2, n_tiles, d_state),
+// one per tile of block_d channels; pa (B, d_inner, d_state) and pd (B,
+// d_inner) the per-row dA and dD. The caller allocates them: `n_tiles`
+// must be gx, or nothing runs. `scratch_bytes` is the plan's per-tile h and
+// g, 2 × block_d × d_state fp32, which the kernel keeps in registers.
 BSPS_EXPORT int bsps_ssm_scan_bwd(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
                                   void* stream, const void* x, const void* dt, const void* b,
                                   const void* c, const float* a, const float* d, const void* dy,
-                                  void* dx, void* ddt, void* db, void* dc, float* da, float* dd,
-                                  float* hck, float* pbc, float* pa, float* pd, int seq,
-                                  int d_inner, int d_state, int chunk, int block_d, int n_groups,
-                                  int group, int dtype) {
+                                  const float* tape, void* dx, void* ddt, void* db, void* dc,
+                                  float* da, float* dd, float* pbc, float* pa, float* pd, int seq,
+                                  int d_inner, int d_state, int stage, int block_d, int seg,
+                                  int n_tiles, int dtype) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if ((block_d != 16 && block_d != 32 && block_d != 64) || gz != 1 || gy < 1 || seq < 1 ||
-      d_inner < 1 || chunk < 1 || gx != (d_inner + block_d - 1) / block_d ||
-      loop != (seq + chunk - 1) / chunk || group != kGroup ||
-      n_groups != (d_inner + kGroup - 1) / kGroup ||
-      scratch_bytes != 2 * block_d * d_state * (int)sizeof(float))
+  if ((d_state != 8 && d_state != 16) || block_d != kBwdThreads / (d_state / kSpl) ||
+      stage != kStage || seg != kSeg || gz != 1 || gy < 1 || seq < 1 || d_inner < 1 ||
+      gx != (d_inner + block_d - 1) / block_d || n_tiles != gx || loop != (seq + stage - 1) / stage ||
+      scratch_bytes != 2 * block_d * d_state * (int)sizeof(float) || (!tape && seq > kSeg))
     return cudaErrorInvalidValue;
-  const int lanes = kThreads / block_d;
-  if (2 * lanes > d_state) return cudaErrorInvalidValue;
-  const BwdArgs p{x,  dt, b,  c,   a,   d,   dy,  dx,  ddt,     db,      dc,
-                  da, dd, hck, pbc, pa, pd, seq, d_inner, chunk, loop, n_groups};
+  const BwdArgs p{x, dt, b, c, a, d, dy, tape, dx, ddt, db, dc, da, dd, pbc, pa, pd,
+                  seq, d_inner, loop};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == bsps::kFloat32) return bwd_dispatch<float>(lanes, device, gx, gy, d_state, s, p);
-  if (dtype == bsps::kBFloat16)
-    return bwd_dispatch<__nv_bfloat16>(lanes, device, gx, gy, d_state, s, p);
+  if (dtype == bsps::kFloat32) return bwd_dispatch<float>(device, gx, gy, d_state, s, p);
+  if (dtype == bsps::kBFloat16) return bwd_dispatch<__nv_bfloat16>(device, gx, gy, d_state, s, p);
+  return cudaErrorInvalidValue;
+}
+
+// The backward kernel at d_state and dtype on `device`, as the CUDA
+// runtime reports it: out[0] registers a thread, out[1] spilled bytes a
+// thread, out[2] shared memory a block, out[3] resident blocks an SM.
+BSPS_EXPORT int bsps_ssm_scan_bwd_attrs(int device, int d_state, int dtype, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (dtype == bsps::kFloat32 && d_state == 8) return bwd_attrs<float, 8>(device, out);
+  if (dtype == bsps::kFloat32 && d_state == 16) return bwd_attrs<float, 16>(device, out);
+  if (dtype == bsps::kBFloat16 && d_state == 8) return bwd_attrs<__nv_bfloat16, 8>(device, out);
+  if (dtype == bsps::kBFloat16 && d_state == 16) return bwd_attrs<__nv_bfloat16, 16>(device, out);
   return cudaErrorInvalidValue;
 }

@@ -49,7 +49,7 @@ import torch
 from repro_torch.core.plan import StreamPlan
 
 __all__ = ["Launch", "geometry", "lower", "launch", "library", "build_library", "sm_count",
-           "sweep_kernels", "BUILD_DIR", "CSRC"]
+           "sweep_kernels", "kernel_attrs", "BUILD_DIR", "CSRC"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -65,11 +65,14 @@ ENTRIES: dict[str, list[Any]] = {
     "bsps_dot": [_P, _P, _LL, _I, _I, _P, _P],
     "bsps_matmul": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I],
     "bsps_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P],
-    "bsps_ssm_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    "bsps_ssm_scan": [_P] * 8 + [_I] * 7,
     "bsps_ssm_scan_bwd": [_P] * 17 + [_I] * 8,
 }
-_LIBRARY_ENTRIES = {"bsps_smem_optin": [_I], **{name: _PREFIX + args
-                                                 for name, args in ENTRIES.items()}}
+#: queries of a kernel's compiled attributes: the device, the query's ints,
+#: then an int[4] the entry fills (:func:`kernel_attrs`)
+QUERIES: dict[str, list[Any]] = {"bsps_ssm_scan_bwd_attrs": [_I, _I, _I, _P]}
+_LIBRARY_ENTRIES = {"bsps_smem_optin": [_I], **QUERIES,
+                    **{name: _PREFIX + args for name, args in ENTRIES.items()}}
 #: the fp32 matmul's tile sweep (``launch/sweep_simt_f32``), a library of its
 #: own: its source and its entry points' full argument types
 SWEEP_SOURCES = ("sweep/simt_f32_sweep.cu",)
@@ -255,6 +258,21 @@ def launch(plan_launch: Launch, device: torch.device, *args: Any) -> None:
             f"{plan_launch.entry} failed with CUDA error {err} "
             f"(grid {plan_launch.grid}, loop {plan_launch.loop}, "
             f"scratch {plan_launch.scratch_bytes} B)")
+
+
+def kernel_attrs(query: str, device: torch.device, *args: int) -> tuple[int, int, int, int]:
+    """The four ints that the library's ``query`` entry reports for a
+    kernel on ``device`` (what each means is the entry's: for
+    ``bsps_ssm_scan_bwd_attrs`` registers and spilled bytes a thread,
+    shared memory a block, resident blocks an SM). Raises on a CUDA error."""
+    if query not in QUERIES:
+        raise ValueError(f"unknown kernel query {query!r}")
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    out = (_I * 4)()
+    err = getattr(library(), query)(idx, *args, out)
+    if err != 0:
+        raise RuntimeError(f"{query}{args} failed with CUDA error {err}")
+    return tuple(out)
 
 
 _SM_COUNT: dict[int, int] = {}

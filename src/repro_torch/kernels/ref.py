@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["matmul_ref", "dot_ref", "attention_ref", "attention_ref_lse", "ssm_scan_ref",
-           "ssm_scan_bwd_ref"]
+           "ssm_scan_tape_ref", "ssm_scan_bwd_ref"]
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None, *, a_layout: str = "mk",
@@ -96,6 +96,25 @@ def ssm_scan_ref(
         ys.append(torch.einsum("bis,bs->bi", h, cf[:, t]) + df * x_t)
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
     return y.to(x.dtype)
+
+
+def ssm_scan_tape_ref(
+    x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, a: torch.Tensor, segment: int,
+) -> torch.Tensor:
+    """The checkpoint tape the forward kernel writes for the backward, by
+    :func:`ssm_scan_ref`'s walk: the state h after every ``segment``
+    positions but the last, (B, ceil(L / segment) - 1, d_inner, d_state)
+    in fp32 (fp64 for fp64 inputs)."""
+    xf, dtf, bf, af = _widen(x, dt, b, a)
+    bsz, seq, d_inner = x.shape
+    h = xf.new_zeros((bsz, d_inner, a.shape[1]))
+    tape = []
+    for t in range(seq - 1):
+        dt_t = dtf[:, t]
+        h = torch.exp(dt_t[..., None] * af) * h + (dt_t * xf[:, t])[..., None] * bf[:, t, None, :]
+        if (t + 1) % segment == 0:
+            tape.append(h)
+    return torch.stack(tape, dim=1) if tape else h.new_zeros((bsz, 0, *h.shape[1:]))
 
 
 def _widen(*ts: torch.Tensor) -> list[torch.Tensor]:

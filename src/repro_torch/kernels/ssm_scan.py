@@ -24,16 +24,20 @@ of A and D once; the chunk's B_t and C_t, shared by every channel of a row,
 are read once per tile.
 
 The backward (:func:`ssm_scan_bwd`, entry ``bsps_ssm_scan_bwd``, plan
-:func:`ssm_bwd_plan`) keeps that grid and those lane groups. Each block
-walks its channels forward once, storing the state before every segment of
-:func:`bwd_segment` positions to an fp32 checkpoint tape, then walks the
-segments in reverse, recomputing each segment's states from its checkpoint
-and carrying ∂L/∂h back through them. dB and dC sum over channels of other
-tiles, dA and dD over rows: the kernel writes fp32 partials (per group of
-16 channels, per row) and a second kernel of the same launch sums them in a
-fixed order, so the gradients are the same bits for every lane count,
-batch and run. :class:`SelectiveScan` makes the scan differentiable:
-:func:`ssm_scan` goes through it where a gradient is being taken.
+:func:`ssm_bwd_plan`) has a geometry of its own (:func:`bwd_geometry`):
+256-thread blocks of 4 states a lane, a tile of 64 channels at d_state 16,
+the same for every batch size. Under autograd the forward kernel also
+writes a checkpoint tape, the state after every :data:`SEGMENT` positions;
+the backward walks the segments in reverse, recomputes each segment's
+states and decays from its checkpoint in registers and carries ∂L/∂h back
+through them, one exponential per (position, channel, state). dB and dC
+sum over channels: each block sums its tile's on chip and writes one fp32
+partial per tile, dA and dD one per row, and a second kernel of the same
+launch sums the partials in a fixed order, so the gradients are the same
+bits for every batch and run. :func:`bwd_work_shapes` is the one
+description of the tape and the partials. :class:`SelectiveScan` makes the
+scan differentiable: :func:`ssm_scan` goes through it where a gradient is
+being taken.
 """
 
 from __future__ import annotations
@@ -46,9 +50,10 @@ import torch
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["ssm_scan", "ssm_scan_bwd", "SelectiveScan", "ssm_plan", "ssm_bwd_plan",
-           "bwd_segment", "bwd_work_shapes", "launch_geometry", "lanes_for", "LANE_CHOICES",
-           "STAGE_BYTES", "MIN_WARPS_PER_SM"]
+__all__ = ["ssm_scan", "ssm_scan_with_tape", "ssm_scan_bwd", "SelectiveScan", "ssm_plan",
+           "ssm_bwd_plan", "bwd_geometry", "bwd_work_shapes", "bwd_kernel_attrs",
+           "launch_geometry", "lanes_for", "LANE_CHOICES", "STAGE_BYTES", "MIN_WARPS_PER_SM",
+           "SEGMENT", "BWD_STAGE"]
 
 _THREADS = 128        # threads per block of the CUDA kernel
 #: lanes per channel the kernel is built for; each lane holds d_state / lanes
@@ -61,16 +66,23 @@ MIN_WARPS_PER_SM = 6
 STAGE_BYTES = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _D_STATES = (8, 16)
-#: channels per dB/dC partial of the backward (the tile at 8 lanes; the
-#: kernel's kGroup, which its entry checks)
-GROUP = 16
+#: positions per checkpoint segment: under autograd the forward stores the
+#: state after every SEGMENT positions to the backward's tape (the kernels'
+#: kSeg, which both entries check)
+SEGMENT = 8
+#: the backward's block: BWD_THREADS threads of BWD_STATES states a lane
+#: (the kernel's kBwdThreads and kSpl, which its entry checks through the tile)
+BWD_THREADS = 256
+BWD_STATES = 4
+#: positions per stage of the backward: two segments (the kernel's kStage)
+BWD_STAGE = 16
 
 
 def ssm_plan(
     bsz: int, seq: int, d_inner: int, d_state: int,
     *,
     chunk: int, dtype=torch.float32, param_dtype=torch.float32,
-    block_d: int | None = None,
+    block_d: int | None = None, tape: bool = False,
 ) -> StreamPlan:
     """StreamPlan for the chunked selective scan on a padded sequence.
 
@@ -82,7 +94,10 @@ def ssm_plan(
     ``block_d=None`` is the JAX package's plan. ``block_d`` gives the CUDA
     launch plan: channel tiles of ``block_d`` (the last one ragged, padded
     in the plan) as a second "parallel" axis, the state a
-    (block_d, d_state) scratch per tile.
+    (block_d, d_state) scratch per tile. ``tape`` adds the backward's
+    checkpoint tape to the launch plan's outputs, at
+    :func:`bwd_work_shapes`' shape: each chunk writes the states at its
+    segments' ends.
     """
     if seq % chunk:
         raise ValueError(f"seq {seq} must be padded to chunk {chunk}")
@@ -117,8 +132,15 @@ def ssm_plan(
         )
     tiles = math.ceil(d_inner / block_d)
     d_pad = tiles * block_d
+    outputs = [TokenSpec("y", (1, chunk, block_d), lambda i, k, j: (i, j, k),
+                         dtype=dtype, full_shape=(bsz, seq, d_pad), direction="up")]
+    h_ckpt = bwd_work_shapes(bsz, seq, d_pad, d_state)["h_ckpt"]
+    if tape and h_ckpt[1]:
+        outputs.append(TokenSpec("h_ckpt", (1, max(1, chunk // SEGMENT), block_d, d_state),
+                                 lambda i, k, j: (i, j, k, 0), dtype=torch.float32,
+                                 full_shape=h_ckpt, direction="up"))
     return StreamPlan(
-        name=f"ssm_b{bsz}_{seq}x{d_pad}x{d_state}_c{chunk}_d{block_d}",
+        name=f"ssm_b{bsz}_{seq}x{d_pad}x{d_state}_c{chunk}_d{block_d}" + ("_tape" if tape else ""),
         grid=(bsz, tiles, seq // chunk),
         inputs=(
             TokenSpec("x", (1, chunk, block_d), lambda i, k, j: (i, j, k),
@@ -134,10 +156,7 @@ def ssm_plan(
             TokenSpec("D", (1, block_d), lambda i, k, j: (0, k),
                       dtype=param_dtype, full_shape=(1, d_pad), rate=0),
         ),
-        outputs=(
-            TokenSpec("y", (1, chunk, block_d), lambda i, k, j: (i, j, k),
-                      dtype=dtype, full_shape=(bsz, seq, d_pad), direction="up"),
-        ),
+        outputs=tuple(outputs),
         scratch=(ScratchSpec("h", (block_d, d_state), torch.float32),),
         dimension_semantics=("parallel", "parallel", "arbitrary"),
         flops_per_hyperstep=10.0 * chunk * block_d * d_state,
@@ -149,28 +168,26 @@ def ssm_bwd_plan(
     *,
     chunk: int, block_d: int, dtype=torch.float32,
 ) -> StreamPlan:
-    """The backward's launch plan: the forward's grid (batch, channel
-    tiles, segments of ``chunk`` positions) = ("parallel", "parallel",
-    "arbitrary"), each block walking its segments forward and then back.
+    """The backward's launch plan: grid (batch, channel tiles, stages of
+    ``chunk`` positions) = ("parallel", "parallel", "arbitrary"), each block
+    walking its stages from the last to the first.
 
-    It streams x, Δ, B and dy (and C on the way back) and writes dx and dΔ
-    per segment; the checkpoint tape ("h_ckpt", the state before each
-    segment) goes up on the forward sweep and comes back down on the
-    reverse one; "dbc" holds each segment's dB/dC partials per group of
-    :data:`GROUP` channels, "dA"/"dD" each (row, tile)'s sums over its
-    positions, written once; their shapes are :func:`bwd_work_shapes`' at
-    the plan's padded sizes. The scratch is the per-tile state h and its
+    It streams x, Δ, B, C, dy and the forward's checkpoint tape ("h_ckpt",
+    the state before each segment of :data:`SEGMENT` positions) down and
+    writes dx and dΔ per stage; "dbc" holds each position's dB/dC partial
+    per tile of ``block_d`` channels, "dA"/"dD" each (row, tile)'s sums over
+    its positions, written once; their shapes are :func:`bwd_work_shapes`'
+    at the plan's padded sizes. The scratch is the per-tile state h and its
     gradient g, (block_d, d_state) fp32 each, which the kernel keeps in
-    registers. About 22·d_state FLOPs per position and channel: 4 on the
-    forward sweep, 4 to recompute the segment, 14 on the reverse step.
+    registers. About 18·d_state FLOPs per position and channel: 4 to
+    recompute the segment's states, 14 on the reverse step and the sums.
     """
-    if seq % chunk or block_d % GROUP:
+    if seq % chunk or block_d != bwd_geometry(d_state)[1]:
         raise ValueError(f"seq {seq} must be padded to chunk {chunk}, block_d {block_d} "
-                         f"a multiple of {GROUP}")
+                         f"the backward's tile at d_state {d_state}")
     tiles = math.ceil(d_inner / block_d)
     d_pad = tiles * block_d
-    ng = block_d // GROUP
-    work = bwd_work_shapes(bsz, seq, d_pad, d_state, seq // chunk)
+    work = bwd_work_shapes(bsz, seq, d_pad, d_state)
 
     def stream(name, direction="down"):
         return TokenSpec(name, (1, chunk, block_d), lambda i, k, j: (i, j, k), dtype=dtype,
@@ -180,11 +197,14 @@ def ssm_bwd_plan(
         return TokenSpec(name, (1, chunk, d_state), lambda i, k, j: (i, j, 0), dtype=dtype,
                          full_shape=(bsz, seq, d_state))
 
+    tape = (TokenSpec("h_ckpt", (1, max(1, chunk // SEGMENT), block_d, d_state),
+                      lambda i, k, j: (i, j, k, 0), dtype=torch.float32,
+                      full_shape=work["h_ckpt"]),) if work["h_ckpt"][1] else ()
     return StreamPlan(
         name=f"ssm_bwd_b{bsz}_{seq}x{d_pad}x{d_state}_c{chunk}_d{block_d}",
         grid=(bsz, tiles, seq // chunk),
         inputs=(
-            stream("x"), stream("dt"), shared("B"), shared("C"), stream("dy"),
+            stream("x"), stream("dt"), shared("B"), shared("C"), stream("dy"), *tape,
             TokenSpec("A", (block_d, d_state), lambda i, k, j: (k, 0),
                       dtype=torch.float32, full_shape=(d_pad, d_state), rate=0),
             TokenSpec("D", (1, block_d), lambda i, k, j: (0, k),
@@ -192,9 +212,7 @@ def ssm_bwd_plan(
         ),
         outputs=(
             stream("dx", "up"), stream("ddt", "up"),
-            TokenSpec("h_ckpt", (1, 1, block_d, d_state), lambda i, k, j: (i, j, k, 0),
-                      dtype=torch.float32, full_shape=work["h_ckpt"], direction="up"),
-            TokenSpec("dbc", (1, chunk, 2, ng, d_state), lambda i, k, j: (i, j, 0, k, 0),
+            TokenSpec("dbc", (1, chunk, 2, 1, d_state), lambda i, k, j: (i, j, 0, k, 0),
                       dtype=torch.float32, full_shape=work["dbc"], direction="up"),
             TokenSpec("dA", (1, block_d, d_state), lambda i, k, j: (i, k, 0),
                       dtype=torch.float32, full_shape=work["dA"], direction="up"),
@@ -204,29 +222,38 @@ def ssm_bwd_plan(
         scratch=(ScratchSpec("h", (block_d, d_state), torch.float32),
                  ScratchSpec("g", (block_d, d_state), torch.float32)),
         dimension_semantics=("parallel", "parallel", "arbitrary"),
-        flops_per_hyperstep=22.0 * chunk * block_d * d_state,
+        flops_per_hyperstep=18.0 * chunk * block_d * d_state,
     )
 
 
-def bwd_segment(lanes: int, d_state: int) -> int:
-    """Positions per segment of the backward: 8 where a lane holds 8
-    states, else 16, so that a segment's recomputed states stay in
-    registers (the kernel's ``seg_len``). The segment sets only where the
-    checkpoints fall: the gradients are the same bits for any. The kernel's
-    entry refuses a longer one."""
-    return 8 if d_state // lanes >= 8 else 16
+def bwd_geometry(d_state: int) -> tuple[int, int, int, int]:
+    """``(lanes, block_d, segment, stage)`` of the backward kernel: 4 states
+    a lane (:data:`BWD_STATES`), so ``d_state / 4`` lanes a channel and a
+    tile of 64 channels at d_state 16 (128 at 8) in a 256-thread block; a
+    checkpoint every :data:`SEGMENT` positions, whose 9 states and 8 decays
+    a lane keeps in 68 registers of the 128 it may hold at two blocks an
+    SM (one at d_state 8); stages of :data:`BWD_STAGE` positions. The backward's own rule, the
+    same for every batch size, so a row alone takes the tiles and the sums'
+    order it takes in its batch."""
+    if d_state not in _D_STATES:
+        raise ValueError(f"the ssm_scan_bwd kernel supports d_state {_D_STATES}, not {d_state}")
+    lanes = d_state // BWD_STATES
+    return lanes, BWD_THREADS // lanes, SEGMENT, BWD_STAGE
 
 
-def bwd_work_shapes(bsz: int, seq: int, d_inner: int, d_state: int,
-                    n_segments: int) -> dict[str, tuple[int, ...]]:
-    """The fp32 work buffers of one backward launch: the checkpoint tape,
-    the dB/dC partials per group of :data:`GROUP` channels, and the
-    per-row dA and dD. The one description of them: :func:`ssm_bwd_plan`
-    prices them at its padded sizes, :func:`ssm_scan_bwd` allocates them
-    at the operands' and passes the kernel the group count and
-    :data:`GROUP`, which its entry checks against its own layout."""
-    return {"h_ckpt": (bsz, n_segments, d_inner, d_state),
-            "dbc": (bsz, seq, 2, -(-d_inner // GROUP), d_state),
+def bwd_work_shapes(bsz: int, seq: int, d_inner: int,
+                    d_state: int) -> dict[str, tuple[int, ...]]:
+    """The fp32 work buffers of one backward: the checkpoint tape (the state
+    after every :data:`SEGMENT` positions but the last, which the forward
+    writes), the dB/dC partials per tile of :func:`bwd_geometry`'s
+    ``block_d`` channels, and the per-row dA and dD. The one description of
+    them: :func:`ssm_plan` (with ``tape``) and :func:`ssm_bwd_plan` price
+    them at their padded sizes, :func:`ssm_scan` and :func:`ssm_scan_bwd`
+    allocate them at the operands' and pass the kernels the segment and the
+    tile count, which their entries check against their own layout."""
+    block_d = bwd_geometry(d_state)[1]
+    return {"h_ckpt": (bsz, max(-(-seq // SEGMENT) - 1, 0), d_inner, d_state),
+            "dbc": (bsz, seq, 2, -(-d_inner // block_d), d_state),
             "dA": (bsz, d_inner, d_state), "dD": (bsz, d_inner)}
 
 
@@ -257,9 +284,9 @@ def launch_geometry(seq: int, chunk: int, lanes: int, itemsize: int) -> tuple[in
 
 @functools.lru_cache(maxsize=256)
 def _plan(bsz: int, seq: int, d_inner: int, d_state: int, chunk: int,
-          dtype: torch.dtype, block_d: int) -> StreamPlan:
+          dtype: torch.dtype, block_d: int, tape: bool) -> StreamPlan:
     return ssm_plan(bsz, seq, d_inner, d_state, chunk=chunk, dtype=dtype,
-                    block_d=block_d)
+                    block_d=block_d, tape=tape)
 
 
 @functools.lru_cache(maxsize=256)
@@ -329,34 +356,65 @@ def ssm_scan(
     :func:`lanes_for` when None). CPU tensors go to
     :func:`repro_torch.kernels.ref.ssm_scan_ref`. Where grad mode is on and
     an operand requires grad, the call goes through :class:`SelectiveScan`,
-    whose backward is :func:`ssm_scan_bwd`.
+    whose forward also writes the backward's checkpoint tape and whose
+    backward is :func:`ssm_scan_bwd`.
     """
     _check_operands(x, dt, b, c, a, d)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, b, c, a, d)):
         return SelectiveScan.apply(x, dt, b, c, a, d, chunk, lanes)
-    return _forward(x, dt, b, c, a, d, chunk, lanes)
+    return _forward(x, dt, b, c, a, d, chunk, lanes)[0]
 
 
-def _forward(x, dt, b, c, a, d, chunk: int, lanes: int | None) -> torch.Tensor:
+def ssm_scan_with_tape(
+    x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    a: torch.Tensor, d: torch.Tensor,
+    *,
+    chunk: int = 128,
+    lanes: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """y and the backward's checkpoint tape from one forward launch, as
+    :class:`SelectiveScan`'s forward runs it: y is the same bits as
+    :func:`ssm_scan`'s, the tape the state after every :data:`SEGMENT`
+    positions but the last (:func:`bwd_work_shapes`' "h_ckpt"), the same
+    bits for every ``lanes``; None where it holds no state, and on CPU
+    tensors (whose backward needs none)."""
+    _check_operands(x, dt, b, c, a, d)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    return _forward(x, dt, b, c, a, d, chunk, lanes, tape=True)
+
+
+def _forward(x, dt, b, c, a, d, chunk: int, lanes: int | None,
+             tape: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """y, and with ``tape`` on CUDA tensors the backward's checkpoint tape
+    (:func:`bwd_work_shapes`' "h_ckpt", written by the same launch; None
+    where it holds no state, and on the CPU)."""
     if x.device.type == "cpu":
-        return ref.ssm_scan_ref(x, dt, b, c, a, d)
+        return ref.ssm_scan_ref(x, dt, b, c, a, d), None
     _check_kernel_operands("ssm_scan", x, dt, b, c, a, d)
     bsz, seq, d_inner = x.shape
     d_state = a.shape[1]
     y = torch.empty_like(x)
     if y.numel() == 0:
-        return y
+        return y, None
+    h_ckpt = None
+    if tape:
+        shape = bwd_work_shapes(bsz, seq, d_inner, d_state)["h_ckpt"]
+        if shape[1]:
+            h_ckpt = torch.empty(shape, dtype=torch.float32, device=x.device)
     lanes = _lanes(lanes, x, d_state)
     block_d, ck, seq_p = launch_geometry(seq, chunk, lanes, x.element_size())
-    launch = pipeline.lower(_plan(bsz, seq_p, d_inner, d_state, ck, x.dtype, block_d),
-                            "bsps_ssm_scan", x.device)
+    launch = pipeline.lower(_plan(bsz, seq_p, d_inner, d_state, ck, x.dtype, block_d,
+                                  h_ckpt is not None), "bsps_ssm_scan", x.device)
     pipeline.launch(launch, x.device, x.data_ptr(), dt.data_ptr(), b.data_ptr(),
                     c.data_ptr(), a.data_ptr(), d.data_ptr(), y.data_ptr(),
-                    seq, d_inner, d_state, ck, block_d, _DTYPES[x.dtype])
+                    None if h_ckpt is None else h_ckpt.data_ptr(),
+                    seq, d_inner, d_state, ck, block_d, 0 if h_ckpt is None else SEGMENT,
+                    _DTYPES[x.dtype])
     ssm_scan.launches += 1
-    return y
+    return y, h_ckpt
 
 
 ssm_scan.launches = 0
@@ -366,14 +424,17 @@ def ssm_scan_bwd(
     x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     a: torch.Tensor, d: torch.Tensor, dy: torch.Tensor,
     *,
-    lanes: int | None = None,
+    tape: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """The gradients ``(dx, dΔ, dB, dC, dA, dD)`` of :func:`ssm_scan` for
     the output gradient ``dy``, each in its input's dtype.
 
     CUDA tensors go to the backward kernel, which takes what the forward
-    takes (and ``dy`` in x's dtype, contiguous): the same bits for every
-    ``lanes``, batch and run. CPU tensors go to
+    takes (and ``dy`` in x's dtype, contiguous) and the forward's
+    checkpoint tape (fp32, :func:`bwd_work_shapes`' "h_ckpt"; where
+    ``tape`` is None and the sequence is longer than a segment, a forward
+    launch with the tape makes it first, counted as an ``ssm_scan``
+    launch): the same bits for every batch and run. CPU tensors go to
     :func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`.
     """
     _check_operands(x, dt, b, c, a, d, dy)
@@ -386,17 +447,25 @@ def ssm_scan_bwd(
              torch.empty_like(c), torch.empty_like(a), torch.empty_like(d))
     if x.numel() == 0:
         return tuple(g.zero_() for g in grads)
-    lanes = _lanes(lanes, x, d_state)
-    block_d, ck, seq_p = launch_geometry(seq, bwd_segment(lanes, d_state), lanes,
-                                         x.element_size())
-    shapes = bwd_work_shapes(bsz, seq, d_inner, d_state, seq_p // ck)
+    _, block_d, seg, stage = bwd_geometry(d_state)
+    shapes = bwd_work_shapes(bsz, seq, d_inner, d_state)
+    if not shapes["h_ckpt"][1]:
+        tape = None
+    elif tape is None:
+        tape = _forward(x, dt, b, c, a, d, 128, None, tape=True)[1]
+    elif tape.shape != shapes["h_ckpt"] or tape.dtype != torch.float32 \
+            or tape.device != x.device or not tape.is_contiguous():
+        raise ValueError(f"ssm_scan_bwd takes the forward's fp32 tape of shape "
+                         f"{shapes['h_ckpt']}, not {tape.dtype} {tuple(tape.shape)}")
     work = [torch.empty(shapes[k], dtype=torch.float32, device=x.device)
-            for k in ("h_ckpt", "dbc", "dA", "dD")]
-    launch = pipeline.lower(_bwd_plan(bsz, seq_p, d_inner, d_state, ck, x.dtype, block_d),
+            for k in ("dbc", "dA", "dD")]
+    seq_p = math.ceil(seq / stage) * stage
+    launch = pipeline.lower(_bwd_plan(bsz, seq_p, d_inner, d_state, stage, x.dtype, block_d),
                             "bsps_ssm_scan_bwd", x.device)
     pipeline.launch(launch, x.device, *(t.data_ptr() for t in (x, dt, b, c, a, d, dy)),
+                    None if tape is None else tape.data_ptr(),
                     *(g.data_ptr() for g in grads), *(w.data_ptr() for w in work),
-                    seq, d_inner, d_state, ck, block_d, shapes["dbc"][3], GROUP,
+                    seq, d_inner, d_state, stage, block_d, seg, shapes["dbc"][3],
                     _DTYPES[x.dtype])
     ssm_scan_bwd.launches += 1
     return grads
@@ -405,20 +474,34 @@ def ssm_scan_bwd(
 ssm_scan_bwd.launches = 0
 
 
+def bwd_kernel_attrs(d_state: int, dtype: torch.dtype,
+                     device: torch.device) -> dict[str, int]:
+    """The backward kernel's ``registers`` and ``spill_bytes`` a thread,
+    ``smem_bytes`` a block and ``blocks_per_sm`` at ``d_state`` and
+    ``dtype`` on ``device``, as the CUDA runtime reports them."""
+    regs, spill, smem, blocks = pipeline.kernel_attrs(
+        "bsps_ssm_scan_bwd_attrs", device, d_state, _DTYPES[dtype])
+    return {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
+            "blocks_per_sm": blocks}
+
+
 class SelectiveScan(torch.autograd.Function):
-    """The selective scan, differentiable: the forward kernel, then
-    :func:`ssm_scan_bwd`'s kernel for the gradients of all six operands.
-    It saves the operands, not the states: the backward recomputes them. On
-    CPU tensors the plain pair runs (``ssm_scan_ref``, ``ssm_scan_bwd_ref``)."""
+    """The selective scan, differentiable: the forward kernel, writing the
+    backward's checkpoint tape beside y, then :func:`ssm_scan_bwd`'s kernel
+    for the gradients of all six operands. It saves the operands and the
+    tape (the state every :data:`SEGMENT` positions), not the states: the
+    backward recomputes them from the tape. On CPU tensors the plain pair
+    runs (``ssm_scan_ref``, ``ssm_scan_bwd_ref``) and no tape is saved."""
 
     @staticmethod
     def forward(ctx, x, dt, b, c, a, d, chunk: int = 128, lanes: int | None = None):
-        ctx.save_for_backward(x, dt, b, c, a, d)
-        ctx.lanes = lanes
-        return _forward(x, dt, b, c, a, d, chunk, lanes)
+        y, tape = _forward(x, dt, b, c, a, d, chunk, lanes, tape=True)
+        ctx.save_for_backward(x, dt, b, c, a, d, *(() if tape is None else (tape,)))
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        grads = ssm_scan_bwd(*ctx.saved_tensors, dy.contiguous(), lanes=ctx.lanes)
+        x, dt, b, c, a, d, *tape = ctx.saved_tensors
+        grads = ssm_scan_bwd(x, dt, b, c, a, d, dy.contiguous(), tape=tape[0] if tape else None)
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
                 None, None)

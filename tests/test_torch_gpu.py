@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
+from repro_torch.kernels.ssm_scan import SEGMENT, ssm_scan, ssm_scan_bwd, ssm_scan_with_tape
 from repro_torch.kernels.streamed_dot import streamed_dot
 from repro_torch.kernels.streamed_matmul import streamed_matmul
 
@@ -1134,19 +1134,48 @@ def test_ssm_bwd_kernel_matches_plain(cuda, b, seq, di, ds, dtype):
 @pytest.mark.parametrize("ds,lanes", [(16, (2, 4, 8)), (8, (2, 4))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssm_bwd_bits_do_not_depend_on_lanes_or_run(cuda, ds, lanes, dtype):
-    """Every lane grouping (and so every segment length), and a second run,
-    give the same bits: no atomics, every sum in one order."""
+    """The backward has one grouping of its own; the tape it reads comes
+    from a forward of any lane grouping (and chunk). Every such tape, and a
+    second run, give the same bits: no atomics, every sum in one order."""
     args = _bwd_inputs(2, 300, 1000, ds, dtype, cuda, 42)
-    runs = [ssm_scan_bwd(*args, lanes=n) for n in lanes]
-    runs.append(ssm_scan_bwd(*args, lanes=lanes[0]))
+    tapes = [ssm_scan_with_tape(*args[:6], lanes=n)[1] for n in lanes]
+    tapes.append(ssm_scan_with_tape(*args[:6], chunk=16)[1])
+    runs = [ssm_scan_bwd(*args, tape=t) for t in tapes]
+    runs.append(ssm_scan_bwd(*args))
     _bwd_close(runs[0], ref.ssm_scan_bwd_ref(*args))
+    for t in tapes[1:]:
+        assert torch.equal(t, tapes[0])
     for other in runs[1:]:
         assert all(torch.equal(g, h) for g, h in zip(runs[0], other))
 
 
+@pytest.mark.parametrize("b,seq,di,ds", [
+    (4, 256, 8192, 16),        # jamba's train step
+    (2, 300, 1000, 16),        # ragged d_inner and L
+    (1, 130, 200, 8),          # d_state 8, ragged
+    (3, 5, 64, 16),            # shorter than one segment: no tape
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_forward_tape_matches_the_plain_walk(cuda, b, seq, di, ds, dtype):
+    """The forward with the tape: y the same bits as without it, and the
+    tape within 1e-4 of its largest state of the plain walk's states at the
+    segment starts (``ssm_scan_tape_ref``; fp32 on both sides, ex2.approx
+    for exp)."""
+    x, dt, bb, c, a, d = _ssm_inputs(b, seq, di, ds, dtype, cuda, 47)
+    y, tape = ssm_scan_with_tape(x, dt, bb, c, a, d)
+    assert torch.equal(y, ssm_scan(x, dt, bb, c, a, d))
+    want = ref.ssm_scan_tape_ref(x, dt, bb, a, SEGMENT)
+    if seq <= SEGMENT:
+        assert tape is None and want.shape[1] == 0
+        return
+    assert tape.shape == want.shape and tape.dtype == torch.float32
+    err = (tape - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item()
+
+
 def test_ssm_bwd_row_alone_matches_the_batch(cuda):
-    """At jamba's width a batch of 4 takes 2 lanes a channel and one row
-    alone 4: the row's dx, dΔ, dB and dC are the same bits all the same."""
+    """A row alone takes the tiles, stages and sums' order it takes in a
+    batch of 4: its dx, dΔ, dB and dC are the same bits."""
     args = _bwd_inputs(4, 100, 8192, 16, torch.bfloat16, cuda, 43)
     full = ssm_scan_bwd(*args)
     row = ssm_scan_bwd(*(t[2:3].contiguous() for t in args[:4]), *args[4:6],
@@ -1156,14 +1185,17 @@ def test_ssm_bwd_row_alone_matches_the_batch(cuda):
 
 
 def test_ssm_bwd_entry_refuses_another_work_layout(cuda, monkeypatch):
-    """The caller allocates the dB/dC partials from ``bwd_work_shapes``;
-    where its group of channels is not the kernel's, the entry refuses the
-    launch and nothing runs."""
+    """The caller allocates the dB/dC partials from ``bwd_work_shapes``, one
+    per tile of the backward's channels; where its tile is not the kernel's
+    (here 32 channels, a 128-thread block), the entry refuses the launch and
+    nothing runs. So does a tape of another shape."""
     from repro_torch.kernels import ssm_scan as scan_mod
 
     args = _bwd_inputs(1, 20, 64, 16, torch.float32, cuda, 45)
     before = ops.launch_counts()["ssm_scan_bwd"]
-    monkeypatch.setattr(scan_mod, "GROUP", 8)
+    with pytest.raises(ValueError, match="tape"):
+        ssm_scan_bwd(*args, tape=torch.zeros(1, 3, 64, 16, device=cuda))
+    monkeypatch.setattr(scan_mod, "BWD_THREADS", 128)
     with pytest.raises(RuntimeError, match="bsps_ssm_scan_bwd failed"):
         ssm_scan_bwd(*args)
     assert ops.launch_counts()["ssm_scan_bwd"] == before
@@ -1171,17 +1203,25 @@ def test_ssm_bwd_entry_refuses_another_work_layout(cuda, monkeypatch):
 
 def test_selective_scan_function_on_the_card(cuda):
     """Under autograd the scan goes through ``SelectiveScan``: one forward
-    launch, one backward launch, the backward kernel's gradients."""
+    launch, which writes the tape beside y, and one backward launch, the
+    backward kernel's gradients. ``ssm_scan_bwd`` without a tape launches
+    the forward with the tape first."""
     x, dt, bb, c, a, d, dy = _bwd_inputs(2, 64, 256, 16, torch.bfloat16, cuda, 44)
     live = [t.clone().requires_grad_(True) for t in (x, dt, bb, c, a, d)]
     before = ops.launch_counts()
     y = ops.selective_scan(*live)
+    assert len(y.grad_fn.saved_tensors) == 7                     # the operands and the tape
+    assert torch.equal(y.grad_fn.saved_tensors[6], ssm_scan_with_tape(x, dt, bb, c, a, d)[1])
     assert torch.equal(y, ssm_scan(x, dt, bb, c, a, d))
     grads = torch.autograd.grad(y, live, dy)
     after = ops.launch_counts()
-    assert after["ssm_scan"] - before["ssm_scan"] == 2          # the check's call too
+    assert after["ssm_scan"] - before["ssm_scan"] == 3          # the checks' calls too
     assert after["ssm_scan_bwd"] - before["ssm_scan_bwd"] == 1
-    for g, w in zip(grads, ssm_scan_bwd(x, dt, bb, c, a, d, dy)):
+    alone = ssm_scan_bwd(x, dt, bb, c, a, d, dy)
+    last = ops.launch_counts()
+    assert last["ssm_scan"] - after["ssm_scan"] == 1
+    assert last["ssm_scan_bwd"] - after["ssm_scan_bwd"] == 1
+    for g, w in zip(grads, alone):
         assert torch.equal(g, w)
 
 

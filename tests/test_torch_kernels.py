@@ -28,7 +28,13 @@ from repro.kernels.streamed_matmul import streamed_matmul as j_matmul
 from repro_torch.core import bsp as tbsp
 from repro_torch.kernels import ops, pipeline, ref
 from repro_torch.kernels.flash_attention import attention_plan
-from repro_torch.kernels.ssm_scan import launch_geometry, lanes_for, ssm_plan, ssm_scan
+from repro_torch.kernels.ssm_scan import (
+    bwd_geometry,
+    launch_geometry,
+    lanes_for,
+    ssm_plan,
+    ssm_scan,
+)
 from repro_torch.kernels.streamed_dot import dot_plan
 from repro_torch.kernels.streamed_matmul import (
     DECODE_A_MAX,
@@ -597,6 +603,25 @@ def test_ssm_launch_plan_tiles_the_channels():
 ])
 def test_ssm_lanes_rule(bsz, d_inner, d_state, want):
     assert lanes_for(bsz, d_inner, d_state, 132) == want
+
+
+@pytest.mark.parametrize("bsz,d_inner,d_state,want", [
+    # (lanes, block_d, segment, stage): 4 states a lane in a 256-thread
+    # block, a checkpoint every 8 positions, two segments a stage, whatever
+    # the batch (jamba's train step and B 1 alike: a row alone sums its
+    # channels in the order its batch does)
+    (4, 8192, 16, (4, 64, 8, 16)),       # jamba: 512 blocks, 1.94 waves at 2 an SM
+    (1, 8192, 16, (4, 64, 8, 16)),
+    (2, 1000, 16, (4, 64, 8, 16)),
+    (1, 200, 8, (2, 128, 8, 16)),        # d_state 8: 2 lanes, 128 channels a block
+])
+def test_ssm_bwd_lanes_and_segment_rule(bsz, d_inner, d_state, want):
+    assert bwd_geometry(d_state) == want
+
+
+def test_ssm_bwd_geometry_refuses_other_state_widths():
+    with pytest.raises(ValueError, match="d_state"):
+        bwd_geometry(32)
 
 
 @pytest.mark.parametrize("seq,chunk,lanes,itemsize,want", [
