@@ -60,7 +60,17 @@ per segment and the wgmma variant by the joins' prefills, no host sync
 inside a steady-state segment, each lane's logits at every segment boundary
 equal, bit for bit, to a batch-1 decode's on the same tokens and every
 greedy token batch-1's, and a run with an injected dispatch failure and
-page exhaustion giving a clean run's tokens. Every check that fails raises,
+page exhaustion giving a clean run's tokens. Six runs are also counted
+(``repro_torch.core.roofline.count``), each in one extra run beside its
+timed ones: minicpm-2b's forward, a decode step at batch 4 and the train
+step; jamba-v0.1-52b's forward and train step; xlstm-1.3b's forward. Each
+prints a ``[roofline]`` line (FLOPs, bytes, launches, the compute and
+memory terms, MFU against the measured median wall, the roofline share,
+which must not pass 1.05); a 2-layer minicpm-2b cut counts the same on the
+card as on the CPU. The ``plans`` phase runs ``python -m
+repro_torch.lint --check`` on the calibrated pack (clean) and prints the
+dry-run report (``[dryrun]``) of minicpm-2b at ``train_4k`` and
+``decode_32k``. Every check that fails raises,
 and the script exits non-zero. Each phase prints its wall time. It imports
 neither JAX nor the JAX package.
 
@@ -98,11 +108,16 @@ from repro_torch.core.calibrate import default_machine, measure_fetch_model  # n
 from repro_torch.core.cost import cannon_k_equal, inner_product_cost  # noqa: E402
 from repro_torch.core.faults import FaultPlan, FaultSpec  # noqa: E402
 from repro_torch.core.hyperstep import HyperstepRunner  # noqa: E402
+from repro_torch.core import roofline  # noqa: E402
 from repro_torch.core.plan import host_plan  # noqa: E402
 from repro_torch.core.stream import StreamSet  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.distributed.cannon import gather_c, make_cannon_runner  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import ops, pipeline, ref  # noqa: E402
+from repro_torch.kernels import ssm_scan as ssm_mod  # noqa: E402
+from repro_torch.kernels import streamed_dot as dot_mod  # noqa: E402
+from repro_torch.kernels import streamed_matmul as matmul_mod  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     LANE_CHOICES,
     SEGMENT,
@@ -121,6 +136,8 @@ from repro_torch.kernels.streamed_matmul import (  # noqa: E402
     deep_split,
     streamed_matmul,
 )
+from repro_torch import lint  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.serve import generate, make_prefill, prefill_block_size  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -132,13 +149,18 @@ from repro_torch.optim.compress import tree_map  # noqa: E402
 from repro_torch.optim.schedule import wsd  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
-from repro_torch.train.steps import make_grad_fn, make_prefill_step, make_train_step  # noqa: E402
+from repro_torch.train.steps import (  # noqa: E402
+    make_grad_fn,
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is
-# the larger of its bytes over the memory rate and its operations over the
-# peak rate of their type.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# The H100 SXM's published peaks (``roofline.H100_SXM``): the bound of a
+# kernel is the larger of its bytes over the memory rate and its operations
+# over the peak rate of their type (``roofline.kernel_bound``), the work
+# from the kernel module's ``cost`` function.
+HW = roofline.H100_SXM
 L2_BYTES = 50 * 2**20
 # the H100 SXM's boost clock (1.98 GHz): torch.cuda._sleep spins for clock
 # cycles, at most this many per second
@@ -228,10 +250,10 @@ def randn(shape, dtype, seed: int, scale: float = 1.0) -> torch.Tensor:
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
-def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(cost: roofline.KernelCost) -> tuple[float, str]:
+    """(ms, what bounds it) of ``cost`` on the card's peaks."""
+    t, by = roofline.kernel_bound(cost, HW)
+    return t * 1e3, by
 
 
 # -- phase 2: each kernel against its plain version --------------------------------
@@ -319,8 +341,9 @@ def check_matmul(rows: dict) -> None:
         # the library's product reads the same stored operands, transposed views
         lib, _ = bench_ms(lambda a, b: torch.matmul(a if al == "mk" else a.T,
                                                     b if bl == "kn" else b.T), sets, 50)
-        nbytes, flops = (m * k + k * n + m * n) * 2, 2.0 * m * n * k
-        b_ms, b_by = bound(nbytes, flops, "bf16")
+        cost = matmul_mod.cost(m, k, n, 2)
+        nbytes, flops = cost.bytes, cost.flops
+        b_ms, b_by = bound(cost)
         rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if b_by == "operations"
                 else f"{nbytes / ms / 1e9:.3f} TB/s")
         log(f"[kernel] streamed_matmul {m}x{k}x{n} a={al}{' (padded rows)' if pad else ''} "
@@ -390,8 +413,9 @@ def check_matmul_deep(rows: dict) -> None:
         ms, enqueue = bench_ms(lambda a, b: ops.matmul(a, b, b_layout=bl), sets, 50)
         plain, _ = bench_ms(lambda a, b: ref.matmul_ref(a, b, b_layout=bl), sets, 3)
         lib, _ = bench_ms(lambda a, b: torch.matmul(a, b if bl == "kn" else b.T), sets, 50)
-        nbytes, flops = (m * k + k * n + m * n) * 2, 2.0 * m * n * k
-        b_ms, b_by = bound(nbytes, flops, "bf16")
+        cost = matmul_mod.cost(m, k, n, 2)
+        nbytes = cost.bytes
+        b_ms, b_by = bound(cost)
         old = "decode_wmma takes no (n, k) B"
         if bl == "kn":
             old_c, old_variant = matmul_variant(
@@ -460,8 +484,9 @@ def check_matmul_f32(rows: dict) -> float:
         ms, enqueue = bench_ms(ops.matmul, sets, 20)
         plain, _ = bench_ms(ref.matmul_ref, sets, 20)
         lib, _ = bench_ms(torch.matmul, sets, 20)
-        nbytes, flops = (m * k + k * n + m * n) * 4, 2.0 * m * n * k
-        b_ms, b_by = bound(nbytes, flops, "fp32")
+        cost = matmul_mod.cost(m, k, n, 4)
+        flops = cost.flops
+        b_ms, b_by = bound(cost)
         if (m, k, n) == (4096, 4096, 4096):
             rate = flops / ms * 1e3
             _variant_row(rows, "simt_f32", f"{m}x{k}x{n} fp32", max_abs_err=err, ms=ms,
@@ -504,7 +529,7 @@ def check_dot(rows: dict) -> None:
         ms, enqueue = bench_ms(lambda v, u: ops.dot(v, u, token_size=c), sets, 50)
         plain, _ = bench_ms(ref.dot_ref, sets, 50)
         lib, _ = bench_ms(torch.dot, sets, 50)
-        b_ms, b_by = bound(8 * n + 4, 2.0 * n, "fp32")
+        b_ms, b_by = bound(dot_mod.cost(n, 4))
         log(f"[kernel] streamed_dot n={n} token={c}: abs_err={err:.3g} (tol {tol:.3g}) "
             f"ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} torch.dot_ms={lib:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
@@ -543,10 +568,7 @@ def check_flash(rows: dict) -> None:
                 .tril(skv - sq))
         lib, _ = bench_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=hq != hkv), sets, 50)
-        # the (query, key) pairs causal masking keeps
-        pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
-        b_ms, b_by = bound((2 * b * hq * sq * d + 2 * b * hkv * skv * d) * 2,
-                           4.0 * b * hq * d * pairs, "bf16")
+        b_ms, b_by = bound(flash_mod.cost(b, hq, hkv, sq, skv, d, 2))
         log(f"[kernel] flash_attention {shape}: max_abs_err={err:.3g} "
             f"(tol {tol:.3g}) ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} "
             f"sdpa_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
@@ -601,7 +623,8 @@ def check_flash_lse_and_grads(sets, shape: str, fwd_bound_ms: float, sdpa_ms: fl
     b, hq, s_len, d = q.shape
     nq, nkv = q.numel(), k.numel()
     pairs = s_len * (s_len + 1) // 2
-    b_ms, b_by = bound((6 * nq + 6 * nkv) * 2, 7 * 2.0 * b * hq * d * pairs, "bf16")
+    b_ms, b_by = bound(roofline.KernelCost(7 * 2.0 * b * hq * d * pairs, (6 * nq + 6 * nkv) * 2,
+                                           "bf16"))
     log(f"[kernel] FlashAttention {shape} forward + backward (kernel forward, torch-op "
         f"backward): (dq, dk, dv) max err / max |grad| {[round(e, 5) for e in errs]} (tol "
         f"0.02) ms={bwd_ms:.4f} sdpa_fwd_bwd_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
@@ -629,9 +652,9 @@ def check_ssm(rows: dict) -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for idx, (b, seq, di, ds, dtype, plain_iters) in enumerate(cases):
         item = torch.tensor([], dtype=dtype).element_size()
-        nbytes = (3 * b * seq * di + 2 * b * seq * ds) * item + (di * ds + di) * 4
         sets = copies_past_l2(lambda i, b=b, seq=seq, di=di, ds=ds, dtype=dtype:
-                              _ssm_inputs(b, seq, di, ds, dtype, 10 * i + 20), nbytes)
+                              _ssm_inputs(b, seq, di, ds, dtype, 10 * i + 20),
+                              int(ssm_mod.cost(b, seq, di, ds, item).bytes))
         got, want = ops.selective_scan(*sets[0]), ref.ssm_scan_ref(*sets[0])
         with_tape = ssm_scan_with_tape(*sets[0])[0]
         torch.cuda.synchronize()
@@ -646,7 +669,7 @@ def check_ssm(rows: dict) -> None:
         check(err <= tol, f"ssm_scan b{b} L{seq} di{di} ds{ds} {dtype}: max err {err} > {tol}")
         ms, enqueue = bench_ms(lambda *a: ops.selective_scan(*a), sets, 50)
         plain, _ = bench_ms(ref.ssm_scan_ref, sets, plain_iters)
-        b_ms, b_by = bound(nbytes, 10.0 * b * seq * di * ds, "fp32")
+        b_ms, b_by = bound(ssm_mod.cost(b, seq, di, ds, item))
         # the exponentials alone, at the special-function unit's 16 a clock per SM
         exp_floor = b * seq * di * ds / (16 * sms * SPIN_CYCLES_PER_S) * 1e3
         log(f"[kernel] ssm_scan b{b} L{seq} di{di} ds{ds} {str(dtype)[6:]} "
@@ -681,16 +704,6 @@ def check_ssm(rows: dict) -> None:
     log("[kernel] ssm_scan batch-row isolation: row 1 alone equals row 1 in the batch")
 
 
-# the scan's backward as a function of (x, Δ, B, C, A, D, dy): fp32
-# operations per (position, channel, state) that it needs, with each
-# position's exp(Δ_t A) taken once. The states h_{t-1} are not among its
-# inputs, so one forward walk is part of the work (Δ_t A, the update's
-# product and fma: 4); the reverse step: g's fma, g·e, that times h_{t-1},
-# dA's fma, the two sums over states (Σ A g e h, Σ g B: an fma each), the
-# dB and dC terms and their sums over channels (14). The kernel's own
-# overheads (the checkpoint tape, the partials, the sums' data movement)
-# are its design, not the function's work, and are not counted.
-SSM_BWD_FLOPS = 18.0
 BWD_NAMES = ("dx", "ddt", "db", "dc", "da", "dd")
 
 
@@ -699,19 +712,20 @@ def _scan_bwd_bound(b, seq, di, ds, item) -> tuple[float, str, float, float]:
     the checkpoint tape) of the backward from its inputs. The bound is the
     larger of the function's bytes (x, Δ, B, C, dy, A, D read once; dx, dΔ,
     dB, dC, dA, dD written once) over the memory rate, its fp32 operations
-    (:data:`SSM_BWD_FLOPS`) over the fp32 peak, and its exponentials, one
+    (``ssm_scan.SSM_BWD_FLOPS``, ``ssm_scan.bwd_cost``) over the fp32 peak,
+    and its exponentials, one
     per (position, channel, state), at the special-function unit's 16 a
     clock per SM. Beside it, the same with the design's checkpoint tape
     (``bwd_work_shapes``' "h_ckpt", written by the forward and read back)
     added to the bytes."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tape = int(np.prod(bwd_work_shapes(b, seq, di, ds)["h_ckpt"])) * 4
-    nbytes = (5 * b * seq * di + 4 * b * seq * ds) * item + 2 * (di * ds + di) * 4
+    cost = ssm_mod.bwd_cost(b, seq, di, ds, item)
     exp_ms = b * seq * di * ds / (16 * sms * SPIN_CYCLES_PER_S) * 1e3
-    b_ms, b_by = bound(nbytes, SSM_BWD_FLOPS * b * seq * di * ds, "fp32")
+    b_ms, b_by = bound(cost)
     if exp_ms > b_ms:
         b_ms, b_by = exp_ms, "operations"
-    return b_ms, b_by, exp_ms, max(b_ms, (nbytes + 2 * tape) / PEAK_BYTES_PER_S * 1e3)
+    return b_ms, b_by, exp_ms, max(b_ms, (cost.bytes + 2 * tape) / HW.hbm_bandwidth * 1e3)
 
 
 def device_ms_by_kernel(fn, args, iters: int, names) -> dict[str, float | None]:
@@ -1187,6 +1201,43 @@ def train_reference_check() -> None:
         f"{max(errs):.4g} (tol 0.05), median {float(np.median(errs)):.4g}")
 
 
+def count_check() -> None:
+    """A 2-layer full-width cut of minicpm-2b (bf16) counts the same work on
+    the card as on the CPU (``roofline.count``): its forward and its train
+    step at B 2 x S 64, the FLOPs, the bytes, the kernels' table and every
+    torch op's, equal. On the CPU each kernel wrapper records its kernel's
+    formula in place of its plain version's ops."""
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 65))
+    counts = {}
+    for device in ("cuda", "cpu"):
+        params = M.init_params(cfg, 0, device=device)
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=device),
+                 "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int64, device=device)}
+        with roofline.count() as fwd:
+            make_prefill_step(cfg, device=device)(params, {"tokens": batch["tokens"]})
+        opt = AdamW(wsd(peak_lr=2e-3, warmup=4, total=100))
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, device=device)
+        with roofline.count() as train:
+            step(params, state, batch)
+        counts[device] = (fwd, train)
+        del params, state, step
+        torch.cuda.empty_cache()
+    for (card, cpu), what in zip(zip(counts["cuda"], counts["cpu"]), ("forward", "train step")):
+        diff = {k: (card.ops.get(k), cpu.ops.get(k)) for k in set(card.ops) | set(cpu.ops)
+                if card.ops.get(k) != cpu.ops.get(k)}
+        check(card.flops == cpu.flops and card.bytes == cpu.bytes
+              and card.kernels == cpu.kernels and not diff,
+              f"2-layer minicpm-2b {what}: the card counts {card.flops} FLOPs, {card.bytes} "
+              f"bytes, kernels {card.kernels}; the CPU {cpu.flops}, {cpu.bytes}, "
+              f"{cpu.kernels}; ops that differ (card, CPU) {diff}")
+        log(f"[roofline] 2-layer minicpm-2b {what} (B 2 x S 64): card and CPU count the same "
+            f"{card.flops:.10g} FLOPs, {card.bytes:.10g} bytes, {card.launches} kernel calls "
+            f"{json.dumps({k: v[0] for k, v in card.kernels.items()})}, "
+            f"{sum(v[0] for v in card.ops.values())} torch ops")
+
+
 def train_slice() -> dict:
     """minicpm-2b's train step at full width and depth (40 layers, bf16,
     remat "full"), B 4 x S 256, AdamW on MiniCPM's WSD schedule: 4 steps on
@@ -1250,6 +1301,8 @@ def train_slice() -> dict:
         f"{batch * seq / wall:.0f} tokens/s, device ms per step (CUDA events) "
         f"{[round(d, 1) for d in dev_ms]}, max_memory_allocated {peak / 1e9:.2f} GB")
     log(f"[train] launches per step: {json.dumps(per_step[-1])} (products per forward {prods})")
+    roofline_run("minicpm-2b train step (B 4 x S 256)", lambda: step(params, state, data), wall,
+                 cfg, batch * seq, True)
     del params, state, first, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -1483,6 +1536,21 @@ def serve_slice(machine) -> dict:
     log(f"[slice] make_prefill_step: ms={fwd_ms:.2f} (prefill block {block}); last-position "
         f"logits vs generate's prefill: max_abs_diff={err:.4g} (tol {tol:.4g}), "
         f"argmax agreement {agree:.2f}")
+    del fwd_logits
+    # the roofline of the forward and of one decode step at batch 4, each
+    # counted in one run beside its timed ones
+    walls = [fwd_ms / 1e3] + timed_walls(lambda: step(params, {"tokens": prompt}), 2)
+    roofline_run("minicpm-2b forward (B 4 x S 256)", lambda: step(params, {"tokens": prompt}),
+                 float(np.median(walls)), cfg, batch * prompt_len, False)
+    cache = M.init_cache(cfg, batch, prompt_len + 1, device="cuda")
+    logits, cache = make_prefill(cfg, block, device="cuda")(params, cache, prompt)
+    serve = make_serve_step(cfg, device="cuda")
+    nxt = {"tokens": logits[:, -1:].argmax(-1)}
+    # every call decodes position prompt_len from the same cache
+    walls = timed_walls(lambda: serve(params, cache, nxt), 5)
+    roofline_run("minicpm-2b decode step (batch 4)", lambda: serve(params, cache, nxt),
+                 float(np.median(walls)), cfg, batch, False)
+    del cache, logits
     log(f"[slice] launches per call: {json.dumps(counts)}")
     # every product of the forward and of generate's prefill (m = batch ·
     # block rows) took the wgmma variant, every decode product the m ≤ 16 one:
@@ -1839,6 +1907,10 @@ def serve_jamba(machine) -> dict:
         check(c["streamed_matmul.decode"] == c["streamed_matmul"] > 0,
               f"jamba {key}: matmul variants {c}")
     log(f"[jamba] make_prefill_step: ms={fwd_ms:.2f} (B {batch}, S {prompt_len})")
+    walls = [fwd_ms / 1e3] + timed_walls(lambda: step(params, {"tokens": prompt}), 2)
+    roofline_run(f"jamba-v0.1-52b forward ({cfg.num_layers} layers, B 4 x S 256)",
+                 lambda: step(params, {"tokens": prompt}), float(np.median(walls)), cfg,
+                 batch * prompt_len, False)
     # token-at-a-time prefill and decode: prompt_len + steps decode steps, the
     # decode variant one device launch per product
     log(f"[jamba] matmul device launches per decode step: "
@@ -2062,7 +2134,11 @@ def train_jamba() -> dict:
         f"{grad_ms:.1f} ms, AdamW {adamw_ms:.1f} ms; max_memory_allocated {peak / 1e9:.2f} GB")
     log(f"[jamba-train] launches per step: {json.dumps(per_step[-1])} (products per forward "
         f"{prods})")
-    del params, state, grads, step, grads_of
+    del grads
+    roofline_run(f"jamba-v0.1-52b train step ({cfg.num_layers} layers, {cfg.moe_experts} "
+                 f"experts, B 4 x S 256)", lambda: step(params, state, data), wall, cfg,
+                 batch * seq, True)
+    del params, state, step, grads_of
     gc.collect()
     torch.cuda.empty_cache()
     return per_step[-1]
@@ -2159,6 +2235,9 @@ def serve_xlstm(machine) -> None:
           and fwd["flash_attention"] == 0, f"xlstm forward launches {fwd} ({prods} products)")
     log(f"[xlstm] make_prefill_step (B {batch}, S {prompt_len}): wall ms "
         f"{[round(w * 1e3, 1) for w in walls]}; {prods} products, all wgmma")
+    del logits
+    roofline_run("xlstm-1.3b forward (B 4 x S 256)", lambda: step(params, {"tokens": prompt}),
+                 float(np.median(walls)), cfg, batch * prompt_len, False)
 
     runs = []
     for key, compiled in (("generate_compiled", True), ("generate_measure", False)):
@@ -2183,7 +2262,7 @@ def serve_xlstm(machine) -> None:
           f"xlstm tokens {tuple(runs[0].shape)}")
     log(f"[xlstm] matmul launches per decode step: {prods} decode "
         f"({counts['generate_compiled']['streamed_matmul.decode']} per generate)")
-    del logits, params, step
+    del params, step
     gc.collect()
     torch.cuda.empty_cache()
     train_xlstm(cfg, prods)
@@ -2487,6 +2566,57 @@ def counts_now() -> dict:
             **{f"streamed_matmul.{v}": c for v, c in ops.matmul_layout_counts().items()}}
 
 
+def roofline_run(name: str, run, wall_s: float, cfg, tokens: int, training: bool) -> dict:
+    """Count one more run of ``run()`` — never a timed one — with
+    ``roofline.count`` and print its ``[roofline]`` line: the counted FLOPs,
+    bytes and kernel launches, the three terms, the model's useful FLOPs
+    (6·N·D training, 2·N·D inference; N active for MoE), the run's measured
+    median wall ``wall_s``, MFU = model FLOPs / (wall × the bf16 peak) and
+    roofline_share = the dominant term's time / wall. A share past 1.05
+    puts the run faster than the card can go: a counting bug, and the check
+    fails. The kernels the count recorded must be the launches the wrappers
+    counted in the same run."""
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    with roofline.count(device="cuda") as c:
+        run()
+        torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+    recorded = {k: v[0] for k, v in c.kernels.items()}
+    check(recorded == launched, f"{name}: the count recorded {recorded}, the wrappers "
+          f"launched {launched}")
+    total, active = cfg.param_counts()
+    mf = roofline.model_flops(params=total, active_params=active, tokens=tokens,
+                              training=training)
+    rep = roofline.analyze(name, c, model_flops_global=mf, hw=HW)
+    mfu = mf / (wall_s * HW.peak_flops)
+    share = rep.step_seconds / wall_s
+    row = {"run": name, "flops": c.flops, "bytes": c.bytes, "launches": c.launches,
+           "kernel_launches": recorded, "kernel_flops": sum(v[1] for v in c.kernels.values()),
+           "kernel_bytes": sum(v[2] for v in c.kernels.values()),
+           "compute_s": rep.compute_seconds, "memory_s": rep.memory_seconds,
+           "dominant": rep.dominant, "model_flops": mf, "useful_ratio": rep.useful_flops_ratio,
+           "wall_s": wall_s, "mfu": mfu, "roofline_share": share,
+           "peak_device_gb": c.peak_device_bytes / 1e9}
+    log(f"[roofline] {json.dumps(row)}")
+    check(share <= 1.05, f"{name}: roofline_share {share:.4g} > 1.05 — the count puts the "
+          "run faster than the card can go")
+    return row
+
+
+def timed_walls(run, n: int) -> list[float]:
+    """Wall seconds of ``n`` calls of ``run()``, the card synchronised
+    around each."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
 def main_path(name: str, drive) -> dict:
     """Drive one main path with every launch count set to 0 just before it;
     return the counts read just after (per kernel, and the matmul's per
@@ -2543,6 +2673,13 @@ def main() -> int:
         reference_check("jamba-v0.1-52b",
                         pattern=(Block("mamba", "dense"), Block("attn", "dense")))
         train_reference_check()
+        count_check()
+    with phase("plans"):
+        check(lint.run_lint(check=True, device="cuda", machine=machine) == 0,
+              f"lint --check: error findings or build failures on {machine.name}")
+        log(f"[lint] python -m repro_torch.lint --check on {machine.name}: clean")
+        for shape in ("train_4k", "decode_32k"):
+            log(f"[dryrun] {json.dumps(dryrun.plan_record('minicpm-2b', shape, machine))}")
 
     dense = main_path("minicpm-2b", lambda: (inner_product(machine), serve_slice(machine)))
     gc.collect()

@@ -23,9 +23,10 @@ import functools
 import torch
 
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
+from repro_torch.core.roofline import KernelCost, counted
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["flash_attention", "attention_plan", "BLOCK_Q", "BLOCK_KV"]
+__all__ = ["flash_attention", "attention_plan", "cost", "causal_pairs", "BLOCK_Q", "BLOCK_KV"]
 
 BLOCK_Q = BLOCK_KV = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,6 +118,32 @@ def _rows_aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(t.stride(i) * size % 16 == 0 for i in range(3))
 
 
+def causal_pairs(sq: int, skv: int) -> int:
+    """The (query, key) pairs causal masking keeps, the queries the last
+    ``sq`` of ``skv`` positions: query i sees keys 0 .. skv - sq + i."""
+    lo = max(1, skv - sq + 1)
+    return skv * (skv + 1) // 2 - (lo - 1) * lo // 2
+
+
+def cost(b: int, hq: int, hkv: int, sq: int, skv: int, d: int, itemsize: int, *,
+         causal: bool = True, lse: bool = False) -> KernelCost:
+    """Attention's work: two products (QKᵀ and PV, 4·d operations) on each
+    (query, key) pair causal masking keeps, bf16 on the tensor cores for
+    2-byte operands; Q, K, V read once and O written once, and with ``lse``
+    the fp32 log-sum-exp of each row."""
+    pairs = causal_pairs(sq, skv) if causal else sq * skv
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * skv * d) * itemsize
+    return KernelCost(4.0 * b * hq * d * pairs, float(nbytes + (4 * b * hq * sq if lse else 0)),
+                      "bf16" if itemsize == 2 else "fp32")
+
+
+def _call_cost(q, k, v, *, causal=True, sm_scale=None, return_lse=False):
+    b, hq, sq, d = q.shape
+    return cost(b, hq, k.shape[1], sq, k.shape[2], d, q.element_size(), causal=causal,
+                lse=return_lse)
+
+
+@counted("flash_attention", _call_cost)
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -132,9 +159,9 @@ def flash_attention(
     at the *end* of the key sequence for causal masking. CUDA tensors go to
     the kernel (float32 or bfloat16, head dim 64, 128 or 192, any strides
     with a contiguous head dim; bf16 rows 16-byte aligned); CPU tensors to
-    :func:`repro_torch.kernels.ref.attention_ref`. The result on the card is
-    a (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, the layout the model
-    reads it back in. ``return_lse=True`` also returns each row's
+    :func:`repro_torch.kernels.ref.attention_ref`. The result on both devices
+    is a (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, the layout the model
+    reads it back in (so the torch ops after it move the same bytes). ``return_lse=True`` also returns each row's
     log-sum-exp, (B, Hq, Sq) fp32 (:func:`ref.attention_ref_lse` on the CPU).
     """
     b, hq, sq, d = q.shape
@@ -147,6 +174,7 @@ def flash_attention(
     sm_scale = sm_scale if sm_scale is not None else d ** -0.5
     if q.device.type == "cpu":
         out, lse = ref.attention_ref_lse(q, k, v, causal=causal, sm_scale=sm_scale)
+        out = out.transpose(1, 2).contiguous().transpose(1, 2)
         return (out, lse) if return_lse else out
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "

@@ -9,12 +9,18 @@ switches a CUDA tensor to the plain version.
 products through the same kernel (the input gradient with B read in the
 other layout, the weight gradient with A read as its transpose), so a
 train step's products all launch the hand-written kernel on the card.
+
+Inside :func:`repro_torch.core.roofline.count` each kernel call records its
+module's ``cost`` (``streamed_matmul.cost``, ``streamed_dot.cost``,
+``flash_attention.cost``, ``ssm_scan.cost`` and ``bwd_cost``) on both
+devices, in place of the torch ops of its plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.roofline import uncounted
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 from repro_torch.kernels.streamed_dot import streamed_dot
@@ -62,8 +68,9 @@ class Matmul(torch.autograd.Function):
     dB = Aᵀ·dC (or dCᵀ·A for ``"nk"``) reads its left operand as the (k, m)
     transpose of the stored matrix (``a_layout="km"``). Each gradient is
     written in its operand's dtype. On the card an operand whose rows TMA
-    cannot read is copied to padded rows first (:func:`_tma_rows`); on the
-    CPU the plain version runs the same three products.
+    cannot read is copied to padded rows first (:func:`_tma_rows`: the
+    launch's staging, not the product's work, so a roofline count leaves it
+    out); on the CPU the plain version runs the same three products.
     """
 
     @staticmethod
@@ -76,7 +83,8 @@ class Matmul(torch.autograd.Function):
     def backward(ctx, dc):
         a, b = ctx.saved_tensors
         if dc.is_cuda:
-            dc, a, b = _tma_rows(dc), _tma_rows(a), _tma_rows(b)
+            with uncounted():
+                dc, a, b = _tma_rows(dc), _tma_rows(a), _tma_rows(b)
         da = db = None
         nk = ctx.b_layout == "nk"
         if ctx.needs_input_grad[0]:

@@ -48,10 +48,11 @@ import math
 import torch
 
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
+from repro_torch.core.roofline import KernelCost, counted
 from repro_torch.kernels import pipeline, ref
 
 __all__ = ["ssm_scan", "ssm_scan_with_tape", "ssm_scan_bwd", "SelectiveScan", "ssm_plan",
-           "ssm_bwd_plan", "bwd_geometry", "bwd_work_shapes", "bwd_kernel_attrs",
+           "ssm_bwd_plan", "cost", "bwd_cost", "SSM_FLOPS", "SSM_BWD_FLOPS", "bwd_geometry", "bwd_work_shapes", "bwd_kernel_attrs",
            "launch_geometry", "lanes_for", "LANE_CHOICES", "STAGE_BYTES", "MIN_WARPS_PER_SM",
            "SEGMENT", "BWD_STAGE"]
 
@@ -336,6 +337,49 @@ def _lanes(lanes: int | None, x: torch.Tensor, d_state: int) -> int:
     return lanes
 
 
+#: fp32 operations per (position, channel, state) of the scan, as
+#: :func:`ssm_plan` prices it: the decay, the state update, y's contraction
+SSM_FLOPS = 10.0
+#: the scan's backward as a function of (x, Δ, B, C, A, D, dy): fp32
+#: operations per (position, channel, state) that it needs, with each
+#: position's exp(Δ_t A) taken once. The states h_{t-1} are not among its
+#: inputs, so one forward walk is part of the work (Δ_t A, the update's
+#: product and fma: 4); the reverse step: g's fma, g·e, that times h_{t-1},
+#: dA's fma, the two sums over states (Σ A g e h, Σ g B: an fma each), the
+#: dB and dC terms and their sums over channels (14). The kernel's own
+#: overheads (the checkpoint tape, the partials, the sums' data movement)
+#: are its design, not the function's work, and are not counted.
+SSM_BWD_FLOPS = 18.0
+
+
+def cost(bsz: int, seq: int, d_inner: int, d_state: int, itemsize: int) -> KernelCost:
+    """The scan's work: :data:`SSM_FLOPS` fp32 operations a (position,
+    channel, state); x, Δ, B, C read and y written once in the streams'
+    dtype, the fp32 A and D read once."""
+    nbytes = (3 * bsz * seq * d_inner + 2 * bsz * seq * d_state) * itemsize \
+        + (d_inner * d_state + d_inner) * 4
+    return KernelCost(SSM_FLOPS * bsz * seq * d_inner * d_state, float(nbytes), "fp32")
+
+
+def bwd_cost(bsz: int, seq: int, d_inner: int, d_state: int, itemsize: int) -> KernelCost:
+    """The backward's work: :data:`SSM_BWD_FLOPS` fp32 operations a
+    (position, channel, state); x, Δ, B, C, dy read and dx, dΔ, dB, dC
+    written once in the streams' dtype, the fp32 A and D read and dA and dD
+    written once."""
+    nbytes = (5 * bsz * seq * d_inner + 4 * bsz * seq * d_state) * itemsize \
+        + 2 * (d_inner * d_state + d_inner) * 4
+    return KernelCost(SSM_BWD_FLOPS * bsz * seq * d_inner * d_state, float(nbytes), "fp32")
+
+
+def _call_cost(x, dt, b, c, a, d, *rest, **kw):
+    return cost(*x.shape, a.shape[1], x.element_size())
+
+
+def _bwd_call_cost(x, dt, b, c, a, d, *rest, **kw):
+    return bwd_cost(*x.shape, a.shape[1], x.element_size())
+
+
+@counted("ssm_scan", _call_cost)
 def ssm_scan(
     x: torch.Tensor,      # (B, L, d_inner)
     dt: torch.Tensor,     # (B, L, d_inner)   Δ, already softplus'd
@@ -367,6 +411,7 @@ def ssm_scan(
     return _forward(x, dt, b, c, a, d, chunk, lanes)[0]
 
 
+@counted("ssm_scan", _call_cost)
 def ssm_scan_with_tape(
     x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     a: torch.Tensor, d: torch.Tensor,
@@ -420,6 +465,7 @@ def _forward(x, dt, b, c, a, d, chunk: int, lanes: int | None,
 ssm_scan.launches = 0
 
 
+@counted("ssm_scan_bwd", _bwd_call_cost)
 def ssm_scan_bwd(
     x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     a: torch.Tensor, d: torch.Tensor, dy: torch.Tensor,

@@ -21,9 +21,10 @@ import math
 import torch
 
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
+from repro_torch.core.roofline import KernelCost, counted
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["streamed_dot", "dot_plan"]
+__all__ = ["streamed_dot", "dot_plan", "cost"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -84,6 +85,14 @@ def _plan(n_tok: int, c: int, dtype: torch.dtype, cores: int) -> StreamPlan:
     return dot_plan(n_tok, c, dtype=dtype, cores=cores)
 
 
+def cost(n: int, itemsize: int) -> KernelCost:
+    """α = v·u's work for n-element vectors: 2n fp32 operations (a multiply
+    and an add an element, summed in fp32), both vectors read once and the
+    fp32 α written once."""
+    return KernelCost(2.0 * n, float(2 * n * itemsize + 4), "fp32")
+
+
+@counted("streamed_dot", lambda v, u, **_: cost(v.numel(), v.element_size()))
 def streamed_dot(v: torch.Tensor, u: torch.Tensor, *,
                  token_size: int = 8 * 1024) -> torch.Tensor:
     """α = v·u for 1-D vectors streamed token-by-token. Returns a 0-d fp32.

@@ -79,10 +79,11 @@ import math
 import torch
 
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
+from repro_torch.core.roofline import KernelCost, counted
 from repro_torch.kernels import pipeline, ref
 
 __all__ = ["streamed_matmul", "matmul_plan", "decode_plan", "variant_for", "split_for",
-           "decode_split", "deep_split", "decode_fits", "VARIANTS", "LAYOUTS"]
+           "decode_split", "deep_split", "decode_fits", "cost", "VARIANTS", "LAYOUTS"]
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the (a_layout, b_layout) pairs the kernel takes, and their code on the C side
@@ -369,6 +370,22 @@ def _plan(m: int, k: int, n: int, tile: tuple[int, int, int], out_dtype: torch.d
                        dtype=dtype, out_dtype=out_dtype, split_k=split)
 
 
+def cost(m: int, k: int, n: int, itemsize: int, out_itemsize: int | None = None) -> KernelCost:
+    """C = A·B's work, (m, k) × (k, n): 2mkn operations (bf16 on the tensor
+    cores for 2-byte operands, else fp32), A and B read once and C written
+    once, (mk + kn)·itemsize + mn·out_itemsize bytes."""
+    out_itemsize = out_itemsize or itemsize
+    return KernelCost(2.0 * m * k * n, float((m * k + k * n) * itemsize + m * n * out_itemsize),
+                      "bf16" if itemsize == 2 else "fp32")
+
+
+def _call_cost(a, b, *, out_dtype=None, a_layout="mk", b_layout="kn", variant=None):
+    m, k = a.shape if a_layout == "mk" else a.shape[::-1]
+    n = b.shape[1] if b_layout == "kn" else b.shape[0]
+    return cost(m, k, n, a.element_size(), (out_dtype or a.dtype).itemsize)
+
+
+@counted("streamed_matmul", _call_cost)
 def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
                     out_dtype: torch.dtype | None = None, a_layout: str = "mk",
                     b_layout: str = "kn", variant: str | None = None) -> torch.Tensor:

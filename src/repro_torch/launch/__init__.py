@@ -1,2 +1,2 @@
-"""Launchers of the port: the serving path, its runner registry and the
-training launcher."""
+"""Launchers of the port: the serving path, its runner registry, the
+training launcher, the dry-run plan report and the mesh constructors."""

@@ -32,7 +32,7 @@ from repro_torch.models.layers import (
 
 Params = dict[str, Any]
 
-__all__ = ["init_params", "params_from_numpy", "opt_state_from_numpy", "count_params",
+__all__ = ["init_params", "abstract_params", "abstract_cache", "params_from_numpy", "opt_state_from_numpy", "count_params",
            "forward", "loss_fn", "init_cache", "cache_bytes", "decode_step",
            "default_positions", "torch_dtype"]
 
@@ -62,6 +62,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: Any = None) -> Param
         "stack": tf.init_stack(cfg, gen, dtype, device),
         "final_norm": init_norm(cfg, dtype, device),
     }
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """:func:`init_params`' tree with every leaf a fake tensor: the shapes
+    and dtypes, no storage (a dry run at any size)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return init_params(cfg, 0, device="cpu")
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> Params:
+    """:func:`init_cache`'s tree with every tensor leaf a fake tensor."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return init_cache(cfg, batch, max_len, device="cpu")
 
 
 def _tree_map(fn, tree: Any, key: str | None = None) -> Any:

@@ -1294,3 +1294,86 @@ def test_jamba_train_step_on_the_card(cuda):
     after = ops.launch_counts()
     assert after["ssm_scan_bwd"] - before["ssm_scan_bwd"] == 7
     assert after["ssm_scan"] - before["ssm_scan"] == 7         # remat "none": no recompute
+
+
+# -- the roofline counter: one count on both devices -----------------------------------
+
+
+def _count_on(device, fn, *tensors):
+    from repro_torch.core import roofline
+
+    moved = [t.to(device) for t in tensors]
+    with roofline.count() as c:
+        fn(*moved)
+    return c
+
+
+@pytest.mark.parametrize("kernel", ["matmul", "matmul_nk", "dot", "attention", "scan",
+                                    "scan_backward"])
+def test_kernel_counts_equal_on_both_devices(cuda, kernel):
+    """Each wrapper records its kernel's formula on the card, where it
+    launches, and on the CPU, where its plain version runs: the same FLOPs,
+    bytes and calls, and none of the plain version's torch ops."""
+    bf = torch.bfloat16
+    if kernel in ("matmul", "matmul_nk"):
+        layout = "kn" if kernel == "matmul" else "nk"
+        args = (_rand((100, 256), bf, "cpu", 1), _rand((256, 136), bf, "cpu", 2))
+        fn = lambda a, b: ops.matmul(a, b if layout == "kn" else b.T.contiguous(),
+                                     b_layout=layout)
+    elif kernel == "dot":
+        args = (_rand((5000,), torch.float32, "cpu", 1), _rand((5000,), torch.float32, "cpu", 2))
+        fn = ops.dot
+    elif kernel == "attention":
+        args = (_rand((2, 8, 100, 64), bf, "cpu", 1), _rand((2, 2, 100, 64), bf, "cpu", 2),
+                _rand((2, 2, 100, 64), bf, "cpu", 3))
+        fn = lambda q, k, v: ops.attention(q, k, v, return_lse=True)
+    else:
+        x = _rand((2, 40, 256), torch.float32, "cpu", 1)
+        dt = _rand((2, 40, 256), torch.float32, "cpu", 2).abs() * 0.05
+        bb, cc = _rand((2, 40, 16), torch.float32, "cpu", 3), _rand((2, 40, 16), torch.float32,
+                                                                   "cpu", 4)
+        a = -torch.arange(1, 17, dtype=torch.float32).expand(256, 16).contiguous()
+        d = _rand((256,), torch.float32, "cpu", 5)
+        args = (x, dt, bb, cc, a, d)
+        if kernel == "scan":
+            fn = ops.selective_scan
+        else:
+            def fn(*t):
+                live = [u.detach().requires_grad_(True) for u in t]
+                ops.selective_scan(*live).sum().backward()
+    card, cpu = _count_on(cuda, fn, *args), _count_on("cpu", fn, *args)
+    assert card.kernels == cpu.kernels and card.kernels
+    assert (card.flops, card.bytes, card.launches) == (cpu.flops, cpu.bytes, cpu.launches)
+    if kernel not in ("matmul_nk", "scan_backward"):
+        assert card.ops == cpu.ops == {}
+
+
+def test_two_layer_cut_counts_equal_on_both_devices(cuda):
+    """A 2-layer full-width minicpm-2b cut's forward and train step count
+    the same work on the card as on the CPU, op for op."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import roofline
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train.steps import make_prefill_step, make_train_step
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 33))
+    counts = {}
+    for device in (cuda, torch.device("cpu")):
+        params = M.init_params(cfg, 0, device=device)
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=device),
+                 "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int64, device=device)}
+        with roofline.count() as fwd:
+            make_prefill_step(cfg, device=device)(params, {"tokens": batch["tokens"]})
+        opt = AdamW(constant(1e-3))
+        with roofline.count() as train:
+            make_train_step(cfg, opt, device=device)(params, opt.init(params), batch)
+        counts[device.type] = (fwd, train)
+    for card, cpu in zip(counts["cuda"], counts["cpu"]):
+        assert card.ops == cpu.ops
+        assert card.kernels == cpu.kernels
+        assert (card.flops, card.bytes) == (cpu.flops, cpu.bytes)
