@@ -15,7 +15,7 @@ minicpm-2b and jamba-v0.1-52b on the card against float32 on the CPU, the
 forward and, for minicpm-2b, the loss and every gradient; the scan's
 backward kernel against its plain reverse walk at jamba's train shapes and
 ragged ones, bit for bit across runs, lane counts and batch rows. Then it
-drives eight main paths, each with the launch counts set to 0 before it
+drives ten main paths, each with the launch counts set to 0 before it
 and read after: the paper's §3.1 inner product through the hyperstep runner in
 both execution modes plus minicpm-2b served at full width and depth;
 minicpm-2b's train step at full width and depth (4 AdamW steps, the loss
@@ -70,7 +70,18 @@ which must not pass 1.05); a 2-layer minicpm-2b cut counts the same on the
 card as on the CPU. The ``plans`` phase runs ``python -m
 repro_torch.lint --check`` on the calibrated pack (clean) and prints the
 dry-run report (``[dryrun]``) of minicpm-2b at ``train_4k`` and
-``decode_32k``. Every check that fails raises,
+``decode_32k``. The last two paths: ``mesh`` starts a world-1 ``nccl``
+group (destroyed after it) and holds the mesh-bound modules on the
+(data=1, model=1) mesh over it — minicpm-2b at full width and depth
+through ``train(mesh=...)`` against ``train(mesh=None)``, 4 steps in each
+mode, the losses equal bit for bit and the launches equal;
+``cannon_matmul`` at 4096³ bf16 and fp32, two-level Cannon with ``mesh=``
+and ``pipeline_apply`` at one stage, each bit for bit against the bare
+product or stage; the host-level fit on one host; a sharded save and a
+restore through a ``sharder`` of the 2-layer cut — and ``examples`` runs
+the port's examples at their defaults, all but quickstart's train step
+(its smoke config's head dim 16 is not the card's flash's). One card:
+no collective crosses ranks. Every check that fails raises,
 and the script exits non-zero. Each phase prints its wall time. It imports
 neither JAX nor the JAX package.
 
@@ -1100,6 +1111,244 @@ def cannon_run(a, b, m_blocks, n_grid, machine, compiled, rate_f32, name):
 def bsps_path(rate_f32: float) -> None:
     cyclic_inner_product()
     cannon_runs(rate_f32)
+
+
+# -- the mesh path: the mesh-bound modules over a world-1 nccl group ---------------------
+
+
+def _train_losses(cfg, compiled: bool, machine, mesh) -> tuple[list, list, dict, float]:
+    """``train()`` on the card from seed 0, 4 steps of B 4 x S 256 synthetic
+    batches (seed 0), AdamW on WSD (peak 2e-3, warmup 8), under ``mesh`` or
+    none: the losses, the step walls (per step in the host loop, the
+    segment's average compiled), the launches and the run's wall."""
+    opt = AdamW(wsd(peak_lr=2e-3, warmup=8, total=100))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=4, seed=0)
+    before = counts_now()
+    t0 = time.perf_counter()
+    out = train_loop.train(cfg, train_loop.TrainConfig(steps=4, log_every=1000, compiled=compiled),
+                           opt, data_cfg=data, machine=machine, mesh=mesh, log=lambda _: None,
+                           device="cuda")
+    wall = time.perf_counter() - t0
+    hist = out["history"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ([h["loss"] for h in hist], [h["step_seconds"] for h in hist],
+            {k: v - before[k] for k, v in counts_now().items()}, wall)
+
+
+def mesh_train(machine, mesh) -> None:
+    """minicpm-2b at full width and depth, ``train(mesh=...)`` on the (data=1,
+    model=1) mesh against ``train(mesh=None)``, 4 steps in each execution
+    mode: the losses equal bit for bit and the launches equal (at one rank
+    every gather, reduction and placement is an identity)."""
+    cfg = get_config("minicpm-2b")
+    for compiled in (True, False):
+        mode = "compiled" if compiled else "host loop"
+        plain = _train_losses(cfg, compiled, machine, None)
+        meshed = _train_losses(cfg, compiled, machine, mesh)
+        check(all(np.isfinite(plain[0])), f"mesh ({mode}): losses {plain[0]}")
+        check(meshed[0] == plain[0],
+              f"mesh ({mode}): train(mesh) losses {meshed[0]} != train(mesh=None) {plain[0]}")
+        check(meshed[2] == plain[2],
+              f"mesh ({mode}): launches {meshed[2]} != mesh=None's {plain[2]}")
+        ratios = [m / p for m, p in zip(meshed[1], plain[1])]
+        log(f"[mesh] train {mode}: minicpm-2b {cfg.num_layers} layers, 4 steps, losses equal "
+            f"bit for bit {[round(x, 4) for x in plain[0]]}; step wall ms mesh "
+            f"{[round(x * 1e3, 1) for x in meshed[1]]} vs none "
+            f"{[round(x * 1e3, 1) for x in plain[1]]}, ratio {[round(r, 4) for r in ratios]} "
+            f"(median {float(np.median(ratios)):.4f}); run wall {meshed[3]:.1f} s vs "
+            f"{plain[3]:.1f} s (with the init and placement); launches "
+            f"{json.dumps(meshed[2])}")
+
+
+def mesh_cannon(mesh) -> None:
+    """``cannon_matmul`` on the 1×1 mesh against the bare local product at
+    4096³, bf16 (wgmma) and fp32 (simt_f32), bit for bit; two-level Cannon
+    with ``mesh=`` against ``mesh=None`` at n 4096, M 4, N 1."""
+    from repro_torch.distributed.cannon import cannon_matmul, two_level_cannon
+    from repro_torch.models.layers import ops_matmul
+
+    for dtype in (torch.bfloat16, torch.float32):
+        a, b = randn((4096, 4096), dtype, 61), randn((4096, 4096), dtype, 62)
+        c = cannon_matmul(a, b, mesh=mesh)
+        want = ops_matmul(a, b)
+        check(torch.equal(c.to_local(), want) and tuple(c.shape) == (4096, 4096),
+              f"cannon_matmul {dtype} on the 1x1 mesh differs from the local product")
+        log(f"[mesh] cannon_matmul 4096^3 {dtype} on the 1x1 mesh: bit for bit the local "
+            f"product ({matmul_variant(lambda: ops_matmul(a, b))[1]})")
+    rng = np.random.default_rng(63)
+    a = rng.standard_normal((4096, 4096)).astype(np.float32)
+    b = rng.standard_normal((4096, 4096)).astype(np.float32)
+    c_mesh, _ = two_level_cannon(a, b, 4, mesh=mesh, device="cuda")
+    c_none, _ = two_level_cannon(a, b, 4, device="cuda")
+    check(np.array_equal(c_mesh, c_none), "two_level_cannon(mesh=) differs from mesh=None")
+    err = float(np.abs(c_mesh.astype(np.float64) - a.astype(np.float64) @ b).max())
+    check(err < 1e-2, f"two_level_cannon: max error {err} against the fp64 product")
+    log(f"[mesh] two_level_cannon n 4096 M 4 N 1: mesh= equals mesh=None bit for bit; "
+        f"max error {err:.3g} against fp64")
+
+
+def mesh_pipeline(mesh) -> None:
+    """``pipeline_apply`` at one stage (the model axis) against the stage
+    applied directly, bit for bit: 6 microbatches of (256, 2304) bf16."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.models.layers import ops_matmul
+
+    w = randn((1, 2304, 2304), torch.bfloat16, 64, scale=2304 ** -0.5)
+    xs = randn((6, 256, 2304), torch.bfloat16, 65)
+    stage = lambda p, x: torch.tanh(ops_matmul(x, p))  # noqa: E731
+    out = pipeline_apply(stage, w, xs, mesh=mesh, axis="model")
+    want = torch.stack([stage(w[0], x) for x in xs])
+    check(torch.equal(out, want), "pipeline_apply at one stage differs from the stage")
+    log("[mesh] pipeline_apply, 1 stage, 6 microbatches: bit for bit the stage applied directly")
+
+
+def mesh_calibrate(machine) -> None:
+    """``calibrate_host_level`` on the (host=1, data=1, model=1) mesh: one
+    host, both terms 0."""
+    from repro_torch.core.calibrate import calibrate_host_level
+    from repro_torch.launch.mesh import make_host_core_mesh
+
+    core_mesh = make_host_core_mesh(1)
+    acc = calibrate_host_level(machine, core_mesh)
+    check(core_mesh.shape == {"host": 1, "data": 1, "model": 1}
+          and (acc.hosts, acc.g_host, acc.l_host) == (1, 0.0, 0.0),
+          f"calibrate_host_level on {core_mesh.shape}: {acc}")
+    log(f"[mesh] calibrate_host_level on {core_mesh.shape}: hosts {acc.hosts}, g_host "
+        f"{acc.g_host}, l_host {acc.l_host}")
+
+
+def mesh_checkpoint(mesh) -> None:
+    """A sharded save of the 2-layer full-width minicpm-2b cut's training
+    state (parameters and moments placed on the mesh) and ``restore`` with
+    a ``sharder`` that places it again: the same files as an unsharded
+    save, every restored shard equal to the saved one."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.shardspec import P
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2)
+    n = M.count_params(cfg)
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    free = shutil.disk_usage(root).free
+    check(free >= 1.5 * 12 * n, f"mesh checkpoint: {free / 1e9:.1f} GB free under {root}")
+    params = M.init_params(cfg, 0, device="cuda")
+    opt = AdamW(wsd(peak_lr=2e-3, warmup=8, total=100))
+    opt_state = opt.init(params)
+    specs = sh.param_specs(cfg, mesh, params)
+    state_specs = {"params": specs, "opt_state": {"m": specs, "v": specs, "step": P()}}
+    state = {"params": sh.logical_to_sharding(mesh, params, specs),
+             "opt_state": sh.logical_to_sharding(mesh, opt_state, state_specs["opt_state"])}
+    del params, opt_state
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt_mesh_", dir=root))
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(str(tmp), 1, state, data_state={"cursor": 1, "seed": 0})
+        save_s = time.perf_counter() - t0
+        names = sorted(f.name for f in (tmp / "step_00000001").iterdir())
+        check(names == ["manifest.json", "opt_state.npz", "params.npz"],
+              f"mesh checkpoint files {names}")
+        t0 = time.perf_counter()
+        got, data_state = ckpt.restore(
+            str(tmp), 1, state,
+            sharder=lambda g, tree: sh.logical_to_sharding(mesh, tree, state_specs[g]))
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a.to_local(), b.to_local())
+                   for a, b in zip(leaves(got), leaves(state)))
+        check(same and data_state == {"cursor": 1, "seed": 0},
+              "mesh checkpoint: a restored shard differs from the saved one")
+        written = sum(f.stat().st_size for f in (tmp / "step_00000001").iterdir())
+        log(f"[mesh] sharded checkpoint of {n / 1e9:.3f} B params (2 layers): save "
+            f"{save_s:.2f} s, {written / 1e9:.3f} GB ({', '.join(names)}); restore through a "
+            f"sharder {restore_s:.2f} s; every shard equal")
+        del got, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mesh_path(machine) -> None:
+    """The mesh-bound modules on the card: a world-1 ``nccl`` group, the
+    (data=1, model=1) mesh over it, and every check above; the group is
+    destroyed before this returns. No collective crosses ranks here: the
+    machine has one card."""
+    from repro_torch.distributed import group
+    from repro_torch.launch.mesh import make_host_mesh
+
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    rdv = Path(tempfile.mkdtemp(prefix="rendezvous_", dir=root))
+    group.start(0, 1, rendezvous_dir=str(rdv))
+    try:
+        check(torch.distributed.get_backend() == "nccl", "the card's rank group is not on nccl")
+        mesh = make_host_mesh()
+        check(mesh.shape == {"data": 1, "model": 1} and mesh.device_mesh is not None,
+              f"the host mesh over the world-1 group: {mesh}")
+        mesh_train(machine, mesh)
+        mesh_cannon(mesh)
+        mesh_pipeline(mesh)
+        mesh_calibrate(machine)
+        mesh_checkpoint(mesh)
+    finally:
+        group.end()
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+# -- the examples path: the port's examples on the card ----------------------------------
+
+
+def examples_path() -> None:
+    """Every example whose shapes the kernels take, at its defaults, with its
+    printed checks held here. quickstart's third demo (a train step of
+    qwen2-moe-a2.7b's smoke config, head dim 16) is left out: the card's
+    flash takes head dims 64, 128 and 192 only."""
+    from repro_torch.examples import (
+        bsps_cannon,
+        bsps_spmv,
+        quickstart,
+        serve_engine,
+        serve_lm,
+        train_lm,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    walls = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    run("quickstart", lambda: (quickstart.demo_cost_model(dev), quickstart.demo_bsps_program(dev)))
+    rng = np.random.default_rng(0)
+    v = rng.standard_normal(1 << 16).astype(np.float32)
+    u = rng.standard_normal(1 << 16).astype(np.float32)
+    got, _ = quickstart.inner_product(v, u, 4096, dev)
+    want = float(np.dot(v.astype(np.float64), u))
+    check(abs(got - want) <= 1e-4 * np.abs(v * u).sum(),
+          f"quickstart: v·u {got} against numpy's {want}")
+    out = run("serve_lm", lambda: serve_lm.main([]))
+    check(out["cache_len"] == 96 and tuple(out["tokens"].shape) == (8, 64),
+          f"serve_lm: cache len {out['cache_len']}, tokens {tuple(out['tokens'].shape)}")
+    done = run("serve_engine", lambda: serve_engine.main([]))
+    check(sorted(done) == list(range(6)), f"serve_engine: drained {sorted(done)}")
+    tmp = Path(tempfile.mkdtemp(prefix="train_lm_", dir=ROOT / "build"))
+    try:
+        hist = run("train_lm", lambda: train_lm.main(["--ckpt-dir", str(tmp)]))["history"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == 300 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train_lm: {len(losses)} steps, loss {losses[0]} -> {losses[-1]}")
+    errs = run("bsps_cannon", lambda: bsps_cannon.main([]))
+    check(all(e < 1e-2 for e in errs.values()), f"bsps_cannon: errors {errs}")
+    err = run("bsps_spmv", lambda: bsps_spmv.main([]))
+    check(err < 1e-3, f"bsps_spmv: error {err}")
+    log(f"[examples] walls s {json.dumps({k: round(w, 2) for k, w in walls.items()})}; left "
+        "out: quickstart's train step (qwen2-moe-a2.7b smoke, head dim 16)")
 
 
 # -- phase 4: the slice ------------------------------------------------------------------
@@ -2704,6 +2953,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paper = main_path("bsps", lambda: bsps_path(rate_f32))
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshed = main_path("mesh", lambda: mesh_path(machine))
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = main_path("examples", examples_path)
     for name in ("streamed_dot", "streamed_matmul", "flash_attention"):
         check(dense[name] > 0, f"{name} was not launched on the minicpm-2b path")
     for name in ("streamed_matmul", "flash_attention"):
@@ -2718,7 +2973,11 @@ def main() -> int:
         check(families[name] > 0, f"{name} was not launched on the families path")
     for name in ("streamed_dot", "streamed_matmul"):
         check(paper[name] > 0, f"{name} was not launched on the bsps path")
-    paths = (dense, train, loop, hybrid, hybrid_train, recurrent, families, paper)
+    for name in ("streamed_matmul", "flash_attention"):
+        check(meshed[name] > 0, f"{name} was not launched on the mesh path")
+    check(examples["streamed_dot"] > 0, "streamed_dot was not launched on the examples path")
+    paths = (dense, train, loop, hybrid, hybrid_train, recurrent, families, paper, meshed,
+             examples)
     launches = {k: sum(p[k] for p in paths) for k in dense}
 
     kernels = []

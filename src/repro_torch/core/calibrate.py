@@ -17,6 +17,10 @@ measured hyperstep timings (§6 methodology). On a CUDA device:
 On the CPU (``device="cpu"``) the same probes run in float32 with the JAX
 package's host geometry for ``L``/``E``. No number of this module is ever
 copied from another machine's pack.
+
+The third pricing level (:func:`calibrate_host_level`) is measured over a
+rank group's real collectives: an all-reduce across the mesh's ``host``
+axis at two payload sizes, fitted as ``(g_host, l_host)``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from repro_torch.device import resolve_device
 
 __all__ = [
     "calibrate",
+    "calibrate_host_level",
+    "measure_host_superstep",
     "default_machine",
     "measure_flops_rate",
     "measure_external_bandwidth",
@@ -172,6 +178,68 @@ def calibrate(p: int = 1, *, fast: bool = False, device: Any = None) -> BSPAccel
     return BSPAccelerator(
         p=p, g=0.0, l=l, r=r, e=e, L=local, E=external,
         word_bytes=WORD_BYTES, name=name,
+    )
+
+
+def measure_host_superstep(mesh: Any, axis: str = "host") -> tuple[float, float]:
+    """Two-point fit of the host-level superstep term over real collectives.
+
+    Times an all-reduce across the mesh's ``axis`` (the axis's subgroup of
+    the rank group, on the group's backend) at two payload sizes — 4096 and
+    262144 fp32 words a shard, the median of 7 repeats each — and fits
+    ``t(h) = l_sec + h · g_sec_per_word``, both terms clamped at 0: the
+    collective IS the host-level h-relation, so its slope is ``g_host``
+    (seconds/word, whatever ring/tree factor the backend uses is absorbed
+    into it) and its intercept the host barrier ``l_host``. Every rank
+    takes the slowest rank's two times, so every rank fits the same pack.
+    Returns ``(g_host_seconds_per_word, l_host_seconds)``; ``(0, 0)`` when
+    the axis has one member.
+    """
+    import torch.distributed as dist
+
+    from repro_torch.distributed.group import rank_device
+
+    n = int(mesh.shape[axis])
+    if n <= 1:
+        return 0.0, 0.0
+    if mesh.device_mesh is None:
+        raise ValueError("measure_host_superstep needs a mesh over a rank group")
+    group = mesh.device_mesh.get_group(axis)
+    device = rank_device()
+    w1, w2 = 1 << 12, 1 << 18  # words per host-shard
+
+    def timed_all_reduce(words: int) -> float:
+        x = torch.zeros(words, dtype=torch.float32, device=device)
+        return _time(lambda: dist.all_reduce(x, group=group), device, repeats=7)
+
+    times = torch.tensor([timed_all_reduce(w1), timed_all_reduce(w2)], dtype=torch.float64,
+                         device=device)
+    dist.all_reduce(times, op=dist.ReduceOp.MAX)
+    t1, t2 = (float(t) for t in times)
+    g_sec = max(t2 - t1, 0.0) / (w2 - w1)
+    l_sec = max(t1 - w1 * g_sec, 0.0)
+    return g_sec, l_sec
+
+
+def calibrate_host_level(acc: BSPAccelerator, mesh: Any, axis: str = "host") -> BSPAccelerator:
+    """Extend a calibrated device pack with the third pricing level.
+
+    Measures ``(g_host, l_host)`` over real collectives on ``mesh``'s host
+    axis (:func:`measure_host_superstep`) and returns the pack with
+    ``hosts``/``g_host``/``l_host`` filled in — in FLOP units of the pack's
+    own ``r``, like every other parameter. A mesh without the axis gives
+    the single-host pack (``hosts=1``, both terms 0).
+    """
+    import dataclasses
+
+    if axis not in mesh.axis_names:
+        return dataclasses.replace(acc, hosts=1, g_host=0.0, l_host=0.0)
+    g_sec, l_sec = measure_host_superstep(mesh, axis)
+    return dataclasses.replace(
+        acc,
+        hosts=int(mesh.shape[axis]),
+        g_host=g_sec * acc.r,
+        l_host=l_sec * acc.r,
     )
 
 

@@ -1,4 +1,12 @@
-"""Two-level Cannon matmul: BSPS outer streams over an N×N core grid (§3.2).
+"""Two-level Cannon matmul: inner Cannon over ranks + BSPS outer streams (§3.2).
+
+The *inner level* (:func:`cannon_matmul`) is the paper's Cannon algorithm
+lifted from the Epiphany core grid to a grid of ranks: matrices are
+block-distributed over the (data × model) mesh treated as an N×N grid; each
+of the N steps multiplies the resident blocks and rotates A left / B up
+with one ``batch_isend_irecv`` — the systolic schedule with zero data
+redundancy the paper derives: per step exactly one block to each
+neighbour per direction.
 
 The *outer level* (Algorithm 2) is a hyperstep loop that streams M×M outer
 blocks from external memory around an inner BSP program on the core grid:
@@ -11,13 +19,16 @@ per-core pseudo-streams Σ^A (row-major, re-read M times via ``MOVE``) and
 outer block product, C blocks written back once per M hypersteps on the
 cores' DMA lanes.
 
-The card is one device, so the N×N grid is N² virtual cores, each with its
-own streams and DMA lane, sharing the card's host link and multiprocessors.
-The inner program is the local product on the assembled outer block (the
-reference's ``mesh=None`` path): :func:`repro_torch.models.layers.ops_matmul`,
-which launches the port's matmul kernel on CUDA tensors (``simt_f32`` for
-fp32 operands, ``wgmma`` for bf16) and runs its plain version on CPU
-tensors. The inner Cannon rotation over a mesh of cards is not ported.
+Without a mesh the N×N grid is N² virtual cores of one device, each with
+its own streams and DMA lane, sharing the device's host link and
+multiprocessors, and the inner program is the local product on the
+assembled outer block. With ``mesh=`` and N > 1 it is :func:`cannon_matmul`
+over the mesh's N×N ranks; every rank runs the same runner (the host
+program, replicated as JAX's single controller is) and gathers each
+hyperstep's product, since its write-back lanes hold every core's C piece.
+Every local product is :func:`repro_torch.models.layers.ops_matmul`, which
+launches the port's matmul kernel on CUDA tensors (``simt_f32`` for fp32
+operands, ``wgmma`` for bf16) and runs its plain version on CPU tensors.
 
 The accumulator keeps the operands' dtype, as the reference's does: a bf16
 run adds its M partial products in bf16.
@@ -29,6 +40,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.hyperstep import HyperstepRunner
 from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
@@ -37,6 +49,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import ops_matmul
 
 __all__ = [
+    "cannon_matmul",
     "cannon_plan",
     "cannon_streams",
     "make_cannon_step",
@@ -47,6 +60,95 @@ __all__ = [
     "gather_c",
     "two_level_cannon",
 ]
+
+
+def _exchange(pairs: list[tuple[torch.Tensor, int, int]]) -> list[torch.Tensor]:
+    """Send each ``t`` to global rank ``to`` and receive a tensor of its
+    shape from ``frm``, all in one ``batch_isend_irecv``; the received
+    tensors, in order."""
+    ops, got = [], []
+    for t, to, frm in pairs:
+        t = t.contiguous()
+        buf = torch.empty_like(t)
+        ops += [dist.P2POp(dist.isend, t, to), dist.P2POp(dist.irecv, buf, frm)]
+        got.append(buf)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return got
+
+
+def _local_block(x: Any, i: int, j: int, n: int, dmesh: Any, placements: tuple) -> torch.Tensor:
+    """Block (i, j) of an N×N blocking of ``x``: the local shard of a
+    DTensor (redistributed to ``placements`` first), a slice of a full
+    tensor."""
+    if hasattr(x, "to_local"):
+        return x.redistribute(dmesh, placements).to_local()
+    r, c = x.shape[0] // n, x.shape[1] // n
+    return x[i * r:(i + 1) * r, j * c:(j + 1) * c]
+
+
+def cannon_matmul(a: Any, b: Any, *, mesh: Any, axis_a: str = "data",
+                  axis_b: str = "model") -> Any:
+    """C = A @ B on an N×N (axis_a × axis_b) rank grid via Cannon rotation.
+
+    Requires a square grid (``mesh.shape[axis_a] == mesh.shape[axis_b]``).
+    ``a`` and ``b`` are full tensors (the same on every rank) or DTensors on
+    ``mesh.device_mesh``; C is a DTensor sharded ``(axis_a, axis_b)``.
+    Rank (i, j) starts from the skewed blocks A[i, i+j] and B[i+j, j] (A
+    shifted left by i, B up by j), then N times adds its local product
+    (:func:`~repro_torch.models.layers.ops_matmul`, rounded to the operand
+    dtype) into an fp32 accumulator and passes A left and B up one block
+    (not after the last product); C is the accumulator cast back to the
+    operand dtype. A 1×1 grid sends nothing.
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    n = mesh.shape[axis_a]
+    if mesh.shape[axis_b] != n:
+        raise ValueError(f"Cannon needs a square grid, got {mesh.shape}")
+    if a.shape[0] % n or a.shape[1] % n or b.shape[1] % n:
+        raise ValueError("matrix dims must divide the grid (paper pads zeros)")
+    dmesh = mesh.device_mesh
+    if dmesh is None:
+        raise ValueError("cannon_matmul needs a mesh over a rank group")
+    names = mesh.axis_names
+    ia, ib = names.index(axis_a), names.index(axis_b)
+    coord = dmesh.get_coordinate()
+    i, j = int(coord[ia]), int(coord[ib])
+    place = [Replicate()] * len(names)
+    place[ia], place[ib] = Shard(0), Shard(1)
+    place = tuple(place)
+    a_blk = _local_block(a, i, j, n, dmesh, place)
+    b_blk = _local_block(b, i, j, n, dmesh, place)
+
+    def rank_at(ci: int, cj: int) -> int:
+        pos = list(coord)
+        pos[ia], pos[ib] = ci % n, cj % n
+        return int(dmesh.mesh[tuple(pos)])
+
+    # initial skew: A left by i (row i), B up by j (column j)
+    if n > 1 and (i or j):
+        pairs = []
+        if i:
+            pairs.append((a_blk, rank_at(i, j - i), rank_at(i, j + i)))
+        if j:
+            pairs.append((b_blk, rank_at(i - j, j), rank_at(i + j, j)))
+        got = _exchange(pairs)
+        if i:
+            a_blk = got.pop(0)
+        if j:
+            b_blk = got.pop(0)
+    acc = torch.zeros((a_blk.shape[0], b_blk.shape[1]), dtype=torch.float32,
+                      device=a_blk.device)
+    for step in range(n):
+        acc += ops_matmul(a_blk, b_blk).float()
+        if step < n - 1:
+            a_blk, b_blk = _exchange([(a_blk, rank_at(i, j - 1), rank_at(i, j + 1)),
+                                      (b_blk, rank_at(i - 1, j), rank_at(i + 1, j))])
+    c = acc.to(a_blk.dtype)
+    shape = (a.shape[0], b.shape[1])
+    return DTensor.from_local(c, dmesh, place, run_check=False, shape=torch.Size(shape),
+                              stride=(shape[1], 1))
 
 
 def _check_dims(n: int, m_blocks: int, n_grid: int) -> tuple[int, int]:
@@ -181,21 +283,34 @@ def _split_grid(block: torch.Tensor, n_grid: int) -> list[torch.Tensor]:
             for ci in range(n_grid) for cj in range(n_grid)]
 
 
-def make_cannon_step(m_blocks: int, n_grid: int = 1):
+def _inner(n_grid: int, mesh: Any, axis_a: str, axis_b: str):
+    """The per-hyperstep product of the assembled outer blocks: Cannon over
+    ``mesh``'s ranks, gathered to every rank (N > 1 with a mesh), else the
+    local product."""
+    if mesh is not None and n_grid > 1:
+        return lambda x, y: cannon_matmul(x, y, mesh=mesh, axis_a=axis_a,
+                                          axis_b=axis_b).full_tensor()
+    return ops_matmul
+
+
+def make_cannon_step(m_blocks: int, n_grid: int = 1, *, mesh: Any = None,
+                     axis_a: str = "data", axis_b: str = "model"):
     """The per-hyperstep inner BSP program of two-level Cannon (measure mode).
 
     State is ``(s, acc)`` — the position within the current outer product and
     the accumulated C block (the plan's ``C_acc`` scratch). Each hyperstep
-    assembles the cores' A/B tokens into the outer block, runs the local
-    product and accumulates; when s wraps, the finished C block is split
-    back into per-core tokens for the runner's write-back lanes. The pieces
-    stay on the device: the lanes copy them up, so the step never waits for
-    the card.
+    assembles the cores' A/B tokens into the outer block, runs the inner
+    Cannon (:func:`cannon_matmul` on ``mesh``; the local product when
+    ``mesh`` is None or the grid is 1×1) and accumulates; when s wraps, the
+    finished C block is split back into per-core tokens for the runner's
+    write-back lanes. The pieces stay on the device: the lanes copy them
+    up, so the step never waits for the card.
     """
+    inner = _inner(n_grid, mesh, axis_a, axis_b)
 
     def step(state, toks):
         s, acc = state
-        part = ops_matmul(_assemble_grid(toks[0], n_grid), _assemble_grid(toks[1], n_grid))
+        part = inner(_assemble_grid(toks[0], n_grid), _assemble_grid(toks[1], n_grid))
         acc = part if acc is None else acc + part
         if s == m_blocks - 1:
             return (0, None), [_split_grid(acc, n_grid)]
@@ -204,7 +319,8 @@ def make_cannon_step(m_blocks: int, n_grid: int = 1):
     return step
 
 
-def make_cannon_step_compiled(m_blocks: int, n_grid: int = 1):
+def make_cannon_step_compiled(m_blocks: int, n_grid: int = 1, *, mesh: Any = None,
+                              axis_a: str = "data", axis_b: str = "model"):
     """The compiled-mode twin of :func:`make_cannon_step`.
 
     State is ``(s, acc)`` with ``s`` a host position counter (no device
@@ -212,13 +328,14 @@ def make_cannon_step_compiled(m_blocks: int, n_grid: int = 1):
     outer product begins; the per-core C pieces are returned *every*
     hyperstep, and the runner's ``out_every`` flush mask keeps only the ones
     where the outer product completes. Initial state comes from
-    :func:`cannon_compiled_state`.
+    :func:`cannon_compiled_state`; ``mesh`` as in :func:`make_cannon_step`.
     """
+    inner = _inner(n_grid, mesh, axis_a, axis_b)
 
     def step(state, toks):
         s, acc = state
-        part = ops_matmul(_assemble_grid(toks[0], n_grid),
-                          _assemble_grid(toks[1], n_grid)).to(acc.dtype)
+        part = inner(_assemble_grid(toks[0], n_grid),
+                     _assemble_grid(toks[1], n_grid)).to(acc.dtype)
         acc = part if s == 0 else acc + part
         return ((s + 1) % m_blocks, acc), [_split_grid(acc, n_grid)]
 
@@ -256,6 +373,7 @@ def make_cannon_runner(
     m_blocks: int,
     *,
     n_grid: int = 1,
+    mesh: Any = None,
     machine=None,
     plan: StreamPlan | None = None,
     compiled: bool = True,
@@ -269,7 +387,9 @@ def make_cannon_runner(
     tensors (bf16 operands have no numpy dtype); a pinned CPU tensor lets
     the measure-mode lanes copy tokens to the card without staging them
     through pinned memory first. ``device`` is where the tokens are staged
-    and multiplied: the card unless the caller names the CPU.
+    and multiplied: the card unless the caller names the CPU. ``mesh`` (a
+    mesh over a rank group whose ``data`` and ``model`` axes are the N×N
+    grid) runs the inner product as :func:`cannon_matmul` over its ranks.
 
     Reusable across runs — repeated ``runner.run(state,
     num_hypersteps=m_blocks**3, compiled=...)`` calls replay the product.
@@ -283,6 +403,11 @@ def make_cannon_runner(
         raise ValueError(f"need square same-shape matrices, got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
     _check_dims(n, m_blocks, n_grid)
+    if mesh is not None and n_grid > 1:
+        shape = dict(mesh.shape)
+        if shape.get("data") != n_grid or shape.get("model") != n_grid:
+            raise ValueError(
+                f"mesh shape {shape} does not match the {n_grid}×{n_grid} grid")
     device = resolve_device(device)
     dtype = _dtype_of(a)
     if plan is None:
@@ -291,10 +416,10 @@ def make_cannon_runner(
         a, b = np.asarray(a), np.asarray(b)
     ins, outs, _ = cannon_streams(a, b, m_blocks, n_grid)
     if compiled:
-        step = make_cannon_step_compiled(m_blocks, n_grid)
+        step = make_cannon_step_compiled(m_blocks, n_grid, mesh=mesh)
         state0: Any = cannon_compiled_state(n, m_blocks, dtype, device)
     else:
-        step = make_cannon_step(m_blocks, n_grid)
+        step = make_cannon_step(m_blocks, n_grid, mesh=mesh)
         state0 = (0, None)
     runner = HyperstepRunner(
         step,
@@ -317,6 +442,7 @@ def two_level_cannon(
     m_blocks: int,
     *,
     n_grid: int = 1,
+    mesh: Any = None,
     machine=None,
     plan: StreamPlan | None = None,
     compiled: bool = True,
@@ -325,9 +451,10 @@ def two_level_cannon(
     """C = A·B per Algorithm 2 on a (virtual) N×N core grid; returns (C, runner).
 
     The full paper construction: an outer hyperstep loop streaming M×M outer
-    blocks (Σ^A re-read M times via ``MOVE``), the local product on the
-    assembled block as the per-hyperstep BSP program, C flushed up once per
-    outer product. By default the whole loop runs as one compiled replay
+    blocks (Σ^A re-read M times via ``MOVE``), the inner Cannon over
+    ``mesh``'s ranks (the local product on the assembled block without a
+    mesh or on a 1×1 grid) as the per-hyperstep BSP program, C flushed up
+    once per outer product. By default the whole loop runs as one compiled replay
     (``HyperstepRunner.compile`` — the MOVE schedule becomes static gather
     indices over streams staged once on the device); pass ``compiled=False``
     for the instrumented host loop with per-hyperstep records. With
@@ -337,7 +464,7 @@ def two_level_cannon(
     """
     n = a.shape[0]
     runner, outs, state0 = make_cannon_runner(
-        a, b, m_blocks, n_grid=n_grid, machine=machine, plan=plan,
+        a, b, m_blocks, n_grid=n_grid, mesh=mesh, machine=machine, plan=plan,
         compiled=compiled, device=device)
     # explicit count: the seek-based MOVE reuse means the naive stream budget
     # (M² A tokens) undercounts the M³ hypersteps the walk actually performs

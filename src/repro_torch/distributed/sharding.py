@@ -18,13 +18,19 @@ carries a scanned period axis and no spec gets the JAX package's leading
 divisible by the axis size, falling back to the next alternative axis or
 replication — e.g. minicpm's vocab 122753 stays unsharded.
 
-Placing tensors on a real mesh (the JAX package's ``named`` and
-``logical_to_sharding``) is not ported yet.
+:func:`named` maps a resolved spec to DTensor placements, one per mesh
+dim — the counterpart of JAX's ``NamedSharding`` — and
+:func:`logical_to_sharding` places a tree on a rank group's mesh
+(:attr:`repro_torch.launch.mesh.Mesh.device_mesh`) as DTensors, each rank
+slicing its own shard from the full tensor it holds, with no communication.
+An entry naming several axes on one dim shards in the entry's order; DTensor
+shards a dim over several mesh dims in mesh order, so an entry whose order
+is not the mesh's is refused.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 
@@ -40,7 +46,7 @@ from repro_torch.distributed.shardspec import (
 )
 
 __all__ = ["dp_axes", "axis_size", "param_specs", "batch_spec", "cache_specs",
-           "opt_state_specs"]
+           "opt_state_specs", "spec_placements", "named", "logical_to_sharding"]
 
 
 def axis_size(mesh: Any, axes: str | tuple[str, ...] | None) -> int:
@@ -105,3 +111,68 @@ def cache_specs(cfg: ModelConfig, mesh: Any, shape: ShapeSpec, cache_shape: Any)
 def opt_state_specs(param_spec_tree: Any) -> Any:
     """Adam moments share their parameter's spec (2-D sharded ⇒ ZeRO-ish)."""
     return param_spec_tree
+
+
+def spec_placements(spec: P, axis_names: Sequence[str]) -> tuple:
+    """The DTensor placements of ``spec`` over a mesh whose dims are
+    ``axis_names``: ``Shard(d)`` on each mesh dim an entry of dim ``d``
+    names, ``Replicate()`` on the others.
+
+    Raises ``ValueError`` for an axis not on the mesh, an axis named twice,
+    or an entry whose axes are not in mesh order (DTensor would shard that
+    dim in another order than the spec says)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(axis_names)
+    out: list[Any] = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        missing = [a for a in axes if a not in names]
+        if missing:
+            raise ValueError(f"spec {spec} names {missing}, not on the mesh {names}")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(
+                f"spec {spec} shards dim {d} over {axes}, not in the mesh's order {names}: "
+                "DTensor shards a dim over several mesh dims in mesh order")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec} names mesh axis {names[i]!r} twice")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def _map_specs(fn, specs: Any, *trees: Any) -> Any:
+    """``fn(spec, *leaves)`` over a spec tree (a :class:`P` is a leaf) and
+    trees of the same structure."""
+    if isinstance(specs, P):
+        return fn(specs, *trees)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, *(t[k] for t in trees)) for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(_map_specs(fn, v, *(t[i] for t in trees))
+                           for i, v in enumerate(specs))
+    raise TypeError(f"not a spec tree leaf: {specs!r}")
+
+
+def named(mesh: Any, spec_tree: Any) -> Any:
+    """Each spec of ``spec_tree`` as its DTensor placements on ``mesh``."""
+    return _map_specs(lambda s: spec_placements(s, mesh.axis_names), spec_tree)
+
+
+def logical_to_sharding(mesh: Any, tree: Any, specs: Any) -> Any:
+    """``tree`` placed on ``mesh``'s ranks by ``specs``: each leaf (the full
+    tensor, the same on every rank) becomes a DTensor holding this rank's
+    shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if mesh.device_mesh is None:
+        raise ValueError("placing tensors needs a mesh over a rank group "
+                         "(repro_torch.distributed.group.start, then make_host_mesh)")
+    dmesh = mesh.device_mesh
+    return _map_specs(
+        lambda s, leaf: distribute_tensor(leaf, dmesh, spec_placements(s, mesh.axis_names),
+                                          src_data_rank=None),
+        specs, tree)

@@ -8,6 +8,12 @@ data=16, model=16)`` — so specs for it resolve on any machine. The host
 meshes lay out the CUDA devices that exist (``devices``, a numpy array of
 ``torch.device`` in the mesh's shape), and validate as the JAX package's
 do: every factor must divide the device count, so no device is dropped.
+
+Inside a rank group (:mod:`repro_torch.distributed.group`: one process per
+rank) the host meshes lay out the group's ranks instead, one device per
+rank, with the same divisibility errors; such a mesh carries the group's
+``device_mesh`` (a ``torch.distributed`` ``DeviceMesh`` of the same shape),
+which tensors are placed on.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -29,6 +36,8 @@ class Mesh:
 
     shape: dict[str, int]
     devices: Any = None
+    #: the ``DeviceMesh`` over the group's ranks; None outside a rank group
+    device_mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -39,13 +48,20 @@ class Mesh:
         return int(np.prod(list(self.shape.values()), dtype=np.int64))
 
 
-def _mesh(sizes: tuple[int, ...], axes: tuple[str, ...], devices: list | None = None) -> Mesh:
+def _mesh(sizes: tuple[int, ...], axes: tuple[str, ...], devices: list | None = None,
+          ranks: bool = False) -> Mesh:
     grid = None
     if devices is not None:
         grid = np.empty(len(devices), dtype=object)
         grid[:] = devices
         grid = grid.reshape(sizes)
-    return Mesh(dict(zip(axes, sizes)), grid)
+    shape = dict(zip(axes, sizes))
+    dmesh = None
+    if ranks:
+        from repro_torch.distributed.group import device_mesh
+
+        dmesh = device_mesh(shape)
+    return Mesh(shape, grid, dmesh)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -55,12 +71,24 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return _mesh(shape, axes)
 
 
-def _devices(device: Any) -> list[torch.device]:
-    """The devices a host mesh spans: every CUDA device, or the one CPU."""
+def _devices(device: Any) -> tuple[list[torch.device], bool]:
+    """The devices a host mesh spans and whether they are a rank group's:
+    one per rank inside a group (on the group's device type: asking for
+    another raises), else every CUDA device, or the one CPU."""
+    if dist.is_initialized():
+        from repro_torch.distributed.group import rank_device
+
+        kind = rank_device().type
+        if device is not None and torch.device(device).type != kind:
+            raise ValueError(f"the rank group computes on {kind}, not {torch.device(device)}")
+        n = dist.get_world_size()
+        if kind == "cuda":
+            return [torch.device("cuda", r % torch.cuda.device_count()) for r in range(n)], True
+        return [torch.device("cpu")] * n, True
     device = resolve_device(device)
     if device.type == "cuda":
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [device]
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())], False
+    return [device], False
 
 
 def make_host_mesh(model: int | None = None, *, device: Any = None) -> Mesh:
@@ -69,7 +97,7 @@ def make_host_mesh(model: int | None = None, *, device: Any = None) -> Mesh:
     ``model`` must divide the device count exactly: silently flooring
     ``n // model`` would drop devices from the mesh.
     """
-    devs = _devices(device)
+    devs, ranks = _devices(device)
     n = len(devs)
     model = model or 1
     if model > n:
@@ -78,7 +106,7 @@ def make_host_mesh(model: int | None = None, *, device: Any = None) -> Mesh:
         raise ValueError(
             f"model={model} does not divide the {n} available device(s); "
             f"a ({n // model}, {model}) mesh would drop {n % model} of them")
-    return _mesh((n // model, model), ("data", "model"), devs)
+    return _mesh((n // model, model), ("data", "model"), devs, ranks)
 
 
 def make_host_core_mesh(hosts: int, *, model: int | None = None, device: Any = None) -> Mesh:
@@ -87,7 +115,7 @@ def make_host_core_mesh(hosts: int, *, model: int | None = None, device: Any = N
     ``host`` axis joins the DP axes (``shardspec.dp_axes``), so the traffic
     crossing it is what ``host_h_relation`` charges. Every factor must
     divide, as in :func:`make_host_mesh`."""
-    devs = _devices(device)
+    devs, ranks = _devices(device)
     n = len(devs)
     if hosts <= 0:
         raise ValueError(f"hosts must be positive, got {hosts}")
@@ -103,4 +131,4 @@ def make_host_core_mesh(hosts: int, *, model: int | None = None, device: Any = N
         raise ValueError(
             f"model={model} does not divide the {per_host} device(s) per host; "
             f"would drop {per_host % model} of them")
-    return _mesh((hosts, per_host // model, model), ("host", "data", "model"), devs)
+    return _mesh((hosts, per_host // model, model), ("host", "data", "model"), devs, ranks)

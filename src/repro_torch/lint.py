@@ -14,8 +14,8 @@ an aliased up-stream, a blown budget) fails before it reaches a launch.
 Targets are registered explicitly: each is the plan its constructor makes at
 the shapes given here. The kernels' targets are their launch plans (the
 matmul at every variant's tile, the scan's forward with its tape and its
-backward). The JAX package's ``examples/bsps_spmv`` target waits for the
-port's examples.
+backward); the examples' targets are the plans the port's examples build
+(:mod:`repro_torch.examples`).
 
 Run: ``PYTHONPATH=src python -m repro_torch.lint [--check] [--device cpu]``
 """
@@ -72,6 +72,33 @@ def _lint_cannon(machine, device) -> list[Diagnostic]:
     b = np.ones((16, 16), np.float32)
     runner, _, _ = make_cannon_runner(a, b, m_blocks, machine=machine, device=device)
     return verify_runner(runner, num_hypersteps=m_blocks ** 3)
+
+
+@target("distributed/cannon:two_level_mesh")
+def _lint_cannon_mesh(machine, device) -> list[Diagnostic]:
+    """The Cannon runner given ``mesh=`` at a 1×1 grid: the plan and MOVE
+    walk it verifies are the mesh-free runner's."""
+    import numpy as np
+
+    from repro_torch.core.verify import verify_runner
+    from repro_torch.distributed.cannon import make_cannon_runner
+    from repro_torch.launch.mesh import Mesh
+
+    m_blocks = 2
+    a = np.ones((16, 16), np.float32)
+    runner, _, _ = make_cannon_runner(a, a, m_blocks, mesh=Mesh({"data": 1, "model": 1}),
+                                      machine=machine, device=device)
+    return verify_runner(runner, num_hypersteps=m_blocks ** 3)
+
+
+@target("examples/bsps_spmv:ell_blocks")
+def _lint_spmv(machine, device) -> list[Diagnostic]:
+    from repro_torch.core.verify import verify_runner
+    from repro_torch.examples import bsps_spmv
+
+    cols, vals, x = bsps_spmv.make_ell_blocks(64, 0.1, block_rows=16)
+    runner, _, _ = bsps_spmv.make_spmv_runner(cols, vals, x, machine, device=device)
+    return verify_runner(runner)
 
 
 @target("core/plan:packed_decode")

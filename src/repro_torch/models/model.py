@@ -235,6 +235,7 @@ def loss_fn(
     embeds: torch.Tensor | None = None,
     positions: torch.Tensor | None = None,
     aux_weight: float = 0.01,
+    denom: torch.Tensor | None = None,
     device: Any = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Causal-LM cross entropy (+ MoE aux). labels = next-token ids, -1 = pad.
@@ -244,6 +245,8 @@ def loss_fn(
     and ``ce + aux_weight·aux``. The true logit is gathered, where the
     reference contracts with a one-hot (the same value: one product of 1.0,
     the rest of 0.0). Returns ``(total, {"loss", "ce", "moe_aux"})``.
+    ``denom`` replaces the count of labelled positions the CE sum is divided
+    by: a data-parallel rank passes the count over every rank's shard.
     """
     logits, aux = forward(cfg, params, tokens, embeds=embeds, positions=positions,
                           device=device)
@@ -254,7 +257,7 @@ def loss_fn(
     lse = torch.logsumexp(logits, dim=-1)
     true_logit = logits.gather(-1, safe[..., None])[..., 0]
     nll = lse - true_logit
-    denom = torch.clamp(valid.sum(), min=1)
+    denom = torch.clamp(valid.sum() if denom is None else denom, min=1)
     ce = torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
     total = ce + aux_weight * aux
     return total, {"loss": total, "ce": ce, "moe_aux": aux}

@@ -8,8 +8,11 @@ back weighted by the renormalised router probabilities. Shared experts run
 densely on every token. The Switch load-balancing loss is returned beside
 the output.
 
-The JAX package dispatches per data-parallel group of a mesh; the port has
-no mesh, so it runs one group. The router is fp32 whatever the config's
+Dispatch runs per data-parallel group, as in the JAX package: ``G`` =
+:func:`repro_torch.distributed.ctx.dp_size` groups of B/G contiguous rows
+when G divides B, else one; the capacity is per group and the aux loss the
+mean over the groups. Inside an explicit data-parallel step each rank holds
+one group (``ctx.shard_local``). The router is fp32 whatever the config's
 dtype. The combine gathers each token's k contributions and adds them in
 expert order — the order of the reference's scatter of expert-sorted
 updates — with no atomics, so two runs on the card agree bit for bit.
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.models.layers import _dense_init
 
 Params = dict[str, Any]
@@ -137,18 +141,25 @@ def _combine(out: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor,
 
 def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss). Top-k routed + shared experts, one
-    dispatch group; overflow beyond the capacity is dropped."""
+    dispatch per DP group; overflow beyond a group's capacity is dropped."""
     b, s, d = x.shape
-    t = b * s
+    g = ctx.dp_size()
+    if g <= 1 or b % g != 0:
+        g = 1
+    t = (b // g) * s
     capacity = max(1, int(math.ceil(t * cfg.moe_top_k / cfg.moe_experts
                                     * cfg.moe_capacity_factor)))
-    xt = x.reshape(t, d)
-    buf, (slot, top_p, top_e), aux = _dispatch_group(cfg, p["router"], xt, capacity)
-    out_e = torch.matmul(_act(cfg, p, buf, "w_"), p["w_down"])         # (E, cap, d)
-    y = _combine(out_e.reshape(-1, d), slot, top_p, top_e, x.dtype)
+    ys, auxes = [], []
+    for xg in x.reshape(g, t, d):
+        buf, (slot, top_p, top_e), aux = _dispatch_group(cfg, p["router"], xg, capacity)
+        out_e = torch.matmul(_act(cfg, p, buf, "w_"), p["w_down"])     # (E, cap, d)
+        ys.append(_combine(out_e.reshape(-1, d), slot, top_p, top_e, x.dtype))
+        auxes.append(aux)
+    y = torch.cat(ys)
     if cfg.moe_shared_experts:
+        xt = x.reshape(b * s, d)
         y = y + torch.matmul(_act(cfg, p, xt, "shared_"), p["shared_down"]).to(x.dtype)
-    return y.reshape(b, s, d), aux
+    return y.reshape(b, s, d), torch.stack(auxes).mean()
 
 
 def moe_forward_dense(cfg: ModelConfig, p: Params,

@@ -62,13 +62,17 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
-    def update(self, grads: Params, state: dict[str, Any],
-               params: Params) -> tuple[Params, dict[str, Any], dict[str, torch.Tensor]]:
+    def update(self, grads: Params, state: dict[str, Any], params: Params, *,
+               gnorm: torch.Tensor | None = None,
+               ) -> tuple[Params, dict[str, Any], dict[str, torch.Tensor]]:
         """Returns (params, state, {"grad_norm", "lr"}); ``params`` and the
-        state's moments are updated in place."""
+        state's moments are updated in place. ``gnorm`` is the norm the
+        gradients are clipped by, where ``grads`` are one rank's shards of
+        the gradient (default: ``global_norm(grads)``)."""
         step = state["step"] + 1
         lr = self.schedule(step).to(torch.float32)
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = None
         if self.grad_clip > 0:
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)

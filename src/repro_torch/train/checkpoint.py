@@ -29,7 +29,15 @@ The port's AdamW updates parameters and moments in place, so a snapshot
 *copies* every tensor (on the CPU ``Tensor.numpy()`` would alias it, and
 the next step would rewrite a snapshot not yet flushed). ``restore`` puts
 each array on its template tensor's device and dtype, or with
-``copy_into=True`` copies it into the template's tensors.
+``copy_into=True`` copies it into the template's tensors, or hands each
+group's tree to a ``sharder`` that places it on the current mesh (elastic
+restore: the files hold full arrays, whatever mesh wrote them).
+
+Inside a rank group a state of DTensors saves as an unsharded one would:
+every rank gathers each leaf (``full_tensor()``), rank 0 alone writes the
+same files, and the other ranks wait at a barrier for its commit, so a
+sharded save is always blocking. Only rank 0 writes a snapshot that comes
+down a :class:`CheckpointStream`.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.stream import StreamOwnership
 
@@ -65,8 +74,21 @@ def _items(tree: Any, path: tuple = ()) -> Iterator[tuple[str, Any]]:
         yield "/".join(str(p) for p in path), tree
 
 
+def _writer() -> bool:
+    """False on every rank of a rank group but rank 0, which writes the
+    group's checkpoints."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _sharded(tree: Any) -> bool:
+    return any(hasattr(leaf, "full_tensor") for _, leaf in _items(tree))
+
+
 def _host_copy(leaf: Any) -> np.ndarray:
-    """A host numpy copy of one leaf; bf16 becomes float32 (npz has none)."""
+    """A host numpy copy of one leaf (a DTensor gathered whole first: every
+    rank must take part); bf16 becomes float32 (npz has none)."""
+    if hasattr(leaf, "full_tensor"):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         dtype = torch.float32 if leaf.dtype == torch.bfloat16 else leaf.dtype
         return leaf.detach().to("cpu", dtype, copy=True).numpy()
@@ -129,11 +151,17 @@ def save(
     ``state`` maps group names to trees of tensors, or is already a host
     :func:`snapshot` (its flat dicts pass through). The host copy is taken
     before this returns; with ``blocking=False`` the files are written on a
-    ``ckpt-writer`` thread, which is returned.
+    ``ckpt-writer`` thread, which is returned. A state holding DTensors is
+    saved by every rank of the group together (see the module docstring).
     """
-    os.makedirs(directory, exist_ok=True)
+    sharded = any(not _is_snapshot(v) and _sharded(v) for v in state.values())
     # host copy — after this, training may update the tensors freely
     host = {k: v if _is_snapshot(v) else _flat(v) for k, v in state.items()}
+    if not _writer():
+        if sharded:
+            dist.barrier()       # rank 0's commit
+        return None
+    os.makedirs(directory, exist_ok=True)
 
     def _write() -> None:
         tmp = os.path.join(directory, f"step_{step:08d}.tmp")
@@ -159,8 +187,10 @@ def save(
         os.rename(tmp, final)  # the commit point
         _fsync_dir(directory)   # make the rename itself durable
 
-    if blocking:
+    if blocking or sharded:
         _write()
+        if sharded:
+            dist.barrier()
         return None
     t = threading.Thread(target=_write, daemon=False, name="ckpt-writer")
     t.start()
@@ -250,6 +280,7 @@ def restore(
     step: int,
     state_like: dict[str, Any],
     *,
+    sharder: Callable[[str, Any], Any] | None = None,
     verify: bool = True,
     copy_into: bool = False,
 ) -> tuple[dict[str, Any], dict[str, Any]]:
@@ -259,10 +290,19 @@ def restore(
     dtype (a numpy leaf gives its dtype). ``copy_into=True`` copies each
     array into the template's tensor instead of making a new one, so a
     restore needs no second copy of the state in device memory.
+    ``sharder(group, tree) -> placed_tree`` is called with each group's
+    tree of full tensors and places it on the current mesh (elastic
+    restore: any mesh shape, whatever mesh wrote the files).
     """
+    if sharder is not None and copy_into:
+        raise ValueError("restore: a sharder places new tensors; copy_into writes the "
+                         "template's, give one or the other")
     flat, data_state = _load(directory, step, state_like, verify)
-    return ({group: _unflat(like, flat[group], copy_into)
-             for group, like in state_like.items()}, data_state)
+    out = {}
+    for group, like in state_like.items():
+        tree = _unflat(like, flat[group], copy_into)
+        out[group] = sharder(group, tree) if sharder else tree
+    return out, data_state
 
 
 def restore_latest(directory: str, state_like: dict[str, Any], *,
@@ -397,9 +437,10 @@ class CheckpointStream(StreamOwnership):
         if token is None:
             return 0
         step, host_state, data_state = token
-        save(self.directory, step, host_state, data_state=data_state,
-             blocking=True)
-        _retention_gc(self.directory, self.keep)
+        if _writer():
+            save(self.directory, step, host_state, data_state=data_state,
+                 blocking=True)
+            _retention_gc(self.directory, self.keep)
         return self._words
 
     # -- plan protocol (host_plan pricing) -----------------------------------

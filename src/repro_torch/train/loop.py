@@ -37,8 +37,15 @@ at the hyperstep boundary so prefetch lookahead can't skew it); straggler
 monitor flags steps whose wall time is a >3σ outlier of the EWMA (measure
 mode only: compiled mode has no per-step wall times).
 
-Not ported: the reference's ``mesh=`` (a sharded job, priced at the host
-level) and ``jit_kwargs=``; the card is one device.
+``mesh=`` (a mesh over a rank group, :mod:`repro_torch.distributed.group`)
+runs the job sharded, one process per rank: the mesh's axes registered in
+:mod:`repro_torch.distributed.ctx`, parameters and moments placed as
+DTensors by the declarative rules, each step the explicit ZeRO-3 step of
+:func:`repro_torch.train.steps.make_sharded_train_step` (each DP rank on its
+block of the batch's rows, in both modes), checkpoints gathered and written
+by rank 0 and restored through a ``sharder``; with a ``host`` axis the plan
+is priced at the third level too. The reference's ``jit_kwargs=`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -48,10 +55,11 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bsp import BSPAccelerator
-from repro_torch.core.calibrate import calibrate
+from repro_torch.core.calibrate import calibrate, calibrate_host_level
 from repro_torch.core.calibstore import get_default_store, plan_band
 from repro_torch.core.health import HealthMonitor
 from repro_torch.core.hyperstep import HyperstepRunner
@@ -59,10 +67,11 @@ from repro_torch.core.plan import host_plan
 from repro_torch.core.stream import Stream
 from repro_torch.data.pipeline import BatchStream, DataConfig, TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.distributed import ctx
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW, leaves
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.steps import TRAIN_METRICS, make_train_step
+from repro_torch.train.steps import TRAIN_METRICS, make_sharded_train_step, make_train_step
 
 __all__ = ["TrainConfig", "StragglerMonitor", "train"]
 
@@ -219,6 +228,8 @@ def _train_compiled(
     faults: Any | None = None,
     health: Any | None = None,
     calibstore: Any | None = None,
+    host_comm_words: float = 0.0,
+    host_supersteps: float = 0.0,
 ) -> tuple[Any, Any, dict[str, float]]:
     """Run training as compiled runs, one per checkpoint interval.
 
@@ -251,7 +262,9 @@ def _train_compiled(
                 token_size=1, name="metrics")
             plan = host_plan(
                 [batches], out_streams=[metrics_out],
-                flops_per_hyperstep=hyperstep_flops, name=f"train_{cfg.name}")
+                flops_per_hyperstep=hyperstep_flops, name=f"train_{cfg.name}",
+                host_comm_words_per_hyperstep=host_comm_words,
+                host_supersteps_per_hyperstep=host_supersteps)
             runners[seg] = (
                 HyperstepRunner(hyperstep, [batches],
                                 out_streams=[metrics_out],
@@ -338,14 +351,56 @@ def train(
     ``machine`` is the :class:`BSPAccelerator` the run is priced on (default:
     a fast calibration of ``device``) — the returned ``plan_row`` is the
     runner's predicted-vs-measured table row. ``batch_putter`` is the
-    :class:`BatchStream`'s ``put_fn`` (host loop only). ``mesh`` is not
-    ported and raises.
+    :class:`BatchStream`'s ``put_fn`` (host loop only).
+
+    ``mesh`` (a mesh over a rank group, every rank calling ``train`` alike)
+    runs the whole job sharded under that mesh: parameters and optimizer
+    moments are placed by the declarative rules
+    (:mod:`repro_torch.distributed.shardspec`), each step is
+    :func:`~repro_torch.train.steps.make_sharded_train_step`, and if the
+    mesh has a ``host`` axis the plan is priced at the third level too —
+    ``(g_host, l_host)`` calibrated over real collectives
+    (:func:`calibrate_host_level`), the h-relation derived from the same
+    resolved specs the step places by
+    (:func:`~repro_torch.distributed.shardspec.host_h_relation`), so
+    ``plan_row["predicted_seconds"]`` is the full recursion ``T_device +
+    g_host·h_host + l_host·s_host``. ``device`` must be the group's device
+    type.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...) is not ported: the mesh-bound modules wait for "
-            "ROADMAP.md Queue 1 item 5")
+        with ctx.mesh_axes(dict(mesh.shape)):
+            return _train_body(cfg, tcfg, opt, batch_putter=batch_putter, data_cfg=data_cfg,
+                               machine=machine, mesh=mesh, log=log, faults=faults,
+                               calibstore=calibstore, device=device)
+    return _train_body(cfg, tcfg, opt, batch_putter=batch_putter, data_cfg=data_cfg,
+                       machine=machine, mesh=None, log=log, faults=faults,
+                       calibstore=calibstore, device=device)
+
+
+def _train_body(
+    cfg: ModelConfig,
+    tcfg: TrainConfig,
+    opt: AdamW,
+    *,
+    batch_putter: Callable[[dict], dict] | None,
+    data_cfg: DataConfig | None,
+    machine: BSPAccelerator | None,
+    mesh: Any | None,
+    log: Callable[[str], None],
+    faults: Any | None,
+    calibstore: Any | None,
+    device: Any,
+) -> dict[str, Any]:
     device = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.distributed.group import rank_device
+
+        if mesh.device_mesh is None:
+            raise ValueError("train(mesh=...) needs a mesh over a rank group "
+                             "(repro_torch.distributed.group.start, then make_host_mesh)")
+        if device.type != rank_device().type:
+            raise ValueError(f"train: device {device} is not the rank group's "
+                             f"{rank_device()}")
     data_cfg = data_cfg or DataConfig(
         vocab_size=cfg.vocab_size, seq_len=512, global_batch=8, seed=tcfg.seed)
     if calibstore is None:
@@ -361,18 +416,47 @@ def train(
     params = M.init_params(cfg, tcfg.seed, device=device)
     opt_state = opt.init(params)
     start_step = 0
+    host_comm_words = 0.0
+    host_supersteps = 0.0
+    restore_kw: dict[str, Any] = {"copy_into": True}
+    if mesh is not None:
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.distributed.shardspec import P, host_h_relation
+
+        specs = sh.param_specs(cfg, mesh, params)
+        state_specs = {"params": specs, "opt_state": {"m": specs, "v": specs, "step": P()}}
+
+        def place(group: str, tree: Any) -> Any:
+            """A checkpoint group's tree on the mesh (the restore's ``sharder``)."""
+            return sh.logical_to_sharding(mesh, tree, state_specs[group])
+
+        params, opt_state = place("params", params), place("opt_state", opt_state)
+        restore_kw = {"sharder": place}
+        machine = machine or calibrate(fast=True, device=device)
+        if "host" in mesh.axis_names:
+            machine = calibrate_host_level(machine, mesh)
+            hrel = host_h_relation(mesh, specs, params)
+            host_comm_words = hrel["h_words"]
+            host_supersteps = hrel["supersteps"]
+            log(f"[mesh] hosts={hrel['hosts']} h_words/step="
+                f"{host_comm_words:.3g} g_host={machine.g_host:.3g} "
+                f"l_host={machine.l_host:.3g}")
 
     if tcfg.ckpt_dir:
         resumed = ckpt.restore_latest(
             tcfg.ckpt_dir, {"params": params, "opt_state": opt_state},
-            on_corrupt=on_corrupt, copy_into=True)
+            on_corrupt=on_corrupt, **restore_kw)
         if resumed is not None:
             start_step, state, data_state = resumed
             params, opt_state = state["params"], state["opt_state"]
             stream.load_state_dict(data_state)        # seek — the BSPS restart
             log(f"[resume] step {start_step}, stream cursor {stream.cursor}")
 
-    step_fn = make_train_step(cfg, opt, aux_weight=tcfg.aux_weight, device=device)
+    if mesh is not None:
+        step_fn = make_sharded_train_step(cfg, opt, mesh, specs, aux_weight=tcfg.aux_weight,
+                                          device=device)
+    else:
+        step_fn = make_train_step(cfg, opt, aux_weight=tcfg.aux_weight, device=device)
     monitor = StragglerMonitor()
     history: list[dict[str, float]] = []
     plan_row: dict[str, float] | None = None
@@ -400,6 +484,8 @@ def train(
             [batches], out_streams=out_streams, out_every=out_every,
             flops_per_hyperstep=_hyperstep_flops(cfg, data_cfg),
             name=f"train_{cfg.name}",
+            host_comm_words_per_hyperstep=host_comm_words,
+            host_supersteps_per_hyperstep=host_supersteps,
         )
 
         def hyperstep(state, tokens):
@@ -475,7 +561,8 @@ def train(
                 params, opt_state, plan_row = _train_compiled(
                     cfg, tcfg, step_fn, stream, params, opt_state, start_step,
                     history, machine, data_cfg, log, device,
-                    faults=faults, health=health, calibstore=calibstore)
+                    faults=faults, health=health, calibstore=calibstore,
+                    host_comm_words=host_comm_words, host_supersteps=host_supersteps)
             elif steps_left > 0:
                 params, opt_state, plan_row = _run_host_loop(
                     params, opt_state, start_step, steps_left)
@@ -485,13 +572,17 @@ def train(
                 raise
             resumes += 1
             log(f"[resume] crash at attempt {resumes}: {e!r}")
+            if mesh is not None:
+                dist.barrier()      # rank 0's last checkpoint is committed
             restored = ckpt.restore_latest(
                 tcfg.ckpt_dir, {"params": params, "opt_state": opt_state},
-                on_corrupt=on_corrupt, copy_into=True)
+                on_corrupt=on_corrupt, **restore_kw)
             if restored is None:
                 # nothing valid on disk: replay from scratch
                 params = M.init_params(cfg, tcfg.seed, device=device)
                 opt_state = opt.init(params)
+                if mesh is not None:
+                    params, opt_state = place("params", params), place("opt_state", opt_state)
                 start_step = initial_start = 0
                 stream.load_state_dict(stream.state_at(0))
                 del history[:]

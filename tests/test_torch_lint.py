@@ -24,6 +24,7 @@ NAMES = [name for name, _ in lint._TARGETS]
 def test_the_targets_are_the_ports_plans():
     assert NAMES == [
         "core/hyperstep:inner_product", "distributed/cannon:two_level",
+        "distributed/cannon:two_level_mesh", "examples/bsps_spmv:ell_blocks",
         "core/plan:packed_decode", "launch/engine:packed_decode", "train/loop:host_plan",
         "kernels/streamed_matmul:variants", "kernels/flash_attention:gqa",
         "kernels/streamed_dot:inner_product", "kernels/ssm_scan:chunked",

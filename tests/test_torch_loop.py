@@ -356,10 +356,14 @@ def test_train_then_checkpoint_then_generate(tmp_path):
 
 
 def test_train_refuses_a_mesh():
+    """A mesh outside a rank group (shape only) has nowhere to place the
+    state: train() refuses it before doing any work."""
+    from repro_torch.launch.mesh import make_host_mesh
+
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tloop.train(tc, tloop.TrainConfig(steps=1), AdamW(constant(1e-3)), mesh=object(),
-                    device="cpu")
+    with pytest.raises(ValueError, match="rank group"):
+        tloop.train(tc, tloop.TrainConfig(steps=1), AdamW(constant(1e-3)),
+                    mesh=make_host_mesh(device="cpu"), device="cpu")
 
 
 def test_launcher_trains_on_the_cpu(capsys):
