@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version at the shapes the serve and train
 paths give it (and ragged shapes, and the matmul's transposed operand
 layouts: the tied LM head's (V, d) B and a train step's backward products;
-flash at head dim 192 and the matmul at nemotron's and xlstm's shapes,
+flash at head dims 16, 32, 192 and 256 (8 and 48 zero-padded) in bf16 and
+fp32, fp32 at train_lm's shape, and the matmul at nemotron's and xlstm's shapes,
 and ``decode_deep`` at the deep-K decode products beside ``decode_wmma``
 forced on the same operands), times it beside the plain version and one
 library call where there is one, and checks 2-layer full-width cuts of
@@ -19,7 +20,7 @@ drives ten main paths, each with the launch counts set to 0 before it
 and read after: the paper's §3.1 inner product through the hyperstep runner in
 both execution modes plus minicpm-2b served at full width and depth;
 minicpm-2b's train step at full width and depth (4 AdamW steps, the loss
-falling); the training loop (``train-loop``:
+falling; then remat "dots" beside "full" in turns); the training loop (``train-loop``:
 ``repro_torch.train.loop.train`` on synthetic batches, minicpm-2b at full
 width and depth for 8 steps in each execution mode, the losses equal bit
 for bit and each step launching what the bare step launches, then a
@@ -50,7 +51,9 @@ frontend embeds, qwen2-vl's at 3-axis positions), its last logits held to
 ``generate``'s prefill, ``generate`` with 16 new tokens (every product's
 matmul variant predicted, nemotron's K = 73728 down projection on
 ``decode_deep``) and a 2-layer cut against fp32 on the CPU where its fp32
-weights fit the host. The
+weights fit the host; then all ten configs' smoke cuts (head dim 16,
+starcoder2's and nemotron's 8 zero-padded to 16) against fp32 on the CPU,
+in fp32 at smoke depth and in bf16 at two layers. The
 matmul's launches are also counted per variant: every product of the
 forward, of a multi-row prefill and of the train step must take the wgmma
 variant, every decode product the m ≤ 16 one. On minicpm-2b's weights the
@@ -79,15 +82,16 @@ mode, the losses equal bit for bit and the launches equal;
 and ``pipeline_apply`` at one stage, each bit for bit against the bare
 product or stage; the host-level fit on one host; a sharded save and a
 restore through a ``sharder`` of the 2-layer cut — and ``examples`` runs
-the port's examples at their defaults, all but quickstart's train step
-(its smoke config's head dim 16 is not the card's flash's). One card:
+the port's examples at their defaults, quickstart's train step of
+qwen2-moe-a2.7b's smoke config (flash at head dim 16) included. One card:
 no collective crosses ranks. Every check that fails raises,
 and the script exits non-zero. Each phase prints its wall time. It imports
 neither JAX nor the JAX package.
 
 Output, in order: progress lines; the card's name and power limit as
 ``nvidia-smi`` reports them; one JSON line with a row per kernel (the
-matmul's with a row per variant under ``variants``); and, last,
+matmul's with a row per variant under ``variants``, flash's with a row per
+timed kernel instance, dtype and head dim); and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 before
 running anything.
 """
@@ -113,6 +117,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from repro_torch.configs import Block, card_config, card_train_config, get_config  # noqa: E402
 from repro_torch.core.calibrate import default_machine, measure_fetch_model  # noqa: E402
@@ -583,11 +588,82 @@ def check_flash(rows: dict) -> None:
         log(f"[kernel] flash_attention {shape}: max_abs_err={err:.3g} "
             f"(tol {tol:.3g}) ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} "
             f"sdpa_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib)
         if idx == 0:
-            rows["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                           bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            rows["flash_attention"] = row
+        rows.setdefault(f"flash_attention.{flash_mod.variant_name(torch.bfloat16, d)}",
+                        dict(shape=shape, **row))
         if idx in (0, 2, 5):
             check_flash_lse_and_grads(sets, shape, b_ms, lib)
+    for case in FLASH_HEAD_DIM_CASES:
+        check_flash_head_dim(rows, *case)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in flash_mod.HEAD_DIMS:
+            attrs = flash_mod.kernel_attrs(d, dtype, torch.device("cuda"))
+            name = flash_mod.variant_name(dtype, d)
+            log(f"[kernel] flash_attention {name} attrs: {json.dumps(attrs)}")
+            if f"flash_attention.{name}" in rows:
+                rows[f"flash_attention.{name}"].update(attrs)
+
+
+# (label, B, Hq, Hkv, Sq, Skv, D, dtype): the fp32 kernel at train_lm's shape
+# (the examples' fp32 10M LM, D 64), both kernels at quickstart's (qwen2-moe
+# smoke: B 2, S 32, D 16) and at the smoke configs' D 8 (zero-padded to 16),
+# ragged GQA at D 32 and D 48 (padded to 64), and D 256 (GQA 16/8)
+FLASH_HEAD_DIM_CASES = [
+    ("train_lm", 8, 4, 4, 256, 256, 64, torch.float32),
+    *[(label, *shape, dtype) for dtype in (torch.bfloat16, torch.float32)
+      for label, shape in (("quickstart", (2, 4, 4, 32, 32, 16)),
+                           ("smoke D 8", (2, 8, 2, 64, 64, 8)),
+                           ("ragged", (2, 8, 2, 100, 130, 32)),
+                           ("ragged", (2, 8, 2, 100, 130, 48)),
+                           ("D 256", (4, 16, 8, 256, 256, 256)))],
+]
+
+
+def check_flash_head_dim(rows: dict, label, b, hq, hkv, sq, skv, d, dtype) -> None:
+    """One head dim and dtype against the plain version (output and lse),
+    within 2e-4 (fp32) or 2e-2 (bf16) absolute and relative, timed beside
+    the plain version and SDPA (fp32: the math backend, TF32 off)."""
+    sets = copies_past_l2(
+        lambda i: (randn((b, hq, sq, d), dtype, 10 * i + 11),
+                   randn((b, hkv, skv, d), dtype, 10 * i + 12),
+                   randn((b, hkv, skv, d), dtype, 10 * i + 13)),
+        (b * hq * sq * d + 2 * b * hkv * skv * d) * torch.finfo(dtype).bits // 8)
+    q, k, v = sets[0]
+    before = ops.flash_variant_counts()
+    out, lse = ops.attention(q, k, v, return_lse=True)
+    want, want_lse = ref.attention_ref_lse(q, k, v)
+    torch.cuda.synchronize()
+    after = ops.flash_variant_counts()
+    name = flash_mod.variant_name(dtype, flash_mod.kernel_head_dim(d))
+    shape = f"{label} b{b} h{hq}/{hkv} sq{sq} skv{skv} d{d} {str(dtype)[6:]}"
+    check({v: after[v] - before[v] for v in after if after[v] != before[v]} == {name: 1},
+          f"flash_attention {shape}: launches {after} from {before}, expected one {name}")
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    diff = (out.float() - want.float()).abs()
+    err, lse_err = diff.max().item(), (lse - want_lse).abs().max().item()
+    check(bool((diff <= tol + tol * want.float().abs()).all()) and lse_err <= 1e-3,
+          f"flash_attention {shape}: max err {err} (tol {tol}), lse {lse_err} (tol 1e-3)")
+    check(out.shape == q.shape and out.transpose(1, 2).is_contiguous(),
+          f"flash_attention {shape}: output layout {out.shape} {out.stride()}")
+    ms, enqueue = bench_ms(lambda q, k, v: ops.attention(q, k, v), sets, 50)
+    plain, _ = bench_ms(lambda q, k, v: ref.attention_ref(q, k, v), sets, 20)
+    # SDPA aligns causal queries with the first keys: a ragged case passes
+    # the port's mask (queries at the end); fp32 takes the math backend
+    mask = (None if sq == skv else torch.ones(sq, skv, dtype=torch.bool, device="cuda")
+            .tril(skv - sq))
+    with sdpa_kernel(SDPBackend.MATH) if dtype == torch.float32 else contextlib.nullcontext():
+        lib, _ = bench_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=hq != hkv), sets, 50)
+    b_ms, b_by = bound(flash_mod.cost(b, hq, hkv, sq, skv, d, q.element_size()))
+    log(f"[kernel] flash_attention {shape} ({name}): max_abs_err={err:.3g} (tol {tol}) "
+        f"lse_err={lse_err:.3g} ms={ms:.4f} enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} "
+        f"sdpa_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    rows.setdefault(f"flash_attention.{name}", dict(
+        shape=shape, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib))
 
 
 def check_flash_lse_and_grads(sets, shape: str, fwd_bound_ms: float, sdpa_ms: float) -> None:
@@ -1300,10 +1376,10 @@ def mesh_path(machine) -> None:
 
 
 def examples_path() -> None:
-    """Every example whose shapes the kernels take, at its defaults, with its
-    printed checks held here. quickstart's third demo (a train step of
-    qwen2-moe-a2.7b's smoke config, head dim 16) is left out: the card's
-    flash takes head dims 64, 128 and 192 only."""
+    """Every example at its defaults, with its printed checks held here:
+    quickstart's three demos (the third a train step of qwen2-moe-a2.7b's
+    smoke config, its attention at head dim 16 on the flash kernel), serve_lm,
+    serve_engine, train_lm, bsps_cannon and bsps_spmv."""
     from repro_torch.examples import (
         bsps_cannon,
         bsps_spmv,
@@ -1322,7 +1398,15 @@ def examples_path() -> None:
         walls[name] = time.perf_counter() - t0
         return out
 
-    run("quickstart", lambda: (quickstart.demo_cost_model(dev), quickstart.demo_bsps_program(dev)))
+    before = counts_now()
+    _, _, lm = run("quickstart", lambda: (quickstart.demo_cost_model(dev),
+                                          quickstart.demo_bsps_program(dev),
+                                          quickstart.demo_lm_step(dev)))
+    step = {k: v - before[k] for k, v in counts_now().items() if v != before[k]}
+    check(np.isfinite(lm["loss"]) and np.isfinite(lm["grad_norm"]) and lm["grad_norm"] > 0,
+          f"quickstart's train step: loss {lm['loss']}, grad norm {lm['grad_norm']}")
+    check(step.get("flash_attention.bf16.d16", 0) > 0 and step.get("streamed_matmul", 0) > 0,
+          f"quickstart's train step launches {step}")
     rng = np.random.default_rng(0)
     v = rng.standard_normal(1 << 16).astype(np.float32)
     u = rng.standard_normal(1 << 16).astype(np.float32)
@@ -1347,8 +1431,10 @@ def examples_path() -> None:
     check(all(e < 1e-2 for e in errs.values()), f"bsps_cannon: errors {errs}")
     err = run("bsps_spmv", lambda: bsps_spmv.main([]))
     check(err < 1e-3, f"bsps_spmv: error {err}")
-    log(f"[examples] walls s {json.dumps({k: round(w, 2) for k, w in walls.items()})}; left "
-        "out: quickstart's train step (qwen2-moe-a2.7b smoke, head dim 16)")
+    log(f"[examples] quickstart's train step (qwen2-moe-a2.7b smoke, bf16, head dim 16): "
+        f"loss {lm['loss']:.4f}, moe_aux {lm['moe_aux']:.4f}, grad_norm {lm['grad_norm']:.4f}; "
+        f"quickstart's launches {json.dumps(step)}")
+    log(f"[examples] walls s {json.dumps({k: round(w, 2) for k, w in walls.items()})}")
 
 
 # -- phase 4: the slice ------------------------------------------------------------------
@@ -1372,11 +1458,9 @@ def host_available_bytes() -> int:
 
 def reference_check(name: str, **cut) -> None:
     """A 2-layer cut of ``name`` at full width on the card (bf16, kernels)
-    against the same weights in float32 on the CPU (plain versions). The
-    CPU's MoE layers take the routes the card's took (``moe.route_hook``):
-    a near tie of the router between bf16 and fp32 would send a token to
-    other experts. A cut whose fp32 weights would take more than half the
-    host's available memory is not run, and the reckoning is printed."""
+    against the same weights in float32 on the CPU (plain versions), by
+    :func:`card_vs_cpu`. A cut whose fp32 weights would take more than half
+    the host's available memory is not run, and the reckoning is printed."""
     cfg = dataclasses.replace(get_config(name), num_layers=2, **cut)
     n = M.count_params(cfg)
     avail = host_available_bytes()
@@ -1385,34 +1469,78 @@ def reference_check(name: str, **cut) -> None:
             f"{4 * n / 1e9:.1f} GB in fp32, more than half the host's {avail / 1e9:.1f} GB "
             f"available (the fp32 forward's temporaries come on top)")
         return
-    params = M.init_params(cfg, 0, device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (2, 64),
                          generator=torch.Generator().manual_seed(2))
+    card_vs_cpu("reference", f"{name} 2 layers", cfg, toks)
+
+
+def card_vs_cpu(tag: str, label: str, cfg, toks: torch.Tensor, rel_tol: float = 0.05) -> dict:
+    """``cfg``'s forward on the card (its dtype, the kernels) against the
+    same weights in float32 on the CPU (plain versions), on ``toks``: the
+    logits finite and within ``rel_tol`` of the largest. The CPU's MoE
+    layers take the routes the card's took (``moe.route_hook``): a near tie
+    of the router between bf16 and fp32 would send a token to other experts.
+    Returns the card forward's launches."""
+    n = M.count_params(cfg)
+    params = M.init_params(cfg, 0, device="cuda")
     routes: list[torch.Tensor] = []
 
     def record(probs, top_e):
         routes.append(top_e.cpu())
         return top_e
 
+    before = counts_now()
     with moe_mod.route_hook(record):
         got = M.forward(cfg, params, toks.cuda(), device="cuda")[0].float().cpu()
+    launched = {k: v - before[k] for k, v in counts_now().items() if v != before[k]}
     cpu = _cpu_fp32(params)
     del params
     torch.cuda.empty_cache()
     replay = iter(routes)
     with moe_mod.route_hook(lambda probs, top_e: next(replay)):
         want = M.forward(dataclasses.replace(cfg, dtype="float32"), cpu, toks, device="cpu")[0]
-    check(next(replay, None) is None, f"{name}: the CPU forward routed fewer tokens")
+    check(next(replay, None) is None, f"{label}: the CPU forward routed fewer tokens")
     err = (got - want).abs().max().item()
-    # bf16 activations against fp32: ~2^-8 relative per rounding over two
-    # layers, bounded here at 5% of the largest logit
-    tol = 0.05 * want.abs().max().item()
-    check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits on the card")
-    check(err <= tol, f"{name}: 2-layer forward on the card vs fp32 CPU: {err} > {tol}")
-    log(f"[reference] {name} 2 layers {[(b.mixer, b.mlp) for b in cfg.pattern]}, "
-        f"{n / 1e9:.3f} B params, card bf16 vs cpu fp32 logits: "
+    tol = rel_tol * want.abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits on the card")
+    check(err <= tol, f"{label}: forward on the card vs fp32 CPU: {err} > {tol}")
+    log(f"[{tag}] {label} {[(b.mixer, b.mlp) for b in cfg.pattern]}, "
+        f"{n / 1e9:.3f} B params, card {cfg.dtype} vs cpu fp32 logits: "
         f"max_abs_err={err:.4g} (tol {tol:.4g})"
         + (f"; {len(routes)} MoE routings replayed on the CPU" if routes else ""))
+    return launched
+
+
+#: 2-layer cuts of the 8-layer smoke configs, each block kind once
+SMOKE_CUTS = {"jamba-v0.1-52b": (Block("mamba", "moe"), Block("attn", "dense")),
+              "xlstm-1.3b": (Block("mlstm", "none"), Block("slstm", "none"))}
+
+
+def smoke_forwards() -> None:
+    """Each config's smoke cut (random weights from seed 0, B 2 x S 64) on
+    the card against its fp32 CPU forward (:func:`card_vs_cpu`), flash
+    launched once an attention layer, at head dim 16 on the kernel built for
+    it and 8 zero-padded to 16: in fp32 at full smoke depth (sums in another
+    order: within 1e-3 of the largest logit), and in the smoke config's
+    bf16 at two layers (jamba's and xlstm's 8 cut to each block kind once)
+    within the 2-layer cuts' 5%."""
+    for name in SMOKE:
+        smoke = get_config(name, smoke=True)
+        toks = torch.randint(0, smoke.vocab_size, (2, 64),
+                             generator=torch.Generator().manual_seed(3))
+        for cfg, rel_tol in ((dataclasses.replace(smoke, dtype="float32"), 1e-3),
+                             (dataclasses.replace(smoke, num_layers=2,
+                                                  pattern=SMOKE_CUTS.get(name, smoke.pattern)),
+                              0.05)):
+            launched = card_vs_cpu("families", f"{name} smoke {cfg.num_layers} layers (head "
+                                   f"dim {cfg.head_dim_})", cfg, toks, rel_tol)
+            attn = sum(blk.mixer == "attn" for _, blk in cfg.blocks())
+            run = flash_mod.variant_name(getattr(torch, cfg.dtype),
+                                         flash_mod.kernel_head_dim(cfg.head_dim_))
+            check(launched.get("flash_attention", 0) == attn
+                  and launched.get(f"flash_attention.{run}", 0) == attn
+                  and launched.get("streamed_matmul", 0) > 0,
+                  f"{name} smoke forward launches {launched}, expected {attn} {run}")
 
 
 def _loss_and_grads(cfg, params, batch, device):
@@ -1552,6 +1680,7 @@ def train_slice() -> dict:
     log(f"[train] launches per step: {json.dumps(per_step[-1])} (products per forward {prods})")
     roofline_run("minicpm-2b train step (B 4 x S 256)", lambda: step(params, state, data), wall,
                  cfg, batch * seq, True)
+    params, state = remat_dots_beside_full(cfg, opt, params, state, data, step, prods)
     del params, state, first, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -1571,6 +1700,61 @@ def _loop(cfg, steps: int, compiled: bool, machine, faults=None,
         cfg, train_loop.TrainConfig(steps=steps, log_every=1000, compiled=compiled, **kw),
         opt, data_cfg=data, machine=machine, log=lines.append, faults=faults, device="cuda")
     return out, lines, {k: v - before[k] for k, v in counts_now().items()}
+
+
+def remat_dots_beside_full(cfg, opt, params, state, data, step, prods: int):
+    """minicpm-2b's train step under remat "dots" beside "full", on the same
+    weights and batch, five of each in turns (dots, full, full, dots, ...): each
+    step's wall and peak memory, the launches of a "dots" step (3 matmul
+    launches a product: the kept forward products are not launched again;
+    flash twice a layer, its forward recomputed as under "full"), and the
+    gradient half's peak above the resident weights and moments in each
+    mode. Returns the stepped (params, state)."""
+    steps = {"full": step,
+             "dots": make_train_step(dataclasses.replace(cfg, remat="dots"), opt, device="cuda")}
+    walls, peaks, per_step = {"full": [], "dots": []}, {"full": 0, "dots": 0}, {}
+    for remat in ("dots", "full", "full", "dots") * 2 + ("dots", "full"):
+        before = counts_now()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, m = steps[remat](params, state, data)
+        torch.cuda.synchronize()
+        walls[remat].append(time.perf_counter() - t0)
+        peaks[remat] = max(peaks[remat], torch.cuda.max_memory_allocated())
+        per_step[remat] = {k: v - before[k] for k, v in counts_now().items() if v != before[k]}
+        check(np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])),
+              f"train step under remat {remat}: loss {float(m['loss'])}")
+    c = per_step["dots"]
+    check(c["streamed_matmul"] == c["streamed_matmul.wgmma"] == 3 * prods
+          and c["streamed_matmul.mk/kn"] == c["streamed_matmul.mk/nk"]
+          == c["streamed_matmul.km/kn"] == prods
+          and c["flash_attention"] == 2 * cfg.num_layers,
+          f"remat dots train step launches {c}")
+    grad_peaks, grads_gb = {}, {}
+    for remat in ("full", "dots"):
+        grads_of = make_grad_fn(dataclasses.replace(cfg, remat=remat), device="cuda")
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads, _ = grads_of(params, data)
+        torch.cuda.synchronize()
+        grad_peaks[remat] = torch.cuda.max_memory_allocated() - base
+        grads_gb[remat] = (torch.cuda.memory_allocated() - base) / 1e9
+        del grads
+    med = {r: float(np.median(w)) * 1e3 for r, w in walls.items()}
+    log(f"[train] remat dots beside full (same weights and batch, in turns): step wall "
+        f"median dots {med['dots']:.1f} ms {[round(w * 1e3, 1) for w in walls['dots']]}, "
+        f"full {med['full']:.1f} ms {[round(w * 1e3, 1) for w in walls['full']]} (dots/full "
+        f"{med['dots'] / med['full']:.4f}); step peak max_memory_allocated dots "
+        f"{peaks['dots'] / 1e9:.2f} GB, full {peaks['full'] / 1e9:.2f} GB; the gradient "
+        f"half's peak above the resident {base / 1e9:.2f} GB dots {grad_peaks['dots'] / 1e9:.3f} "
+        f"GB, full {grad_peaks['full'] / 1e9:.3f} GB (the gradients it returns {grads_gb['dots']:.3f} "
+        f"and {grads_gb['full']:.3f} GB)")
+    log(f"[train] remat dots launches per step: {json.dumps(c)} (3 x {prods} products)")
+    return params, state
 
 
 def _prefetch_depth(lines: list) -> int:
@@ -2602,6 +2786,9 @@ def xlstm_path(machine) -> None:
 #: the attention-only families of the ``families`` path, at ``card_config`` depth
 FAMILIES = ("starcoder2-15b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "musicgen-large",
             "qwen2-vl-7b", "nemotron-4-340b")
+#: every config, in the smoke cut the JAX package's tests use (head dim 16,
+#: starcoder2's and nemotron's 8)
+SMOKE = ("minicpm-2b", "codeqwen1.5-7b", "jamba-v0.1-52b", "xlstm-1.3b", *FAMILIES)
 
 
 def _forward_vs_prefill(cfg, params, prompt, block: int):
@@ -2749,6 +2936,9 @@ def families_path(machine) -> None:
         t0 = time.perf_counter()
         serve_family(name, machine)
         log(f"[families] {name}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smoke_forwards()
+    log(f"[families] the {len(SMOKE)} smoke forwards: {time.perf_counter() - t0:.1f} s")
 
 
 def products_per_forward(cfg) -> int:
@@ -2808,11 +2998,12 @@ def decode_variants(cfg, m: int) -> dict[str, int]:
 
 
 def counts_now() -> dict:
-    """Launches per kernel, and the matmul's per variant and per operand
-    layout."""
+    """Launches per kernel, the matmul's per variant and per operand layout,
+    and flash's per kernel instance."""
     return {**ops.launch_counts(),
             **{f"streamed_matmul.{v}": c for v, c in ops.matmul_variant_counts().items()},
-            **{f"streamed_matmul.{v}": c for v, c in ops.matmul_layout_counts().items()}}
+            **{f"streamed_matmul.{v}": c for v, c in ops.matmul_layout_counts().items()},
+            **{f"flash_attention.{v}": c for v, c in ops.flash_variant_counts().items()}}
 
 
 def roofline_run(name: str, run, wall_s: float, cfg, tokens: int, training: bool) -> dict:
@@ -2990,6 +3181,12 @@ def main() -> int:
     matmul["variants"] = [
         {"name": v, "launches": launches[f"streamed_matmul.{v}"], **rows[f"streamed_matmul.{v}"]}
         for v in VARIANTS]
+    # flash's kernel instances (dtype, the head dim run at), each timed one
+    # at the shape its row was timed at, with its launches on the main paths
+    flash = next(row for row in kernels if row["name"] == "flash_attention")
+    flash["variants"] = [
+        {"name": v, "launches": launches[f"flash_attention.{v}"], **rows[f"flash_attention.{v}"]}
+        for v in ops.flash_variant_counts() if f"flash_attention.{v}" in rows]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@
    prefetch overlap, each hyperstep's dot product on the ``streamed_dot``
    kernel (its plain version on the CPU);
 3. the LM framework on top — one training step of an assigned architecture
-   (qwen2-moe-a2.7b's smoke config; its head dim 16 is one the card's flash
-   kernel does not take, so on the card this step raises as the kernel does).
+   (qwen2-moe-a2.7b's smoke config: on the card its attention, head dim 16,
+   runs on the flash kernel and its projections on the matmul kernel).
 
 Run: python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -97,7 +97,8 @@ def lm_step(cfg, params: Any, tokens: torch.Tensor, device: torch.device) -> dic
     return {k: float(v) for k, v in metrics.items()}
 
 
-def demo_lm_step(device: torch.device) -> None:
+def demo_lm_step(device: torch.device) -> dict[str, float]:
+    """One train step of qwen2-moe-a2.7b's smoke config; its metrics."""
     print("== 3. one training hyperstep of an assigned arch (smoke config) ==")
     cfg = get_config("qwen2-moe-a2.7b", smoke=True)
     params = M.init_params(cfg, 0, device=device)
@@ -106,6 +107,7 @@ def demo_lm_step(device: torch.device) -> None:
     m = lm_step(cfg, params, toks, device)
     print(f"  {cfg.name}: loss {m['loss']:.4f} moe_aux {m['moe_aux']:.4f} "
           f"grad_norm {m['grad_norm']:.3f}")
+    return m
 
 
 def main(argv: list[str] | None = None) -> None:

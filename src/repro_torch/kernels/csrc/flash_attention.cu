@@ -11,7 +11,8 @@
 // the diagonal under causal masking (the pseudo-streaming skip). q-head h
 // reads kv-head h / (Hq / Hkv) (GQA), queries sit at the end of the keys
 // (q_offset = Skv - Sq), ragged Sq and Skv are masked (never padded), heads
-// may be strided as long as the head dim is contiguous, D is 64, 128 or 192. The
+// may be strided as long as the head dim is contiguous, D is 16, 32, 64, 128,
+// 192 or 256 (the wrapper zero-pads any other D up to 256 to the next). The
 // online softmax is the TPU kernel's, in fp32: masked scores and the initial
 // max are -1e30, l is clamped at 1e-30 before the final division. The
 // plan's scratch (m, l, acc) is the state each warp keeps in registers; the
@@ -22,8 +23,9 @@
 // key) pair at the bf16 tensor-core rate take less time than reading Q, K, V
 // and writing O once. What the design does about it: Q, K and V stay bf16 in
 // shared memory (Q 8/16/24 KB, K and V double buffered, 40/80/120 KB a
-// block at D 64/128/192, so two blocks share an SM up to D 128 and one
-// holds it at 192, above the 48 KB default: prepare_smem opts in), filled
+// block at D 64/128/192, 10/20 KB at D 16/32 and 160 KB at D 256, so two
+// blocks share an SM up to D 128 and one holds it above, past the 48 KB
+// default: prepare_smem opts in), filled
 // by 16-byte cp.async copies with the next KV block in flight while this
 // one is computed. Each warp owns 16 query rows: S = Q·Kᵀ by mma.sync
 // m16n8k16 (bf16 in, fp32 accumulate) with Q's fragments loaded once
@@ -32,11 +34,12 @@
 // and sum over the 4 lanes of a row by shuffles), with sm_scale·log2(e)
 // folded into exp2f; P is rounded to bf16 in registers and is the A
 // operand of P·V, V read by ldmatrix.trans; the output accumulator never
-// leaves the registers until the end (D/2 fp32 a lane: 96 at D 192, where
-// Q's fragments are read from shared memory at each k-step instead of
-// held: see kQInRegs). Tiles are
+// leaves the registers until the end (D/2 fp32 a lane: 96 at D 192 and 128
+// at D 256, where Q's fragments are read from shared memory at each k-step
+// instead of held: see kQInRegs). Tiles are
 // stored with a 16-byte XOR swizzle (chunk ^ row % 8), so every ldmatrix
-// and every staged store is free of bank conflicts. The heaviest causal q
+// and every staged store is free of bank conflicts (at D 16 and 32 a row is
+// narrower than the 128 bytes of the banks: see swz). The heaviest causal q
 // blocks are launched first (the q index is reversed), so the last wave is
 // not the long one. Numerics: rounding P to bf16 is the one rounding the
 // fp32 kernel does not make (about 2^-9 relative on a convex combination of
@@ -49,12 +52,14 @@
 // (m₂ + log₂ l)·ln 2; the fp32 kernel's are natural, lse = m + ln l. l is
 // clamped at 1e-30 as for the output.
 //
-// fp32: the first version, on the CUDA cores, kept for fp32 inputs (not on
-// the main path). TF32 tensor cores would round Q, K and P to 10 bits and
+// fp32: the first version, on the CUDA cores, kept for fp32 inputs (the
+// fp32 LM of the train_lm example). TF32 tensor cores would round Q, K and P to 10 bits and
 // break the fp32 tolerance of 2e-4. Q and one K/V block sit in shared memory
-// as fp32 rows padded by one word (145 KB at D 192); two threads own one
-// query row, each computing half of its scores and holding half of its
-// output accumulator.
+// as fp32 rows padded by one word (145 KB at D 192, 193 KB at D 256); two
+// threads own one query row, each computing half of its scores and holding
+// half of its output accumulator (D/2 fp32: 128 at D 256).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -111,10 +116,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // element offset of 16-byte chunk `chunk` of row `row` in a swizzled
-// [rows][D] bf16 tile
+// [rows][D] bf16 tile. The chunk is XORed with bits of the row so that the 8
+// consecutive rows one ldmatrix phase (or one staged store) touches sit in 8
+// different 16-byte bank groups. A row of CH ≥ 8 chunks spans the banks, and
+// row & 7 does it; a row of CH = 2 or 4 chunks (D 16, 32) shares 128 bytes
+// with 8 / CH - 1 neighbours, so the XOR takes the row bits above those,
+// (row >> log2(8 / CH)) & (CH - 1), and stays inside the row.
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
+  constexpr int CH = D / 8;
+  static_assert(CH == 2 || CH == 4 || CH % 8 == 0, "head dim 16, 32 or a multiple of 64");
+  constexpr int SHIFT = CH >= 8 ? 0 : (CH == 4 ? 1 : 2);
+  constexpr int MASK = CH >= 8 ? 7 : CH - 1;
+  return row * D + ((chunk ^ ((row >> SHIFT) & MASK)) << 3);
 }
 
 // cp.async of 64 rows [r0, r0 + 64) of a (rows, D) bf16 matrix with row
@@ -123,6 +137,7 @@ template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ src,
                                           long long rs, int r0, int limit, int tid) {
   constexpr int CH = D / 8;  // 16-byte chunks per row
+  static_assert(64 * CH % kThreads == 0, "every thread copies whole chunks");
 #pragma unroll
   for (int i = 0; i < 64 * CH / kThreads; ++i) {
     const int idx = tid + i * kThreads;
@@ -146,6 +161,7 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILE = BKV * D;         // elements of one K or V block
   constexpr int KT = D / 16;            // k-steps of Q·Kᵀ
   constexpr int DT = D / 8;             // 8-wide output column tiles
+  static_assert(D >= 16 && D % 16 == 0, "P·V covers D in pairs of 8-wide tiles");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);           // [BQ][D], later the output
   const uint32_t q_a = smem_u32(q_s);
@@ -430,6 +446,28 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// dynamic shared memory a block: bf16 Q and double-buffered K, V; fp32 Q
+// and one K, V block, rows padded by a word
+template <int D>
+constexpr int kSmemMma = (BQ + 4 * BKV) * D * 2;
+template <int D>
+constexpr int kSmemF32 = (BQ + 2 * BKV) * (D + 1) * 4;
+
+// calls f(std::integral_constant<int, D>{}) for the instantiated head dim D
+// equal to d; other d are refused
+template <typename F>
+cudaError_t with_head_dim(int d, F f) {
+  switch (d) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int D>
 cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStream_t stream,
                    const void* q, const void* k, const void* v, void* o, float* lse, int hq,
@@ -438,7 +476,7 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
   constexpr int SCRATCH = (2 * BQ + BQ * D) * 4;  // m, l, acc: in registers
   if (scratch_bytes != SCRATCH) return cudaErrorInvalidValue;  // plan and kernel disagree
   if (dtype == bsps::kBFloat16) {
-    constexpr int SMEM = (BQ + 4 * BKV) * D * 2;
+    constexpr int SMEM = kSmemMma<D>;
     auto kernel = flash_fwd_mma<D>;
     cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
     if (err != cudaSuccess) return err;
@@ -450,7 +488,7 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
     return cudaGetLastError();
   }
   if (dtype == bsps::kFloat32) {
-    constexpr int SMEM = (BQ + 2 * BKV) * (D + 1) * 4;
+    constexpr int SMEM = kSmemF32<D>;
     auto kernel = flash_fwd_f32<D>;
     cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
     if (err != cudaSuccess) return err;
@@ -461,6 +499,19 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
+}
+
+template <typename Kernel>
+cudaError_t attrs(Kernel kernel, int device, int smem, int* out) {
+  cudaError_t err = bsps::prepare_smem(kernel, device, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  out[0] = fa.numRegs, out[1] = (int)fa.localSizeBytes, out[2] = smem, out[3] = blocks;
+  return err;
 }
 
 }  // namespace
@@ -480,14 +531,23 @@ BSPS_EXPORT int bsps_flash(int device, int gx, int gy, int gz, int loop, int scr
   if (gx < 1 || gy != hq || gz < 1 || loop < 1 || hkv < 1 || hq % hkv) return cudaErrorInvalidValue;
   const dim3 grid(gx, gy, gz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64>(device, grid, loop, scratch_bytes, s, q, k, v, o, lse, hq, hkv, sq, skv,
-                      q_offset, causal, scale, dtype, strides);
-  if (d == 128)
-    return launch<128>(device, grid, loop, scratch_bytes, s, q, k, v, o, lse, hq, hkv, sq, skv,
-                       q_offset, causal, scale, dtype, strides);
-  if (d == 192)
-    return launch<192>(device, grid, loop, scratch_bytes, s, q, k, v, o, lse, hq, hkv, sq, skv,
-                       q_offset, causal, scale, dtype, strides);
-  return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto dk) {
+    return launch<decltype(dk)::value>(device, grid, loop, scratch_bytes, s, q, k, v, o, lse, hq,
+                                       hkv, sq, skv, q_offset, causal, scale, dtype, strides);
+  });
+}
+
+// The flash kernel's compiled attributes at head dim d (an instantiated one)
+// and dtype, as the CUDA runtime reports them: out[0] registers a thread,
+// out[1] local (spilled) bytes a thread, out[2] dynamic shared memory a
+// block, out[3] resident blocks an SM.
+BSPS_EXPORT int bsps_flash_attrs(int device, int d, int dtype, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (dtype != bsps::kBFloat16 && dtype != bsps::kFloat32) return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto dk) {
+    constexpr int D = decltype(dk)::value;
+    return dtype == bsps::kBFloat16 ? attrs(flash_fwd_mma<D>, device, kSmemMma<D>, out)
+                                    : attrs(flash_fwd_f32<D>, device, kSmemF32<D>, out);
+  });
 }

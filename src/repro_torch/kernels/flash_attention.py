@@ -13,7 +13,11 @@ q_blocks, kv_blocks) with kv sequential. On the card the three parallel axes
 are the CUDA grid and each block loops over its KV blocks; the kernel's
 blocks are 64 queries by 64 keys. bf16 runs on the tensor cores
 (``mma.sync``, K/V double-buffered by ``cp.async``), fp32 on the CUDA cores;
-``csrc/flash_attention.cu`` describes both.
+``csrc/flash_attention.cu`` describes both. Both are built for the head dims
+:data:`HEAD_DIMS`; any other head dim up to 256 runs at the next of them,
+its Q, K and V zero-padded (:func:`kernel_head_dim`, :func:`pad_head_dim`):
+zero columns leave every score as it is and give zero output columns, which
+are cut off.
 """
 
 from __future__ import annotations
@@ -26,11 +30,13 @@ from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.core.roofline import KernelCost, counted
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["flash_attention", "attention_plan", "cost", "causal_pairs", "BLOCK_Q", "BLOCK_KV"]
+__all__ = ["flash_attention", "attention_plan", "cost", "causal_pairs", "kernel_head_dim",
+           "pad_head_dim", "variant_name", "kernel_attrs", "BLOCK_Q", "BLOCK_KV", "HEAD_DIMS"]
 
 BLOCK_Q = BLOCK_KV = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 192)
+#: the head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 
 
 def attention_plan(
@@ -111,6 +117,38 @@ def _plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int, causal: bool,
                           q_offset=q_offset, dtype=dtype)
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernel runs head dim ``d`` at: the least of
+    :data:`HEAD_DIMS` not below it. Above 256 raises ``ValueError``."""
+    for dk in HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(f"flash_attention takes head dims up to {HEAD_DIMS[-1]}, not {d}")
+
+
+def variant_name(dtype: torch.dtype, d_run: int) -> str:
+    """The kernel instance a launch runs, e.g. ``"bf16.d64"``: its dtype and
+    the head dim it runs at; ``flash_attention.launches_by_variant`` counts
+    launches by it."""
+    return f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}.d{d_run}"
+
+
+def pad_head_dim(t: torch.Tensor, dk: int) -> torch.Tensor:
+    """``t`` with its last (head) dim zero-padded to ``dk``: ``t`` itself
+    when it is ``dk`` wide, else a contiguous copy, the launch's staging."""
+    return t if t.shape[-1] == dk else torch.nn.functional.pad(t, (0, dk - t.shape[-1]))
+
+
+def kernel_attrs(d: int, dtype: torch.dtype, device: torch.device) -> dict[str, int]:
+    """The kernel's ``registers`` and ``spill_bytes`` a thread,
+    ``smem_bytes`` a block and ``blocks_per_sm`` at instantiated head dim
+    ``d`` and ``dtype`` on ``device``, as the CUDA runtime reports them."""
+    regs, spill, smem, blocks = pipeline.kernel_attrs("bsps_flash_attrs", device, d,
+                                                      _DTYPES[dtype])
+    return {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
+            "blocks_per_sm": blocks}
+
+
 def _rows_aligned(t: torch.Tensor) -> bool:
     """Every row of ``t`` starts on a 16-byte boundary (the bf16 kernel's
     ``cp.async`` copies)."""
@@ -157,12 +195,15 @@ def flash_attention(
 
     Hq must be a multiple of Hkv (GQA). When Sq < Skv the queries are placed
     at the *end* of the key sequence for causal masking. CUDA tensors go to
-    the kernel (float32 or bfloat16, head dim 64, 128 or 192, any strides
-    with a contiguous head dim; bf16 rows 16-byte aligned); CPU tensors to
+    the kernel (float32 or bfloat16, head dim up to 256, any strides with a
+    contiguous head dim; bf16 rows 16-byte aligned; a head dim outside
+    :data:`HEAD_DIMS` runs zero-padded to the next, ``sm_scale`` still
+    ``d ** -0.5`` of the given d); CPU tensors to
     :func:`repro_torch.kernels.ref.attention_ref`. The result on both devices
     is a (B, Hq, Sq, D) view of a (B, Sq, Hq, D) buffer, the layout the model
-    reads it back in (so the torch ops after it move the same bytes). ``return_lse=True`` also returns each row's
-    log-sum-exp, (B, Hq, Sq) fp32 (:func:`ref.attention_ref_lse` on the CPU).
+    reads it back in (so the torch ops after it move the same bytes).
+    ``return_lse=True`` also returns each row's log-sum-exp, (B, Hq, Sq)
+    fp32 (:func:`ref.attention_ref_lse` on the CPU).
     """
     b, hq, sq, d = q.shape
     bk_, hkv, skv, dk = k.shape
@@ -181,29 +222,36 @@ def flash_attention(
                          f"{q.device}, {k.device}, {v.device}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention supports head dims {_HEAD_DIMS}, not {d}")
+    d_run = kernel_head_dim(d)
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention needs a contiguous head dimension")
+    q, k, v = (pad_head_dim(t, d_run) for t in (q, k, v))
     if q.dtype == torch.bfloat16 and not all(_rows_aligned(t) for t in (q, k, v)):
         raise ValueError("bf16 flash_attention copies 16-byte rows: base addresses and "
                          "batch, head and sequence strides must be multiples of 16 bytes")
     q_offset = skv - sq  # decode: queries are the last sq positions
-    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    o = out if d_run == d else torch.empty((b, sq, hq, d_run), dtype=q.dtype,
+                                           device=q.device).transpose(1, 2)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if b == 0 or sq == 0:
-        return (o, lse) if return_lse else o
-    launch = pipeline.lower(_plan(b, hq, hkv, sq, skv, d, causal, q_offset, q.dtype),
+        return (out, lse) if return_lse else out
+    launch = pipeline.lower(_plan(b, hq, hkv, sq, skv, d_run, causal, q_offset, q.dtype),
                             "bsps_flash", q.device)
     strides = torch.tensor([t.stride(i) for t in (q, k, v, o) for i in range(3)],
                            dtype=torch.int64)
     pipeline.launch(launch, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    o.data_ptr(), hq, hkv, sq, skv, d, q_offset, int(causal),
+                    o.data_ptr(), hq, hkv, sq, skv, d_run, q_offset, int(causal),
                     float(sm_scale), _DTYPES[q.dtype], strides.data_ptr(),
                     None if lse is None else lse.data_ptr())
     flash_attention.launches += 1
-    return (o, lse) if return_lse else o
+    flash_attention.launches_by_variant[variant_name(q.dtype, d_run)] += 1
+    if o is not out:      # the zero columns cut off
+        out.copy_(o[..., :d])
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(
+    (variant_name(t, d) for t in _DTYPES for d in HEAD_DIMS), 0)

@@ -70,7 +70,8 @@ ENTRIES: dict[str, list[Any]] = {
 }
 #: queries of a kernel's compiled attributes: the device, the query's ints,
 #: then an int[4] the entry fills (:func:`kernel_attrs`)
-QUERIES: dict[str, list[Any]] = {"bsps_ssm_scan_bwd_attrs": [_I, _I, _I, _P]}
+QUERIES: dict[str, list[Any]] = {"bsps_ssm_scan_bwd_attrs": [_I, _I, _I, _P],
+                                 "bsps_flash_attrs": [_I, _I, _I, _P]}
 _LIBRARY_ENTRIES = {"bsps_smem_optin": [_I], **QUERIES,
                     **{name: _PREFIX + args for name, args in ENTRIES.items()}}
 #: the fp32 matmul's tile sweep (``launch/sweep_simt_f32``), a library of its
@@ -263,8 +264,9 @@ def launch(plan_launch: Launch, device: torch.device, *args: Any) -> None:
 def kernel_attrs(query: str, device: torch.device, *args: int) -> tuple[int, int, int, int]:
     """The four ints that the library's ``query`` entry reports for a
     kernel on ``device`` (what each means is the entry's: for
-    ``bsps_ssm_scan_bwd_attrs`` registers and spilled bytes a thread,
-    shared memory a block, resident blocks an SM). Raises on a CUDA error."""
+    ``bsps_ssm_scan_bwd_attrs`` and ``bsps_flash_attrs`` registers and
+    spilled bytes a thread, shared memory a block, resident blocks an SM).
+    Raises on a CUDA error."""
     if query not in QUERIES:
         raise ValueError(f"unknown kernel query {query!r}")
     idx = device.index if device.index is not None else torch.cuda.current_device()

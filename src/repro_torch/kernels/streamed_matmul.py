@@ -59,8 +59,10 @@ variants stream such a B by TMA boxes over its rows and reads them with
 weight gradient Aᵀ·dC reads the activations so — for bf16 on ``wgmma``
 only, as its M-major operand. One operand at a time is transposed. A
 transposed bf16 operand needs TMA (16-byte base and row stride); the
-``wmma`` variants take the default layouts only, and a call they would get
-raises. ``simt_f32``
+``wmma`` variants take the default layouts only, so the wrapper stages an
+operand of a transposed product that TMA cannot describe into a padded,
+aligned copy (:func:`tma_rows`, the launch's staging: a roofline count
+leaves it out) and the product runs on a TMA variant. ``simt_f32``
 takes fp32 operands in all three layouts at any stride: an operand stored
 with k contiguous is copied 4 bytes at a time, transposed into its k-major
 tile. The plans describe the same tokens in every layout: only their order
@@ -82,8 +84,9 @@ from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.core.roofline import KernelCost, counted
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["streamed_matmul", "matmul_plan", "decode_plan", "variant_for", "split_for",
-           "decode_split", "deep_split", "decode_fits", "cost", "VARIANTS", "LAYOUTS"]
+__all__ = ["streamed_matmul", "matmul_plan", "decode_plan", "variant_for", "tma_rows",
+           "split_for", "decode_split", "deep_split", "decode_fits", "cost", "VARIANTS",
+           "LAYOUTS"]
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the (a_layout, b_layout) pairs the kernel takes, and their code on the C side
@@ -330,7 +333,8 @@ def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
     ``"decode_wmma"`` when TMA cannot describe B; m > 16 is ``"wgmma"``
     when TMA can describe both operands and ``"wmma"`` when not. A bf16
     (k, m) A always takes ``"wgmma"``. A transposed bf16 operand that the
-    chosen variant cannot read raises ``ValueError``.
+    chosen variant cannot read raises ``ValueError`` (:func:`streamed_matmul`
+    stages such operands with :func:`tma_rows` first).
     """
     _check_layouts(a_layout, b_layout)
     if dtype == torch.float32:
@@ -346,6 +350,20 @@ def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
         raise ValueError(f"a={a_layout!r}, b={b_layout!r} operands need TMA: 16-byte "
                          f"aligned bases and row strides (lda {lda}, ldb {ldb} elements)")
     return variant
+
+
+def tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (2-D, on the card) with contiguous rows a multiple of 16 bytes
+    apart from a 16-byte aligned base, as TMA reads an operand: ``t`` itself,
+    or a view of a padded copy. The logits' gradient needs the copy (a
+    vocabulary of 122,753 bf16 is 245,506 bytes a row)."""
+    width = _TMA_ALIGN // t.element_size()
+    if t.stride(1) == 1 and t.stride(0) % width == 0 and t.data_ptr() % _TMA_ALIGN == 0:
+        return t
+    rows, cols = t.shape
+    buf = torch.empty((rows, -(-cols // width) * width), dtype=t.dtype, device=t.device)
+    buf[:, :cols].copy_(t)
+    return buf[:, :cols]
 
 
 def split_for(tiles: int, k_tiles: int, sms: int) -> int:
@@ -427,6 +445,8 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return c.zero_()
+    if a.dtype == torch.bfloat16 and (a_layout, b_layout) != ("mk", "kn"):
+        a, b = tma_rows(a), tma_rows(b)     # only the TMA variants read these layouts
     picked = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k,
                          a_layout=a_layout, b_layout=b_layout, dtype=a.dtype)
     if variant not in (None, picked) and not (

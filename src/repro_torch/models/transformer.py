@@ -7,7 +7,8 @@ The full-sequence stack returns the MoE load-balancing loss summed over its
 blocks in fp32, beside the activations, as the JAX package's does; under
 ``remat="full"`` each period (xlstm's 8 blocks, jamba's 8, one block of the
 others) is recomputed in the backward pass (``torch.utils.checkpoint``), the
-JAX package's ``jax.checkpoint`` per period.
+JAX package's ``jax.checkpoint`` per period, and under ``remat="dots"`` too,
+its matmuls' outputs kept from the forward.
 
 The stack's parameters are always the per-layer layout of the JAX package's
 ``scan_layers=False``: ``stack[i][j]`` is period i, position j. The JAX
@@ -24,6 +25,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import Block, ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
@@ -116,18 +118,22 @@ def init_stack(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> list[li
 
 
 def _remat(cfg: ModelConfig, fn):
-    """``fn`` under the config's rematerialisation: ``"full"`` recomputes
-    it in the backward pass, saving only its inputs, where a gradient is
-    being taken; ``"none"`` calls it."""
+    """``fn`` under the config's rematerialisation, where a gradient is
+    being taken: ``"full"`` recomputes it in the backward pass, saving only
+    its inputs; ``"dots"`` recomputes it too but keeps its matmuls' outputs
+    (:class:`repro_torch.kernels.ops.KeptProducts`), so only the rest runs
+    again; ``"none"`` calls it. Any other value raises ``ValueError``."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat != "full":
-        raise NotImplementedError(f"remat={cfg.remat!r} is not ported: the port "
-                                  "recomputes whole periods ('full') or nothing ('none')")
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}: 'none', 'dots' or 'full'")
+    context_fn = (ops.KeptProducts.contexts if cfg.remat == "dots"
+                  else torch.utils.checkpoint.noop_context_fn)
 
     def run(x, aux, per):
         if torch.is_grad_enabled() and x.requires_grad:
-            return torch.utils.checkpoint.checkpoint(fn, x, aux, per, use_reentrant=False)
+            return torch.utils.checkpoint.checkpoint(fn, x, aux, per, use_reentrant=False,
+                                                     context_fn=context_fn)
         return fn(x, aux, per)
 
     return run

@@ -564,14 +564,23 @@ def test_matmul_km_layout_matches_plain(cuda, m, k, n, out_dtype):
 
 
 def test_matmul_layouts_need_tma(cuda):
-    """A transposed operand the TMA cannot describe raises; nothing falls
-    back to a variant that would read it in the default layout."""
-    a = _rand((8, 64), torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="TMA"):
-        streamed_matmul(a, _rand((9, 67), torch.bfloat16, cuda)[:, :64], b_layout="nk")
-    with pytest.raises(ValueError, match="TMA"):
-        streamed_matmul(_rand((64, 37), torch.bfloat16, cuda), _rand((64, 64), torch.bfloat16,
-                                                                    cuda), a_layout="km")
+    """A transposed operand that TMA cannot describe (rows 134 or 74 bytes
+    apart) is staged into an aligned copy and runs on the TMA variant
+    (``decode`` for the (n, k) B at 8 rows, ``wgmma`` for the (k, m) A),
+    one launch each, matching the plain version; nothing falls back to a
+    variant that reads the default layout."""
+    cases = [(_rand((8, 64), torch.bfloat16, cuda, 37),
+              _rand((9, 67), torch.bfloat16, cuda, 38)[:, :64], "mk", "nk", "decode"),
+             (_rand((64, 37), torch.bfloat16, cuda, 39),
+              _rand((64, 64), torch.bfloat16, cuda, 40) * 0.125, "km", "kn", "wgmma")]
+    for a, b, a_layout, b_layout, variant in cases:
+        before = ops.matmul_variant_counts()
+        got = streamed_matmul(a, b, a_layout=a_layout, b_layout=b_layout)
+        want = _plain(a, b, torch.bfloat16, a_layout=a_layout, b_layout=b_layout)
+        torch.cuda.synchronize()
+        after = ops.matmul_variant_counts()
+        assert {v: after[v] - before[v] for v in after if after[v] != before[v]} == {variant: 1}
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
 # the tied head (n = 122753) is (n, k) only: a (k, n) copy has an odd row stride
@@ -933,6 +942,41 @@ def test_train_loop_modes_agree_on_the_card(cuda):
         assert row["fetch_words_planned"] == row["fetch_words_measured"]
 
 
+def test_remat_dots_on_the_card(cuda):
+    """``remat="dots"`` on the card: the loss and every gradient leaf of
+    ``"full"`` bit for bit (the kept products are the ones ``"full"``
+    recomputes, from the same inputs on the same kernel), with 3 matmul
+    launches a product against ``"full"``'s 4 less the head's recompute,
+    and flash launched twice a layer in both."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.optim.compress import tree_map
+
+    cfg = _loop_cut()
+    params = M.init_params(cfg, 0, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 129)),
+                           device="cuda")
+    runs = {}
+    for remat in ("full", "dots"):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        before = ops.launch_counts()
+        loss, _ = M.loss_fn(dataclasses.replace(cfg, remat=remat), live, toks[:, :-1],
+                            toks[:, 1:], device="cuda")
+        grads = torch.autograd.grad(loss, leaves(live))
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        runs[remat] = (loss.detach(), grads, {k: after[k] - before[k] for k in after})
+    prods = 7 * cfg.num_layers + 1
+    assert runs["full"][2]["streamed_matmul"] == 4 * prods - 1
+    assert runs["dots"][2]["streamed_matmul"] == 3 * prods
+    assert runs["full"][2]["flash_attention"] == runs["dots"][2]["flash_attention"] \
+        == 2 * cfg.num_layers
+    assert torch.equal(runs["full"][0], runs["dots"][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs["full"][1], runs["dots"][1]))
+
+
 @pytest.mark.parametrize("compiled", [True, False])
 def test_train_loop_crash_resumes_bit_exact_on_the_card(cuda, tmp_path, compiled):
     """A dispatch failure mid-interval: one resume from the card's
@@ -988,14 +1032,37 @@ def test_flash_head_dim_192_matches_plain(cuda, b, hq, hkv, sq, skv, causal, dty
         assert torch.equal(out, flash_attention(q, k, v, causal=causal))
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 96, 256])
+@pytest.mark.parametrize("d", [8, 16, 32, 48, 96, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_other_head_dims_raise(cuda, d, dtype):
-    """Head dims the kernel does not take raise on the card (the smoke
-    configs' 8 and 16 run on the CPU only); nothing is launched."""
-    q = _rand((1, 2, 64, d), dtype, cuda)
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_flash_head_dims_match_plain(cuda, d, dtype, with_lse):
+    """Head dims the kernel is built for (16, 32, 256) and ones it runs
+    zero-padded to the next (8 → 16, 48 → 64, 96 → 128), on both kernels,
+    GQA 4/2 with ragged queries at the end of the keys: one launch, the
+    output in the documented layout within 2e-4 (fp32) and 2e-2 (bf16) of
+    the plain version at the unpadded D's ``sm_scale``, the lse within
+    1e-3."""
+    q = _rand((2, 4, 100, d), dtype, cuda, 63)
+    k = _rand((2, 2, 130, d), dtype, cuda, 64)
+    v = _rand((2, 2, 130, d), dtype, cuda, 65)
     before = ops.launch_counts()["flash_attention"]
-    with pytest.raises(ValueError, match="head dims"):
+    got = flash_attention(q, k, v, return_lse=with_lse)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want, want_lse = ref.attention_ref_lse(q, k, v)
+    out = got[0] if with_lse else got
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    if with_lse:
+        torch.testing.assert_close(got[1], want_lse, rtol=0, atol=1e-3)
+
+
+def test_flash_head_dims_past_256_raise(cuda):
+    """Head dim 320 has no kernel to run at: it raises, naming the limit,
+    and nothing is launched."""
+    q = _rand((1, 2, 64, 320), torch.bfloat16, cuda)
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="up to 256"):
         flash_attention(q, q, q)
     assert ops.launch_counts()["flash_attention"] == before
 

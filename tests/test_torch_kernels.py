@@ -27,7 +27,12 @@ from repro.kernels.streamed_matmul import matmul_plan as j_matmul_plan
 from repro.kernels.streamed_matmul import streamed_matmul as j_matmul
 from repro_torch.core import bsp as tbsp
 from repro_torch.kernels import ops, pipeline, ref
-from repro_torch.kernels.flash_attention import attention_plan
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS,
+    attention_plan,
+    kernel_head_dim,
+    pad_head_dim,
+)
 from repro_torch.kernels.ssm_scan import (
     bwd_geometry,
     launch_geometry,
@@ -47,6 +52,7 @@ from repro_torch.kernels.streamed_matmul import (
     deep_split,
     matmul_plan,
     split_for,
+    tma_rows,
     variant_for,
 )
 
@@ -117,6 +123,36 @@ def test_attention_bf16_matches_jax_kernel(rng):
     got = ops.attention(tq, tk, tv)
     assert got.dtype == torch.bfloat16
     _close(got, want, TOL["bfloat16"])
+
+
+def test_kernel_head_dim():
+    """The head dim each D runs at on the card: itself where the kernel is
+    built for it, else the next built one; past 256 a ValueError."""
+    assert [kernel_head_dim(d) for d in (1, 8, 16, 17, 48, 64, 96, 128, 160, 192, 200, 256)] \
+        == [16, 16, 16, 32, 64, 64, 128, 128, 192, 192, 256, 256]
+    assert all(kernel_head_dim(d) == d for d in HEAD_DIMS)
+    with pytest.raises(ValueError, match="256"):
+        kernel_head_dim(257)
+
+
+@pytest.mark.parametrize("d", [8, 12, 48, 96, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_padding_is_exact(rng, d, causal):
+    """The card's padding as plain algebra: Q, K, V zero-padded to the
+    kernel's head dim, attention at the unpadded D's ``sm_scale``, the
+    output cut back, equal to the unpadded attention and its lse within
+    1e-6 (GQA 4/2, queries at the end of the keys)."""
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               for shape in ((2, 4, 40, d), (2, 2, 72, d), (2, 2, 72, d)))
+    want, want_lse = ref.attention_ref_lse(q, k, v, causal=causal, sm_scale=d ** -0.5)
+    dk = kernel_head_dim(d)
+    padded = [pad_head_dim(t, dk) for t in (q, k, v)]
+    assert all(t.shape[-1] == dk and torch.equal(t[..., :d], s) and not t[..., d:].any()
+               for t, s in zip(padded, (q, k, v)))
+    out, lse = ref.attention_ref_lse(*padded, causal=causal, sm_scale=d ** -0.5)
+    assert not out[..., d:].any()
+    torch.testing.assert_close(out[..., :d], want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-6)
 
 
 def test_attention_is_causal(rng):
@@ -334,11 +370,11 @@ def test_tma_rows_pads_only_what_tma_cannot_read():
     122,760 apart (a view of the first 122,753), aligned ones pass as they
     are."""
     odd = torch.randn(3, 122753).to(torch.bfloat16)
-    padded = ops._tma_rows(odd)
+    padded = tma_rows(odd)
     assert padded.shape == odd.shape and padded.stride() == (122760, 1)
     assert torch.equal(padded, odd)
     even = torch.randn(3, 64).to(torch.bfloat16)
-    assert ops._tma_rows(even) is even
+    assert tma_rows(even) is even
 
 
 def test_decode_plan_geometry():

@@ -16,6 +16,8 @@ order (the port's CPU path runs the kernels' plain versions):
   gradient, whose entries reach 5.0, lies 1.6e-6 past rtol);
 * one ``make_train_step`` (AdamW, with and without ``compress_bf16``):
   parameters and moments within 1e-5 + 1e-3·lr (absolute);
+* ``remat="full"`` and ``"dots"`` against ``"none"``: rtol 1e-6, atol 1e-7
+  (the same float32 ops in the same order: bit-equal in practice);
 * schedules: rtol 1e-6 (float32 on both sides);
 * the flash Function's and the matmul Function's gradients: rtol 1e-4,
   atol 1e-5.
@@ -129,23 +131,83 @@ def test_grads_match_reference(models):
         np.testing.assert_allclose(t.numpy(), j, rtol=1e-4, atol=1e-6 * scale)
 
 
+def _remat_loss_and_grads(tc, tp, toks, labels, remat):
+    cfg = dataclasses.replace(tc, remat=remat)
+    live = jax.tree_util.tree_map(lambda t: t.detach().requires_grad_(True), tp)
+    loss, _ = TM.loss_fn(cfg, live, torch.as_tensor(toks), torch.as_tensor(labels),
+                         device="cpu")
+    return loss.detach(), torch.autograd.grad(loss, leaves(live))
+
+
+@pytest.mark.parametrize("models", TRAIN_ARCHS, indirect=True)
 def test_remat_full_gives_the_same_grads(models):
     """``remat="full"`` recomputes each period in the backward pass
-    (``torch.utils.checkpoint``): the same gradients as ``"none"``."""
+    (``torch.utils.checkpoint``) and ``"dots"`` too, with its matmuls'
+    outputs kept from the forward: the loss and every gradient leaf of
+    ``"none"`` (the same float32 ops in the same order, so bit-equal here;
+    held at rtol 1e-6, atol 1e-7)."""
     _, tc, _, tp = models
     toks, labels = _batch(tc, seed=2)
-    grads = []
-    for remat in ("none", "full"):
-        cfg = dataclasses.replace(tc, remat=remat)
-        live = jax.tree_util.tree_map(lambda t: t.detach().requires_grad_(True), tp)
-        loss, _ = TM.loss_fn(cfg, live, torch.as_tensor(toks), torch.as_tensor(labels),
-                             device="cpu")
-        grads.append(torch.autograd.grad(loss, leaves(live)))
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="dots"):
-        TM.loss_fn(dataclasses.replace(tc, remat="dots"), tp, torch.as_tensor(toks),
-                   torch.as_tensor(labels), device="cpu")
+    runs = {remat: _remat_loss_and_grads(tc, tp, toks, labels, remat)
+            for remat in ("none", "full", "dots")}
+    for remat in ("full", "dots"):
+        torch.testing.assert_close(runs[remat][0], runs["none"][0], rtol=1e-6, atol=1e-7)
+        for a, b in zip(runs[remat][1], runs["none"][1]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("models", TRAIN_ARCHS, indirect=True)
+def test_remat_dots_grads_match_reference(models):
+    """``remat="dots"`` against the reference's loss and ``jax.grad`` under
+    its ``"dots"`` (``checkpoint_dots_with_no_batch_dims``), at
+    :func:`test_grads_match_reference`'s tolerances."""
+    jc, tc, jp, tp = models
+    jc = dataclasses.replace(jc, remat="dots")
+    toks, labels = _batch(jc, seed=1)
+    scaled = jc.name.startswith("jamba")
+    jl, jg = jax.value_and_grad(
+        lambda p: JM.loss_fn(jc, p, jnp.asarray(toks), jnp.asarray(labels))[0])(jp)
+    loss, tg = _remat_loss_and_grads(tc, tp, toks, labels, "dots")
+    assert float(loss) == pytest.approx(float(jl), rel=1e-5)
+    for (j, _), t in zip(_leaf_pairs(jg, tp), tg):
+        j = np.asarray(j)
+        scale = max(1.0, float(np.abs(j).max())) if scaled else 1.0
+        np.testing.assert_allclose(t.numpy(), j, rtol=1e-4, atol=1e-6 * scale)
+
+
+def test_remat_dots_makes_each_product_once(models, monkeypatch):
+    """The products that reach ``ops.matmul`` in one loss and backward:
+    ``"dots"`` makes the forward's once, as ``"none"`` does; ``"full"``
+    makes the periods' forward products a second time in the backward pass
+    (every product but the LM head, which sits outside the periods)."""
+    _, tc, _, tp = models
+    toks, labels = _batch(tc, seed=4)
+    calls = []
+    matmul = ops.matmul
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return matmul(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "matmul", counted)
+    made = {}
+    for remat in ("none", "full", "dots"):
+        calls.clear()
+        _remat_loss_and_grads(tc, tp, toks, labels, remat)
+        made[remat] = len(calls)
+    calls.clear()
+    with torch.no_grad():
+        TM.loss_fn(tc, tp, torch.as_tensor(toks), torch.as_tensor(labels), device="cpu")
+    forward = len(calls)
+    assert made["none"] == made["dots"] == 3 * forward
+    assert made["full"] == 4 * forward - 1
+
+
+def test_unknown_remat_raises(models):
+    _, tc, _, tp = models
+    toks, labels = _batch(tc, seed=2)
+    with pytest.raises(ValueError, match="remat"):
+        _remat_loss_and_grads(tc, tp, toks, labels, "offload")
 
 
 @pytest.mark.parametrize("compress_bf16", [True, False])
