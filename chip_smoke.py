@@ -8,7 +8,8 @@ each against its plain PyTorch version at the shapes the serve and train
 paths give it (and ragged shapes, and the matmul's transposed operand
 layouts: the tied LM head's (V, d) B and a train step's backward products;
 flash at head dims 16, 32, 192 and 256 (8 and 48 zero-padded) in bf16 and
-fp32, fp32 at train_lm's shape, and the matmul at nemotron's and xlstm's shapes,
+fp32, fp32 at train_lm's shape, jamba-train's fp32 cut and nemotron's D 192,
+each fp32 instance checked free of spills, and the matmul at nemotron's and xlstm's shapes,
 and ``decode_deep`` at the deep-K decode products beside ``decode_wmma``
 forced on the same operands), times it beside the plain version and one
 library call where there is one, and checks 2-layer full-width cuts of
@@ -83,7 +84,8 @@ and ``pipeline_apply`` at one stage, each bit for bit against the bare
 product or stage; the host-level fit on one host; a sharded save and a
 restore through a ``sharder`` of the 2-layer cut — and ``examples`` runs
 the port's examples at their defaults, quickstart's train step of
-qwen2-moe-a2.7b's smoke config (flash at head dim 16) included. One card:
+qwen2-moe-a2.7b's smoke config (flash at head dim 16) included, train_lm's
+300 fp32 steps with their wall and their fp32.d64 flash launches. One card:
 no collective crosses ranks. Every check that fails raises,
 and the script exits non-zero. Each phase prints its wall time. It imports
 neither JAX nor the JAX package.
@@ -603,16 +605,22 @@ def check_flash(rows: dict) -> None:
             attrs = flash_mod.kernel_attrs(d, dtype, torch.device("cuda"))
             name = flash_mod.variant_name(dtype, d)
             log(f"[kernel] flash_attention {name} attrs: {json.dumps(attrs)}")
+            check(dtype == torch.bfloat16 or attrs["spill_bytes"] == 0,
+                  f"flash_attention {name} spills {attrs['spill_bytes']} bytes a thread")
             if f"flash_attention.{name}" in rows:
                 rows[f"flash_attention.{name}"].update(attrs)
 
 
 # (label, B, Hq, Hkv, Sq, Skv, D, dtype): the fp32 kernel at train_lm's shape
-# (the examples' fp32 10M LM, D 64), both kernels at quickstart's (qwen2-moe
-# smoke: B 2, S 32, D 16) and at the smoke configs' D 8 (zero-padded to 16),
-# ragged GQA at D 32 and D 48 (padded to 64), and D 256 (GQA 16/8)
+# (the examples' fp32 10M LM, D 64), at jamba-train's fp32 cut (GQA 32/8,
+# S 64, D 128) and at nemotron's D 192 (GQA 96/8), both kernels at
+# quickstart's (qwen2-moe smoke: B 2, S 32, D 16) and at the smoke configs'
+# D 8 (zero-padded to 16), ragged GQA at D 32 and D 48 (padded to 64), and
+# D 256 (GQA 16/8)
 FLASH_HEAD_DIM_CASES = [
     ("train_lm", 8, 4, 4, 256, 256, 64, torch.float32),
+    ("jamba-train fp32 cut", 2, 32, 8, 64, 64, 128, torch.float32),
+    ("nemotron", 4, 96, 8, 256, 256, 192, torch.float32),
     *[(label, *shape, dtype) for dtype in (torch.bfloat16, torch.float32)
       for label, shape in (("quickstart", (2, 4, 4, 32, 32, 16)),
                            ("smoke D 8", (2, 8, 2, 64, 64, 8)),
@@ -624,8 +632,9 @@ FLASH_HEAD_DIM_CASES = [
 
 def check_flash_head_dim(rows: dict, label, b, hq, hkv, sq, skv, d, dtype) -> None:
     """One head dim and dtype against the plain version (output and lse),
-    within 2e-4 (fp32) or 2e-2 (bf16) absolute and relative, timed beside
-    the plain version and SDPA (fp32: the math backend, TF32 off)."""
+    within 2e-4 (fp32) or 2e-2 (bf16) absolute and relative, the output
+    with lse equal to the output without, timed beside the plain version
+    and SDPA (fp32: the math backend, TF32 off)."""
     sets = copies_past_l2(
         lambda i: (randn((b, hq, sq, d), dtype, 10 * i + 11),
                    randn((b, hkv, skv, d), dtype, 10 * i + 12),
@@ -648,6 +657,8 @@ def check_flash_head_dim(rows: dict, label, b, hq, hkv, sq, skv, d, dtype) -> No
           f"flash_attention {shape}: max err {err} (tol {tol}), lse {lse_err} (tol 1e-3)")
     check(out.shape == q.shape and out.transpose(1, 2).is_contiguous(),
           f"flash_attention {shape}: output layout {out.shape} {out.stride()}")
+    check(torch.equal(out, ops.attention(q, k, v)),
+          f"flash_attention {shape}: the output with lse differs from the output without")
     ms, enqueue = bench_ms(lambda q, k, v: ops.attention(q, k, v), sets, 50)
     plain, _ = bench_ms(lambda q, k, v: ref.attention_ref(q, k, v), sets, 20)
     # SDPA aligns causal queries with the first keys: a ragged case passes
@@ -1420,13 +1431,20 @@ def examples_path() -> None:
     done = run("serve_engine", lambda: serve_engine.main([]))
     check(sorted(done) == list(range(6)), f"serve_engine: drained {sorted(done)}")
     tmp = Path(tempfile.mkdtemp(prefix="train_lm_", dir=ROOT / "build"))
+    before = counts_now()
     try:
         hist = run("train_lm", lambda: train_lm.main(["--ckpt-dir", str(tmp)]))["history"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    lm_flash = counts_now()["flash_attention.fp32.d64"] - before["flash_attention.fp32.d64"]
     losses = [h["loss"] for h in hist]
     check(len(losses) == 300 and all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"train_lm: {len(losses)} steps, loss {losses[0]} -> {losses[-1]}")
+    layers = train_lm.make_config("10m").num_layers
+    check(lm_flash == len(losses) * layers,
+          f"train_lm: {lm_flash} fp32.d64 flash launches, not {len(losses)} x {layers}")
+    log(f"[examples] train_lm: {len(losses)} fp32 steps in {walls['train_lm']:.2f} s, "
+        f"{lm_flash} fp32.d64 flash launches, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     errs = run("bsps_cannon", lambda: bsps_cannon.main([]))
     check(all(e < 1e-2 for e in errs.values()), f"bsps_cannon: errors {errs}")
     err = run("bsps_spmv", lambda: bsps_spmv.main([]))

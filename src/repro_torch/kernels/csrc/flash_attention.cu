@@ -5,9 +5,9 @@
 // softmax state (m, l, acc) is carried across the sequential KV axis in VMEM
 // scratch, skipping KV blocks above the causal diagonal.
 //
-// Both kernels below share the launch: one block of 4 warps per (q block of
-// 64, q head, batch) — the plan's three "parallel" axes are the CUDA grid —
-// and the KV stream is a loop inside the block over blocks of 64 keys, up to
+// Both kernels below share the launch grid: one block per (q block of 64,
+// q head, batch) — the plan's three "parallel" axes are the CUDA grid — and
+// the KV stream is a loop inside the block over blocks of 64 keys, up to
 // the diagonal under causal masking (the pseudo-streaming skip). q-head h
 // reads kv-head h / (Hq / Hkv) (GQA), queries sit at the end of the keys
 // (q_offset = Skv - Sq), ragged Sq and Skv are masked (never padded), heads
@@ -47,17 +47,41 @@
 //
 // Both kernels may also write the rows' log-sum-exp (lse, (B, Hq, Sq) fp32,
 // natural log), which the backward pass (models/flash.py) recomputes the
-// probabilities from. The bf16 kernel's running max m₂ and sum l live in
-// the log2 domain (scores scaled by sm_scale·log2 e, exp2f), so its lse is
-// (m₂ + log₂ l)·ln 2; the fp32 kernel's are natural, lse = m + ln l. l is
-// clamped at 1e-30 as for the output.
+// probabilities from. Their running max m₂ and sum l live in the log2
+// domain (scores scaled by sm_scale·log2 e, exp2f), so lse is
+// (m₂ + log₂ l)·ln 2, l clamped at 1e-30 as for the output.
 //
-// fp32: the first version, on the CUDA cores, kept for fp32 inputs (the
-// fp32 LM of the train_lm example). TF32 tensor cores would round Q, K and P to 10 bits and
-// break the fp32 tolerance of 2e-4. Q and one K/V block sit in shared memory
-// as fp32 rows padded by one word (145 KB at D 192, 193 KB at D 256); two
-// threads own one query row, each computing half of its scores and holding
-// half of its output accumulator (D/2 fp32: 128 at D 256).
+// fp32 (the fp32 LM of the train_lm example, jamba's fp32 cut, the fp32
+// smoke configs): exact fp32 FFMAs with fp32 accumulation on the CUDA
+// cores, no TF32 and no tensor-core emulation — TF32 would round Q, K and P
+// to 10 bits and break the fp32 tolerance of 2e-4. Bound on this card by
+// operations (4·D FLOPs a (query, key) pair at the 67 TFLOP/s of the fp32
+// pipes) and, inside the SM, by the shared-memory reads that feed them: a
+// warp's LDS.128 delivers 512 bytes, four of the SM's 128-byte cycles,
+// however many of its lanes read the same word, so each loaded float must
+// feed several FFMAs. What the design does about it (one tile choice a
+// head dim, F32Tile): 8 warps a block, both products register-tiled, each
+// thread owning 4 queries × 4 keys of S and the same 4 rows × D/16 columns
+// of O, so a d-quad's 8 LDS.128 of Q and K feed 64 FFMAs and a key's
+// LDS.128 of P and D/64 LDS.128 of V feed D/4. Q and each K block are
+// staged k-major in d-quads (X4[d/4][row][4]) by 16-byte cp.async copies
+// (4-byte ones where rows are not 16-byte aligned), read by the S loop as
+// they are, with no transposition; sm_scale·log2 e scales the scores. The
+// online softmax runs in registers in the log2 domain (exp2f), the 16
+// threads of a query row in one half-warp (row max by shuffles, l a
+// per-lane partial summed at the end); P goes to shared memory key-major
+// (Pᵀ, its 16-byte chunks XOR-swizzled by key so that the stores are free
+// of bank conflicts), each warp reading back only its own rows behind a
+// warp barrier. V stays row-major, filled by 16-byte cp.async where its
+// rows are 16-byte aligned and 4-byte ones otherwise. Up to D 128, K and V
+// are double-buffered, the next block's copies in flight while this one is
+// computed (96 KB of shared memory at D 64: two blocks an SM; 176 KB at
+// D 128); above, one K and one V block fit (160 and 208 KB at D 192 and
+// 256): the next K block is copied during this block's P·V and each V
+// block during its S. The heaviest causal q blocks go first. Each score is
+// one ascending-d FMA chain and each output one ascending-key chain, and l
+// sums in a fixed order, so the same inputs give the same bits, with or
+// without lse.
 
 #include <type_traits>
 
@@ -340,118 +364,338 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// -- fp32: the CUDA cores -----------------------------------------------------------
+// -- fp32: register-tiled exact FFMAs on the CUDA cores ---------------------------
+
+// 4-byte global -> shared copy (through L1: the transposing copies read each
+// 32-byte sector in two halves); zero-fills the destination when !ok
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// The fp32 kernel's one tile choice a head dim. A block is the plan's BQ =
+// 64 queries and 8 warps, and streams the plan's BKV = 64 keys at a time.
+// The threads form 16 query groups of 4 rows by 16 column groups, a query
+// group's 16 threads in one half-warp. S = Q·Kᵀ: each thread scores its 4
+// queries × TK = 4 keys. P·V: the same thread owns the same rows' outputs
+// at D/16 columns, NC pieces of W adjacent columns 16·W apart, so the
+// softmax's α stays in its registers and a warp reads back only the rows
+// of P it wrote. Shared memory: Q and K in d-quads, V row-major, Pᵀ
+// key-major with its 4-query chunks XOR-swizzled by key. K and V are
+// double-buffered up to D 128; above, one K and one V block fit the 227 KB
+// (SPLIT): the next K block is copied during this block's P·V, and each V
+// block during its S. The unrolls are the largest that do not spill.
+template <int D>
+struct F32Tile {
+  static constexpr int kThreads = 256, kWarps = 8, TK = BKV / 16;
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int BUFS = SPLIT ? 1 : 2;           // K and V buffers
+  static constexpr int W = D >= 64 ? 4 : D / 16;       // adjacent output columns a piece
+  static constexpr int NC = D / (16 * W);              // pieces a row
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;   // two blocks an SM up to D 64
+  static constexpr int S_UNROLL = D > 192 ? 1 : 4, PV_UNROLL = D > 128 ? 4 : 8;  // d-quads, keys
+  static constexpr int Q_FLOATS = BQ * D, KV_FLOATS = BKV * D;
+  static constexpr int SMEM = (Q_FLOATS + 2 * BUFS * KV_FLOATS + BKV * BQ) * 4;
+  static_assert(D % 16 == 0 && BQ == 64 && BKV == 64, "16 groups of 4 rows and of 4 keys");
+};
+
+// N adjacent floats (1, 2 or 4) from shared memory as one LDS.32, .64 or .128
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float (&r)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x, r[1] = t.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+// N adjacent floats stored as one store where `vec` (the address is N
+// floats aligned), else as N
+template <int N>
+__device__ __forceinline__ void st(float* p, const float (&r)[N], bool vec) {
+  if constexpr (N == 4) {
+    if (vec) {
+      *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+      return;
+    }
+  } else if constexpr (N == 2) {
+    if (vec) {
+      *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) p[i] = r[i];
+}
+
+// Pᵀ[key][q], q a multiple of 4: the 16-byte chunk of queries q..q+3 moves
+// to chunk (q / 4) ^ ((key / 4) % 8), so that the 8 lanes of a
+// quarter-warp, which store the same queries at 8 keys 4 apart, hit 8 bank
+// groups
+__device__ __forceinline__ int p_idx(int key, int q) {
+  return key * BQ + (((q >> 2) ^ ((key >> 2) & 7)) << 2);
+}
+
+// Rows [r0, r0 + ROWS) of a (rows, D) matrix with row stride `rs` into its
+// d-quad tile X4[D / 4][ROWS][4]: the quad of d 4c..4c+3 of the row at
+// position p sits at X4[c][p], and position p holds row r0 + (p % 16)·R +
+// p / 16 (R = ROWS / 16), so that the R rows of one column group (rows
+// g·R .. g·R + R - 1) sit 16 positions apart. 16-byte copies where the rows
+// are 16-byte aligned (`vec`), else 4-byte ones; no transposition. A warp
+// instruction copies 8 positions × 4 quads: 8 rows of 64 contiguous bytes
+// in device memory, 8 consecutive 16-byte chunks a quarter-warp in shared
+// memory. Rows at or past `limit` are zero-filled. Q (ROWS = BQ) and each
+// K block.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_quads(uint32_t dst, const float* __restrict__ src,
+                                           long long rs, int r0, int limit, bool vec, int warp,
+                                           int lane) {
+  constexpr int WARPS = F32Tile<D>::kWarps, PG = ROWS / 8, R = ROWS / 16;
+  static_assert(PG * (D / 16) % WARPS == 0, "every warp copies whole groups");
+#pragma unroll
+  for (int it = 0; it < PG * (D / 16) / WARPS; ++it) {
+    const int i = warp + WARPS * it;
+    const int p = (i % PG) * 8 + (lane & 7), c = (i / PG) * 4 + (lane >> 3);
+    const int r = r0 + (p % 16) * R + p / 16;
+    const bool ok = r < limit;
+    const float* from = ok ? src + (long long)r * rs + c * 4 : src;
+    const uint32_t to = dst + (c * ROWS + p) * 16;
+    if (vec) {
+      cp_async16(to, from, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(to + e * 4, ok ? from + e : src, ok);
+    }
+  }
+}
+
+// V block [k0, k0 + BKV) into V[BKV][D]: 16-byte copies where the rows are
+// 16-byte aligned (`vec`), else 4-byte ones; keys at or past skv are
+// zero-filled
+template <int D>
+__device__ __forceinline__ void load_v(uint32_t dst, const float* __restrict__ vh, long long vss,
+                                       int k0, int skv, bool vec, int tid) {
+  using T = F32Tile<D>;
+  static_assert(BKV * D / 4 % T::kThreads == 0, "every thread copies whole chunks");
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < BKV * D / 4 / T::kThreads; ++it) {
+      const int idx = tid + it * T::kThreads, key = idx / (D / 4), c = idx % (D / 4);
+      const bool ok = k0 + key < skv;
+      cp_async16(dst + (key * D + c * 4) * 4, ok ? vh + (long long)(k0 + key) * vss + c * 4 : vh,
+                 ok);
+    }
+  } else {
+#pragma unroll 8
+    for (int it = 0; it < BKV * D / T::kThreads; ++it) {
+      const int idx = tid + it * T::kThreads, key = idx / D, d = idx % D;
+      const bool ok = k0 + key < skv;
+      cp_async4(dst + (key * D + d) * 4, ok ? vh + (long long)(k0 + key) * vss + d : vh, ok);
+    }
+  }
+}
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Tile<D>::kThreads, F32Tile<D>::MIN_BLOCKS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
               int hq, int hkv, int sq,
-              int skv, int q_offset, int causal, float scale, int n_kv,
+              int skv, int q_offset, int causal, float scale_log2, int n_kv,
               long long qsb, long long qsh, long long qss,
               long long ksb, long long ksh, long long kss,
               long long vsb, long long vsh, long long vss,
               long long osb, long long osh, long long oss) {
-  constexpr int P = D + 1;       // padded row stride of the fp32 tiles
-  constexpr int HALF = D / 2;
+  using T = F32Tile<D>;
+  constexpr int RQ = 4, TK = T::TK, W = T::W, NC = T::NC;   // RQ: query rows a thread
   extern __shared__ __align__(16) unsigned char smem_f32[];
-  float* q_s = reinterpret_cast<float*>(smem_f32);   // Q block, one K and one V block
-  float* k_s = q_s + BQ * P;
-  float* v_s = k_s + BKV * P;
+  float* q_s = reinterpret_cast<float*>(smem_f32);     // Q4[D/4][BQ][4]
+  float* k_s = q_s + T::Q_FLOATS;                      // [BUFS] K4[D/4][BKV][4]
+  float* v_s = k_s + T::BUFS * T::KV_FLOATS;           // [BUFS] V[BKV][D]
+  float* p_s = v_s + T::BUFS * T::KV_FLOATS;           // Pᵀ[BKV][BQ], swizzled
+  const uint32_t q_a = smem_u32(q_s), k_a = smem_u32(k_s), v_a = smem_u32(v_s);
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qg = tid >> 4, kg = tid & 15;              // query group, key / column group
+  const int qi = gridDim.x - 1 - blockIdx.x;           // heaviest causal blocks first
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
   const float* qh = q + b * qsb + h * qsh;
   const float* kh = k + b * ksb + hk * ksh;
   const float* vh = v + b * vsb + hk * vsh;
+  const bool q_vec = reinterpret_cast<uintptr_t>(qh) % 16 == 0 && qss % 4 == 0;
+  const bool k_vec = reinterpret_cast<uintptr_t>(kh) % 16 == 0 && kss % 4 == 0;
+  const bool v_vec = reinterpret_cast<uintptr_t>(vh) % 16 == 0 && vss % 4 == 0;
 
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D, row = qi * BQ + r;
-    q_s[r * P + c] = row < sq ? qh[row * qss + c] : 0.f;
-  }
-
-  const int r = tid >> 1, half = tid & 1;
-  const int q_pos = qi * BQ + r + q_offset;
-  float m_run = bsps::kNegInf, l_run = 0.f;
-  float acc[HALF];
-#pragma unroll
-  for (int d = 0; d < HALF; ++d) acc[d] = 0.f;
-
-  int last = n_kv - 1;
+  int last = n_kv - 1;                                 // the last KV block the causal skip keeps
   if (causal) {
     const int lim = qi * BQ + q_offset + BQ - 1;
     last = lim < 0 ? -1 : min(last, lim / BKV);
   }
-  for (int j = 0; j <= last; ++j) {                 // the KV stream
-    __syncthreads();                                // previous tiles consumed
-    for (int idx = tid; idx < BKV * D; idx += kThreads) {
-      const int rr = idx / D, c = idx % D, key = j * BKV + rr;
-      const bool ok = key < skv;
-      k_s[rr * P + c] = ok ? kh[key * kss + c] : 0.f;
-      v_s[rr * P + c] = ok ? vh[key * vss + c] : 0.f;
-    }
-    __syncthreads();
+  load_quads<D, BQ>(q_a, qh, qss, qi * BQ, sq, q_vec, warp, lane);
+  if (last >= 0) {
+    load_quads<D, BKV>(k_a, kh, kss, 0, skv, k_vec, warp, lane);
+    if constexpr (!T::SPLIT) load_v<D>(v_a, vh, vss, 0, skv, v_vec, tid);
+  }
+  cp_async_commit();
 
-    float s[BKV / 2];
-    float mx = bsps::kNegInf;
+  const int qpos = qi * BQ + qg * RQ + q_offset;       // row i's position: qpos + i
+  float m_r[RQ], l_r[RQ], acc[RQ][NC * W];
 #pragma unroll
-    for (int cc = 0; cc < BKV / 2; ++cc) {
-      const int kc = 2 * cc + half, k_pos = j * BKV + kc;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) dot += q_s[r * P + d] * k_s[kc * P + d];
-      dot *= scale;
-      if (k_pos >= skv || (causal && q_pos < k_pos)) dot = bsps::kNegInf;
-      s[cc] = dot;
-      mx = fmaxf(mx, dot);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    float row_sum = 0.f;
+  for (int i = 0; i < RQ; ++i) {
+    m_r[i] = bsps::kNegInf, l_r[i] = 0.f;
 #pragma unroll
-    for (int cc = 0; cc < BKV / 2; ++cc) {
-      s[cc] = expf(s[cc] - m_new);
-      row_sum += s[cc];
-    }
-    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
-    const float alpha = expf(m_run - m_new);        // rescale the old state
-    l_run = alpha * l_run + row_sum;
-    m_run = m_new;
-#pragma unroll
-    for (int d = 0; d < HALF; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int cc = 0; cc < BKV / 2; ++cc) {  // fully unrolled: s[] stays in registers
-      const float p0 = __shfl_sync(0xffffffffu, s[cc], lane & ~1);
-      const float p1 = __shfl_sync(0xffffffffu, s[cc], lane | 1);
-      const float* v0 = v_s + (2 * cc) * P + half * HALF;
-      const float* v1 = v0 + P;
-#pragma unroll
-      for (int d = 0; d < HALF; ++d) acc[d] += p0 * v0[d] + p1 * v1[d];
-    }
+    for (int c = 0; c < NC * W; ++c) acc[i][c] = 0.f;
   }
 
-  // the normalised output goes through the Q tile, written out coalesced
-  __syncthreads();
-  const float inv = 1.f / fmaxf(l_run, 1e-30f);
-  if (lse != nullptr && half == 0 && qi * BQ + r < sq)
-    lse[((long long)b * hq + h) * sq + qi * BQ + r] = m_run + logf(fmaxf(l_run, 1e-30f));
+  for (int j = 0; j <= last; ++j) {                    // the KV stream
+    const int buf = T::SPLIT ? 0 : j & 1;
+    cp_async_wait<0>();                                // block j's copies have landed
+    __syncthreads();                                   // ...for every thread; j - 1 is consumed
+    if constexpr (T::SPLIT) {
+      load_v<D>(v_a, vh, vss, j * BKV, skv, v_vec, tid);      // in flight during S
+    } else if (j < last) {                             // the next token, in flight
+      load_quads<D, BKV>(k_a + (buf ^ 1) * T::KV_FLOATS * 4, kh, kss, (j + 1) * BKV, skv,
+                          k_vec, warp, lane);
+      load_v<D>(v_a + (buf ^ 1) * T::KV_FLOATS * 4, vh, vss, (j + 1) * BKV, skv, v_vec, tid);
+    }
+    cp_async_commit();
+
+    // S = Q·Kᵀ: one ascending-d FMA chain a score, then scaled into log2
+    float s[RQ][TK];
 #pragma unroll
-  for (int d = 0; d < HALF; ++d) q_s[r * P + half * HALF + d] = acc[d] * inv;
-  __syncthreads();
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int t = 0; t < TK; ++t) s[i][t] = 0.f;
+    // (row qg·4 + i at position 16·i + qg, key kg·TK + t at 16·t + kg)
+    const float* qp = q_s + qg * 4;
+    const float* kp = k_s + buf * T::KV_FLOATS + kg * 4;
+#pragma unroll (T::S_UNROLL)
+    for (int c = 0; c < D / 4; ++c) {
+      float qv[RQ][4], kv[TK][4];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) lds<4>(qp + (c * BQ + 16 * i) * 4, qv[i]);
+#pragma unroll
+      for (int t = 0; t < TK; ++t) lds<4>(kp + (c * BKV + 16 * t) * 4, kv[t]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int t = 0; t < TK; ++t) s[i][t] = fmaf(qv[i][e], kv[t][e], s[i][t]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int t = 0; t < TK; ++t) s[i][t] *= scale_log2;
+
+    // mask only in blocks that cross the edge
+    const int k0 = j * BKV;
+    if (k0 + BKV > skv || (causal && k0 + BKV - 1 > qi * BQ + q_offset)) {
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int t = 0; t < TK; ++t) {
+          const int kpos = k0 + kg * TK + t;
+          if (kpos >= skv || (causal && kpos > qpos + i)) s[i][t] = bsps::kNegInf;
+        }
+    }
+
+    // online softmax: the row max over the half-warp by shuffles; l stays a
+    // per-lane partial sum until the end
+    float alpha[RQ];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      float mx = m_r[i];
+#pragma unroll
+      for (int t = 0; t < TK; ++t) mx = fmaxf(mx, s[i][t]);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      alpha[i] = exp2f(m_r[i] - mx);
+      m_r[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < TK; ++t) {
+        s[i][t] = exp2f(s[i][t] - mx);
+        sum += s[i][t];
+      }
+      l_r[i] = l_r[i] * alpha[i] + sum;
+    }
+#pragma unroll
+    for (int t = 0; t < TK; ++t) {
+      float col[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) col[i] = s[i][t];
+      st<RQ>(p_s + p_idx(kg * TK + t, qg * RQ), col, true);
+    }
+    __syncwarp();                                      // a warp reads only its own rows of P
+    if constexpr (T::SPLIT) {
+      __syncthreads();                                 // every warp is done with K
+      if (j < last) load_quads<D, BKV>(k_a, kh, kss, (j + 1) * BKV, skv, k_vec, warp, lane);
+      cp_async_commit();                               // in flight during P·V
+      cp_async_wait<1>();                              // V block j's copies have landed
+      __syncthreads();                                 // ...for every thread
+    }
+
+    // O = α·O + P·V: one ascending-key FMA chain an output
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int c = 0; c < NC * W; ++c) acc[i][c] *= alpha[i];
+    const float* vp = v_s + buf * T::KV_FLOATS + kg * W;
+#pragma unroll (T::PV_UNROLL)
+    for (int key = 0; key < BKV; ++key) {
+      float pv[RQ];
+      lds<RQ>(p_s + p_idx(key, qg * RQ), pv);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float vv[W];
+        lds<W>(vp + key * D + c * 16 * W, vv);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int w = 0; w < W; ++w) acc[i][c * W + w] = fmaf(pv[i], vv[w], acc[i][c * W + w]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // l over the half-warp (a butterfly: every lane ends with the same bits),
+  // the normalised rows stored W columns a lane, a half-warp's columns
+  // adjacent
   float* oh = o + b * osb + h * osh;
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int rr = idx / D, c = idx % D, row = qi * BQ + rr;
-    if (row < sq) oh[row * oss + c] = q_s[rr * P + c];
+  const bool o_vec = reinterpret_cast<uintptr_t>(oh) % (4 * W) == 0 && oss % W == 0;
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    float l = l_r[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    l = fmaxf(l, 1e-30f);
+    const float inv = 1.f / l;
+    const int row = qi * BQ + qg * RQ + i;
+    if (row >= sq) continue;
+    if (lse != nullptr && kg == 0)
+      lse[((long long)b * hq + h) * sq + row] = (m_r[i] + log2f(l)) * 0.6931471805599453f;
+    float* dst = oh + (long long)row * oss + kg * W;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float r[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) r[w] = acc[i][c * W + w] * inv;
+      st<W>(dst + c * 16 * W, r, o_vec);
+    }
   }
 }
 
-// dynamic shared memory a block: bf16 Q and double-buffered K, V; fp32 Q
-// and one K, V block, rows padded by a word
+// dynamic shared memory a block: bf16 Q and double-buffered K, V (the
+// fp32 kernel's is F32Tile<D>::SMEM)
 template <int D>
 constexpr int kSmemMma = (BQ + 4 * BKV) * D * 2;
-template <int D>
-constexpr int kSmemF32 = (BQ + 2 * BKV) * (D + 1) * 4;
 
 // calls f(std::integral_constant<int, D>{}) for the instantiated head dim D
 // equal to d; other d are refused
@@ -488,28 +732,29 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
     return cudaGetLastError();
   }
   if (dtype == bsps::kFloat32) {
-    constexpr int SMEM = kSmemF32<D>;
+    using T = F32Tile<D>;
     auto kernel = flash_fwd_f32<D>;
-    cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
+    cudaError_t err = bsps::prepare_smem(kernel, device, T::SMEM);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, SMEM, stream>>>(
+    kernel<<<grid, T::kThreads, T::SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), lse, hq, hkv, sq, skv, q_offset, causal, scale, n_kv, st[0], st[1],
-        st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+        static_cast<float*>(o), lse, hq, hkv, sq, skv, q_offset, causal,
+        scale * 1.4426950408889634f, n_kv, st[0], st[1], st[2], st[3],
+        st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
 }
 
 template <typename Kernel>
-cudaError_t attrs(Kernel kernel, int device, int smem, int* out) {
+cudaError_t attrs(Kernel kernel, int device, int threads, int smem, int* out) {
   cudaError_t err = bsps::prepare_smem(kernel, device, smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   out[0] = fa.numRegs, out[1] = (int)fa.localSizeBytes, out[2] = smem, out[3] = blocks;
   return err;
 }
@@ -547,7 +792,8 @@ BSPS_EXPORT int bsps_flash_attrs(int device, int d, int dtype, int* out) {
   if (dtype != bsps::kBFloat16 && dtype != bsps::kFloat32) return cudaErrorInvalidValue;
   return with_head_dim(d, [&](auto dk) {
     constexpr int D = decltype(dk)::value;
-    return dtype == bsps::kBFloat16 ? attrs(flash_fwd_mma<D>, device, kSmemMma<D>, out)
-                                    : attrs(flash_fwd_f32<D>, device, kSmemF32<D>, out);
+    return dtype == bsps::kBFloat16
+               ? attrs(flash_fwd_mma<D>, device, kThreads, kSmemMma<D>, out)
+               : attrs(flash_fwd_f32<D>, device, F32Tile<D>::kThreads, F32Tile<D>::SMEM, out);
   });
 }

@@ -12,7 +12,9 @@ through the K/V token index maps (q-head h reads kv-head h // group).
 q_blocks, kv_blocks) with kv sequential. On the card the three parallel axes
 are the CUDA grid and each block loops over its KV blocks; the kernel's
 blocks are 64 queries by 64 keys. bf16 runs on the tensor cores
-(``mma.sync``, K/V double-buffered by ``cp.async``), fp32 on the CUDA cores;
+(``mma.sync``, K/V double-buffered by ``cp.async``), fp32 in exact fp32
+FMAs on the CUDA cores (no TF32; both products register-tiled from k-major
+shared tiles, K/V streamed by ``cp.async`` too);
 ``csrc/flash_attention.cu`` describes both. Both are built for the head dims
 :data:`HEAD_DIMS`; any other head dim up to 256 runs at the next of them,
 its Q, K and V zero-padded (:func:`kernel_head_dim`, :func:`pad_head_dim`):

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 from repro_torch.kernels.ssm_scan import SEGMENT, ssm_scan, ssm_scan_bwd, ssm_scan_with_tape
 from repro_torch.kernels.streamed_dot import streamed_dot
 from repro_torch.kernels.streamed_matmul import streamed_matmul
@@ -1065,6 +1065,62 @@ def test_flash_head_dims_past_256_raise(cuda):
     with pytest.raises(ValueError, match="up to 256"):
         flash_attention(q, q, q)
     assert ops.launch_counts()["flash_attention"] == before
+
+
+# -- the fp32 kernel: register-tiled products, K/V streamed by cp.async -------------
+
+
+def _fp32_flash_matches_plain(q, k, v, causal=True):
+    """The fp32 kernel against the plain version: the output within 2e-4
+    absolute and relative, the lse within 1e-3, and the output with lse
+    equal to the output without."""
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    want, want_lse = ref.attention_ref_lse(q, k, v, causal=causal)
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_fp32_is_deterministic(cuda, d):
+    """Each score is one ascending-d FMA chain, each output one
+    ascending-key chain and l sums in a fixed order: two calls, the same
+    bits."""
+    q = _rand((2, 8, 200, d), torch.float32, cuda, 70)
+    k = _rand((2, 2, 200, d), torch.float32, cuda, 71)
+    v = _rand((2, 2, 200, d), torch.float32, cuda, 72)
+    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_fp32_long_causal_matches_plain(cuda, d):
+    """Sq = Skv = 1000: 16 KV blocks through the K/V stream (double-buffered
+    at D 64, one K and one V buffer at D 256), the last one ragged."""
+    _fp32_flash_matches_plain(_rand((1, 4, 1000, d), torch.float32, cuda, 73),
+                              _rand((1, 2, 1000, d), torch.float32, cuda, 74),
+                              _rand((1, 2, 1000, d), torch.float32, cuda, 75))
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_fp32_reads_unaligned_rows(cuda, d):
+    """fp32 rows need no 16-byte alignment: rows d + 1 floats apart from a
+    base one float past a 16-byte boundary (Q, K and V by 4-byte copies)."""
+    q, k, v = (_rand((2, h, s, d + 1), torch.float32, cuda, seed)[..., 1:]
+               for h, s, seed in ((4, 100, 76), (2, 130, 77), (2, 130, 78)))
+    assert q.stride(2) % 4 and k.data_ptr() % 16
+    _fp32_flash_matches_plain(q, k, v)
+
+
+def test_flash_fp32_reads_strided_heads(cuda):
+    x = _rand((2, 100, 3, 4, 64), torch.float32, cuda, 79)   # (B, S, qkv, H, D)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    _fp32_flash_matches_plain(q, k, v)
+
+
+def test_flash_fp32_gqa_decode_row_at_head_dim_256(cuda):
+    _fp32_flash_matches_plain(_rand((2, 16, 1, 256), torch.float32, cuda, 80),
+                              _rand((2, 4, 300, 256), torch.float32, cuda, 81),
+                              _rand((2, 4, 300, 256), torch.float32, cuda, 82))
 
 
 # xlstm-1.3b's projections (mLSTM w_up / w_z 2048 -> 4096 and w_down 4096 ->
