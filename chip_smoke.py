@@ -10,8 +10,10 @@ layouts: the tied LM head's (V, d) B and a train step's backward products;
 flash at head dims 16, 32, 192 and 256 (8 and 48 zero-padded) in bf16 and
 fp32, fp32 at train_lm's shape, jamba-train's fp32 cut and nemotron's D 192,
 each fp32 instance checked free of spills, and the matmul at nemotron's and xlstm's shapes,
-and ``decode_deep`` at the deep-K decode products beside ``decode_wmma``
-forced on the same operands), times it beside the plain version and one
+``decode_deep`` at the deep-K decode products beside ``decode_cp`` forced
+on the same operands (bit for bit), and the copy variants ``wgmma_cp`` and
+``decode_cp`` on operands TMA cannot describe, with their compiled
+attributes checked free of spills), times it beside the plain version and one
 library call where there is one, and checks 2-layer full-width cuts of
 minicpm-2b and jamba-v0.1-52b on the card against float32 on the CPU, the
 forward and, for minicpm-2b, the loss and every gradient; the scan's
@@ -346,7 +348,7 @@ def check_matmul(rows: dict) -> None:
         want = ref.matmul_ref(a, b, a_layout=al, b_layout=bl)
         torch.cuda.synchronize()
         expect = (("decode" if decode_fits(m, k) else "decode_deep") if m <= 16 and al == "mk"
-                  else "wmma" if (n % 8 or k % 8) and (al, bl) == ("mk", "kn") and not pad
+                  else "wgmma_cp" if (n % 8 or k % 8) and (al, bl) == ("mk", "kn") and not pad
                   else "wgmma")
         check(variant == expect, f"streamed_matmul {m}x{k}x{n} {al}/{bl} took {variant}, "
               f"not {expect}")
@@ -413,9 +415,9 @@ def _deep_operands(m, k, n, bl, i):
 def check_matmul_deep(rows: dict) -> None:
     """``decode_deep`` at :data:`DEEP_SHAPES` against its plain version
     within two bf16 ulps, its variant and its K split, timed beside the
-    plain version, ``torch.matmul`` and ``decode_wmma`` forced on the same
-    operands (the variant these products took before ``decode_deep``;
-    ``decode_wmma`` takes no (n, k) B)."""
+    plain version, ``torch.matmul`` and ``decode_cp`` forced on the same
+    operands, which must give ``decode_deep``'s bits (the same split,
+    consumers and sum order; ``decode_cp`` takes no (n, k) B)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m, k, n, bl in DEEP_SHAPES:
         sets = copies_past_l2(lambda i, m=m, k=k, n=n, bl=bl: _deep_operands(m, k, n, bl, i),
@@ -434,22 +436,21 @@ def check_matmul_deep(rows: dict) -> None:
         cost = matmul_mod.cost(m, k, n, 2)
         nbytes = cost.bytes
         b_ms, b_by = bound(cost)
-        old = "decode_wmma takes no (n, k) B"
+        cp = "decode_cp takes no (n, k) B"
         if bl == "kn":
-            old_c, old_variant = matmul_variant(
-                lambda: streamed_matmul(a, b, variant="decode_wmma"))
+            cp_c, cp_variant = matmul_variant(lambda: streamed_matmul(a, b, variant="decode_cp"))
             torch.cuda.synchronize()
-            check(old_variant == "decode_wmma", f"{m}x{k}x{n} forced: took {old_variant}")
-            old_err = (old_c.float() - want.float()).abs().max().item()
-            check(old_err <= tol, f"decode_wmma {m}x{k}x{n}: max err {old_err} > {tol}")
-            old_ms, _ = bench_ms(lambda a, b: streamed_matmul(a, b, variant="decode_wmma"),
-                                 sets, 20)
-            old = f"decode_wmma_ms={old_ms:.4f} ({nbytes / old_ms / 1e9:.3f} TB/s)"
+            check(cp_variant == "decode_cp", f"{m}x{k}x{n} forced: took {cp_variant}")
+            check(torch.equal(cp_c, got), f"decode_cp {m}x{k}x{n}: not decode_deep's bits")
+            cp_ms, _ = bench_ms(lambda a, b: streamed_matmul(a, b, variant="decode_cp"),
+                                sets, 20)
+            cp = (f"decode_cp (forced, decode_deep's bits) ms={cp_ms:.4f} "
+                  f"({nbytes / cp_ms / 1e9:.3f} TB/s, {b_ms / cp_ms:.1%} of the bound)")
             if (m, k, n) == (4, 73728, 18432):
-                _variant_row(rows, "decode_wmma", f"{m}x{k}x{n} a=mk b=kn (forced)",
-                             max_abs_err=old_err, ms=old_ms, plain_ms=plain, bound_ms=b_ms,
+                _variant_row(rows, "decode_cp", f"{m}x{k}x{n} a=mk b=kn (forced)",
+                             max_abs_err=err, ms=cp_ms, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by, library_ms=lib)
-            del old_c
+            del cp_c
         del got, want
         if (m, k, n) == (4, 73728, 18432):
             _variant_row(rows, "decode_deep", f"{m}x{k}x{n} a=mk b={bl}", max_abs_err=err,
@@ -458,9 +459,75 @@ def check_matmul_deep(rows: dict) -> None:
             f"split={deep_split(m, n, k, sms)}: max_abs_err={err:.3g} (tol {tol:.3g}) "
             f"ms={ms:.4f} ({nbytes / ms / 1e9:.3f} TB/s, {b_ms / ms:.1%} of the bound) "
             f"enqueue_ms={enqueue:.4f} plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}); earlier {old}")
+            f"bound_ms={b_ms:.4f} ({b_by}); {cp}")
         del sets, a, b
         torch.cuda.empty_cache()
+
+
+# The copy producers' shapes (m, k, n), default layouts. At 300 × 200 ×
+# 130, 4 × 2304 × 5761 and 1024 × 2304 × 5761 B's rows are not 16 bytes
+# apart (260 and 11,522 bytes) and the rule picks a copy variant; at
+# 4 × 73728 × 18432 and 1024 × 2304 × 5760 the operands are aligned and the
+# copy variant is forced beside the TMA variant the rule picks. Last, an LM
+# head stored as (d, V) at minicpm's odd vocabulary (B 566 MB, rows 245,506
+# bytes apart) at a decode step and at a 64-row chunk: bound by B's bytes.
+CP_SHAPES = [(300, 200, 130), (4, 73728, 18432), (4, 2304, 5761), (1024, 2304, 5761),
+             (1024, 2304, 5760), (4, 2304, 122753), (64, 2304, 122753)]
+# the copy variants' instances whose compiled attributes are reported at
+# bf16 and fp32 output (m picks the decode instance: 1-8 or 9-16 rows),
+# beside the TMA ones
+ATTR_INSTANCES = [("wgmma", 1024), ("wgmma_cp", 1024), ("decode_deep", 4),
+                  ("decode_deep", 16), ("decode_cp", 4), ("decode_cp", 16)]
+
+
+def check_matmul_cp(rows: dict) -> None:
+    """The copy variants at :data:`CP_SHAPES` (4 × 73728 × 18432 is
+    :func:`check_matmul_deep`'s) against the plain version within two bf16
+    ulps, timed beside the plain version, ``torch.matmul`` and the bound;
+    forced on aligned operands, bit for bit against the TMA variant the
+    rule picks, timed beside it. Then the compiled attributes of
+    :data:`ATTR_INSTANCES` at both output dtypes (``bsps_matmul_attrs``),
+    each free of spills."""
+    for m, k, n in CP_SHAPES:
+        if any((m, k, n) == shape[:3] for shape in DEEP_SHAPES):
+            continue
+        sets = copies_past_l2(lambda i, m=m, k=k, n=n: _operands(m, k, n, "mk", "kn", i),
+                              (m * k + k * n) * 2)
+        a, b = sets[0]
+        forced = None if n % 8 else "decode_cp" if m <= 16 else "wgmma_cp"
+        got, variant = matmul_variant(lambda: streamed_matmul(a, b, variant=forced))
+        want = ref.matmul_ref(a, b)
+        torch.cuda.synchronize()
+        expect = "decode_cp" if m <= 16 else "wgmma_cp"
+        check(variant == expect, f"streamed_matmul {m}x{k}x{n} took {variant}, not {expect}")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 ** -6 * want.float().abs().max().item()
+        check(err <= tol, f"{variant} {m}x{k}x{n}: max err {err} > {tol}")
+        ms, enqueue = bench_ms(lambda a, b: streamed_matmul(a, b, variant=forced), sets, 50)
+        plain, _ = bench_ms(ref.matmul_ref, sets, 20)
+        lib, _ = bench_ms(torch.matmul, sets, 50)
+        b_ms, b_by = bound(matmul_mod.cost(m, k, n, 2))
+        tma = ""
+        if forced:
+            tma_c, tma_variant = matmul_variant(lambda: ops.matmul(a, b))
+            check(torch.equal(tma_c, got), f"{variant} {m}x{k}x{n}: not {tma_variant}'s bits")
+            tma_ms, _ = bench_ms(ops.matmul, sets, 50)
+            tma = f"; {tma_variant} (the rule's) ms={tma_ms:.4f}, the same bits"
+        log(f"[kernel] streamed_matmul {m}x{k}x{n} a=mk b=kn variant={variant}"
+            f"{' (forced)' if forced else ''}: max_abs_err={err:.3g} (tol {tol:.3g}) "
+            f"ms={ms:.4f} ({b_ms / ms:.1%} of the bound) enqueue_ms={enqueue:.4f} "
+            f"plain_ms={plain:.4f} torch.matmul_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}){tma}")
+        _variant_row(rows, variant, f"{m}x{k}x{n} a=mk b=kn", max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        del sets, a, b, got, want
+    device = torch.device("cuda")
+    for variant, m in ATTR_INSTANCES:
+        for out_dtype in (torch.bfloat16, torch.float32):
+            attrs = matmul_mod.kernel_attrs(variant, m, device, out_dtype)
+            name = "bf16" if out_dtype == torch.bfloat16 else "fp32"
+            log(f"[kernel] streamed_matmul.{variant} attrs (m = {m}, {name} out): "
+                f"{json.dumps(attrs)}")
+            check(attrs["spill_bytes"] == 0, f"{variant} (m = {m}, {name} out) spills: {attrs}")
 
 
 def check_matmul_f32(rows: dict) -> float:
@@ -2013,7 +2080,7 @@ def serve_slice(machine) -> dict:
     chunks = -(-prompt_len // block)
     for key in ("generate_compiled_first", "generate_compiled", "generate_measure"):
         c = counts[key]
-        check(c["streamed_matmul.wgmma"] == mlp * chunks and c["streamed_matmul.wmma"] == 0
+        check(c["streamed_matmul.wgmma"] == mlp * chunks and c["streamed_matmul.wgmma_cp"] == 0
               and c["streamed_matmul.decode"] == c["streamed_matmul"] - mlp * chunks > 0,
               f"minicpm {key}: matmul variants {c} (prefill in {chunks} chunk(s) of {block})")
     log(f"[slice] matmul variants: forward {mlp} wgmma; generate's prefill "
@@ -2192,7 +2259,7 @@ def serve_engine(cfg, params, machine) -> None:
         check(c["streamed_matmul.decode"] == c["streamed_matmul"] == mlp * eng.segment_len,
               f"engine segment {i}: matmul launches {c}")
     check(total["streamed_matmul.wgmma"] > 0 and total["streamed_matmul.decode"] > 0
-          and total["streamed_matmul.wmma"] == total["streamed_matmul.decode_wmma"]
+          and total["streamed_matmul.wgmma_cp"] == total["streamed_matmul.decode_cp"]
           == total["streamed_matmul.decode_deep"] == 0,
           f"engine matmul variants {total}")
     log(f"[engine] matmul launches per segment: decode {mlp * eng.segment_len} "
@@ -2928,7 +2995,7 @@ def serve_family(name: str, machine) -> dict:
     # the prefill reads its cache with torch ops, not flash
     check(all(c[f"streamed_matmul.{v}"] == n for v, n in want.items())
           and c["streamed_matmul"] == sum(want.values()) and c["flash_attention"] == 0
-          and c["streamed_matmul.decode_wmma"] == 0,
+          and c["streamed_matmul.decode_cp"] == c["streamed_matmul.wgmma_cp"] == 0,
           f"{name} generate launches {c}, expected {want}")
     if name == "nemotron-4-340b":   # K = 73728 down projections: one a layer
         check(decode_variants(cfg, batch) == {"decode": 21, "decode_deep": 4}
@@ -3113,6 +3180,7 @@ def main() -> int:
     with phase("kernel checks"):
         check_matmul(rows)
         check_matmul_deep(rows)
+        check_matmul_cp(rows)
         check_dot(rows)
         check_flash(rows)
         check_ssm(rows)

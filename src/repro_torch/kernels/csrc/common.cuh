@@ -70,4 +70,21 @@ inline cudaError_t prepare_smem(Kernel kernel, int device, size_t bytes) {
   return err;
 }
 
+// A kernel's compiled attributes at `threads` a block and `smem` bytes of
+// dynamic shared memory, as the CUDA runtime reports them: out[0] registers
+// a thread, out[1] local (spilled) bytes a thread, out[2] `smem`, out[3]
+// resident blocks an SM.
+template <typename Kernel>
+inline cudaError_t attrs(Kernel kernel, int device, int threads, int smem, int* out) {
+  cudaError_t err = prepare_smem(kernel, device, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  out[0] = fa.numRegs, out[1] = (int)fa.localSizeBytes, out[2] = smem, out[3] = blocks;
+  return err;
+}
+
 }  // namespace bsps

@@ -746,19 +746,6 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
   return cudaErrorInvalidValue;
 }
 
-template <typename Kernel>
-cudaError_t attrs(Kernel kernel, int device, int threads, int smem, int* out) {
-  cudaError_t err = bsps::prepare_smem(kernel, device, smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  out[0] = fa.numRegs, out[1] = (int)fa.localSizeBytes, out[2] = smem, out[3] = blocks;
-  return err;
-}
-
 }  // namespace
 
 // O = softmax(Q·Kᵀ·scale) V per (b, h), GQA, queries at the end of the keys.
@@ -793,7 +780,7 @@ BSPS_EXPORT int bsps_flash_attrs(int device, int d, int dtype, int* out) {
   return with_head_dim(d, [&](auto dk) {
     constexpr int D = decltype(dk)::value;
     return dtype == bsps::kBFloat16
-               ? attrs(flash_fwd_mma<D>, device, kThreads, kSmemMma<D>, out)
-               : attrs(flash_fwd_f32<D>, device, F32Tile<D>::kThreads, F32Tile<D>::SMEM, out);
+               ? bsps::attrs(flash_fwd_mma<D>, device, kThreads, kSmemMma<D>, out)
+               : bsps::attrs(flash_fwd_f32<D>, device, F32Tile<D>::kThreads, F32Tile<D>::SMEM, out);
   });
 }

@@ -78,18 +78,29 @@
 // up through the runtime's entry-point query: nothing links against
 // libcuda.
 //
-// wmma — m > 16 when TMA cannot (a row stride or a base address not 16-byte
-// aligned): a 64×64×32 tile with a 2×2 warp grid, nvcuda::wmma (bf16 in,
-// fp32 accumulate), the next A/B tiles loaded into registers while the
-// tensor cores work on the current ones (double buffered in shared memory);
-// the accumulator goes out through the plan's scratch tile.
+// wgmma_cp — m > 16 in the default layouts when TMA cannot describe A or B
+// (a base address or a row stride not 16-byte aligned: an odd vocabulary or
+// width, a column slice of a wider tensor, a view one element into its
+// buffer). wgmma's kernel with producers that copy instead of TMA: two
+// producer warpgroups (256 threads) write each stage's bytes at the
+// addresses the TMA boxes would (A 128 rows × 64 k, B two 64 × 64 MN-major
+// boxes, the 128-byte swizzle, zeros past the ragged m, n and k edges) by
+// TileCopy, and the consumers, their tile walk and their products are
+// wgmma's: on operands both can take, the two give the same bits. The stage
+// is written through the generic proxy and read by wgmma through the async
+// proxy, so a proxy fence stands between (matmul_wgmma says where). The
+// words a realigned operand's chunks are shifted out of are staged in shared
+// memory past the ring, copied four stages ahead (90 KB beside the 128 KB
+// ring); the 512 threads keep 128 registers each (no setmaxnreg). One
+// launch, no split, no partial tensor.
 //
-// decode_wmma — m ≤ 16 when TMA cannot describe B (a row stride or a base
-// address not 16-byte aligned): the same wmma loop on a 16×64×64 tile with
-// a 1×4 warp grid. When the output tiles alone cannot fill the card, the K
-// stream is split over a third grid axis: each split writes an fp32 partial
-// tile and a second launch sums the splits in a fixed order and casts —
-// deterministic, no atomics. wmma uses the same split rule.
+// decode_cp — m ≤ 16 when TMA cannot describe B. decode_deep's kernel (A
+// streamed beside B, the consumers, the cluster split of the wrapper's
+// deep_split and its sum in rank order) with four producer warps that copy
+// B's 64 k-rows × 128 columns into the stage's two swizzled boxes by
+// TileCopy, beside A's slice. The consumers read the stage with ldmatrix,
+// through the generic proxy as the copies write it, so no proxy fence. On a
+// B both can take it gives decode_deep's bits.
 //
 // simt_f32 — fp32 operands at any m, in all three layouts: exact fp32 FMAs
 // with fp32 accumulation, no TF32 and no tensor-core emulation (the
@@ -116,13 +127,10 @@
 // size. Tiles are walked in groups of 8 m-tiles, as wgmma's.
 
 #include <cuda.h>
-#include <mma.h>
 
 #include "common.cuh"
 
 namespace {
-
-using namespace nvcuda;
 
 using raw16 = unsigned short;  // bf16 bits, moved without conversion
 
@@ -145,148 +153,23 @@ __device__ __forceinline__ uint4 load8(const raw16* __restrict__ base, long long
   return out.v;
 }
 
-template <int BM, int BN, int BK, int WM, int WN>
-struct Tile {
-  static constexpr int kThreads = 32 * WM * WN;
-  static constexpr int FM = BM / (16 * WM);     // fragments per warp, rows
-  static constexpr int FN = BN / (16 * WN);     // fragments per warp, cols
-  static constexpr int A_CHUNKS = BM * BK / 8;  // 16-byte chunks per A tile
-  static constexpr int B_CHUNKS = BK * BN / 8;
-  static constexpr int A_PER = (A_CHUNKS + kThreads - 1) / kThreads;
-  static constexpr int B_PER = (B_CHUNKS + kThreads - 1) / kThreads;
-  static constexpr int SCRATCH = BM * BN * 4;   // fp32 accumulator tile
-  static constexpr int STAGE = (BM * BK + BK * BN) * 2;
-  static constexpr int SMEM = SCRATCH + 2 * STAGE;
-  static_assert(FM >= 1 && FN >= 1 && BK % 16 == 0, "bad tile");
-};
-
-template <int BM, int BN, int BK, int WM, int WN, typename Out>
-__global__ void __launch_bounds__(Tile<BM, BN, BK, WM, WN>::kThreads)
-matmul_kernel(const raw16* __restrict__ a, const raw16* __restrict__ b,
-              Out* __restrict__ c, float* __restrict__ partials,
-              int m, int n, int k, long long lda, long long ldb, long long ldc,
-              int k_steps) {
-  using T = Tile<BM, BN, BK, WM, WN>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* acc_tile = reinterpret_cast<float*>(smem);                    // plan scratch
-  raw16* a_buf = reinterpret_cast<raw16*>(smem + T::SCRATCH);          // [2][BM][BK]
-  raw16* b_buf = a_buf + 2 * BM * BK;                                  // [2][BK][BN]
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wr = warp / WN, wc = warp % WN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int split = blockIdx.z;
-  const int kt0 = split * k_steps;                                     // first K tile
-
-  uint4 a_reg[T::A_PER], b_reg[T::B_PER];
-  auto fetch = [&](int kt) {                       // global -> registers
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < T::A_PER; ++i) {
-      const int ch = tid + i * T::kThreads;
-      if (ch < T::A_CHUNKS) {
-        const int r = ch / (BK / 8), cc = (ch % (BK / 8)) * 8;
-        a_reg[i] = load8(a, lda, m, k, m0 + r, k0 + cc);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < T::B_PER; ++i) {
-      const int ch = tid + i * T::kThreads;
-      if (ch < T::B_CHUNKS) {
-        const int r = ch / (BN / 8), cc = (ch % (BN / 8)) * 8;
-        b_reg[i] = load8(b, ldb, k, n, k0 + r, n0 + cc);
-      }
-    }
-  };
-  auto stash = [&](int buf) {                      // registers -> shared
-    raw16* as = a_buf + buf * BM * BK;
-    raw16* bs = b_buf + buf * BK * BN;
-#pragma unroll
-    for (int i = 0; i < T::A_PER; ++i) {
-      const int ch = tid + i * T::kThreads;
-      if (ch < T::A_CHUNKS) reinterpret_cast<uint4*>(as)[ch] = a_reg[i];
-    }
-#pragma unroll
-    for (int i = 0; i < T::B_PER; ++i) {
-      const int ch = tid + i * T::kThreads;
-      if (ch < T::B_CHUNKS) reinterpret_cast<uint4*>(bs)[ch] = b_reg[i];
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  fetch(kt0);
-  stash(0);
-  __syncthreads();
-  for (int s = 0; s < k_steps; ++s) {              // the K stream (hypersteps)
-    const int buf = s & 1;
-    if (s + 1 < k_steps) fetch(kt0 + s + 1);       // prefetch the next tokens
-    const __nv_bfloat16* as = reinterpret_cast<const __nv_bfloat16*>(a_buf + buf * BM * BK);
-    const __nv_bfloat16* bs = reinterpret_cast<const __nv_bfloat16*>(b_buf + buf * BK * BN);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[T::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[T::FN];
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-        wmma::load_matrix_sync(fa[i], as + ((wr * T::FM + i) * 16) * BK + kk, BK);
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * BN + (wc * T::FN + j) * 16, BN);
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (s + 1 < k_steps) stash(buf ^ 1);
-    __syncthreads();
-  }
-
-  // WRITE(σ_C, Σ_C): the finished tile goes up once, through the scratch tile.
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j)
-      wmma::store_matrix_sync(acc_tile + ((wr * T::FM + i) * 16) * BN + (wc * T::FN + j) * 16,
-                              acc[i][j], BN, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += T::kThreads) {
-    const int r = m0 + idx / BN, col = n0 + idx % BN;
-    if (r >= m || col >= n) continue;
-    if (partials != nullptr) {
-      partials[((long long)split * m + r) * n + col] = acc_tile[idx];
-    } else {
-      c[(long long)r * ldc + col] = bsps::from_float<Out>(acc_tile[idx]);
-    }
-  }
-}
-
-template <typename Out>
-__global__ void splitk_reduce(const float* __restrict__ partials, int splits, int m, int n,
-                              Out* __restrict__ c, long long ldc) {
-  const long long total = (long long)m * n;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += partials[s * total + i];
-    c[(i / n) * ldc + i % n] = bsps::from_float<Out>(acc);
-  }
-}
-
 // -- the wgmma variant ------------------------------------------------------------------
 
 namespace wg {
 
 constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4, GROUP_M = 8;
 constexpr int kThreads = 384;                 // consumer warpgroups 0-1, producer 2
+constexpr int kCpThreads = 512;               // CP: consumer warpgroups 0-1, copy producers 2-3
 constexpr int A_BYTES = BM * BK * 2;          // 16 KB: 128 rows of 128 bytes
 constexpr int B_BOX = BK * 64 * 2;            // 8 KB: 64 k-rows of 64 columns
 constexpr int STAGE_BYTES = A_BYTES + 2 * B_BOX;
 constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;  // + alignment, barriers
+// CP: staged rows of the realigned operands, 5 stages of one operand's or 2
+// of both (A's 128 rows of 9 words, B's 64 of 17), past the barriers
+constexpr int RAW_A = BM * (BK / 8 + 1) * 16, RAW_B = BK * (BN / 8 + 1) * 16;
+constexpr int RAW_AT = 128;
+constexpr int CP_SMEM = SMEM + RAW_AT + 5 * RAW_A;
+static_assert(RAW_A >= RAW_B && 2 * (RAW_A + RAW_B) <= 5 * RAW_A, "the staged slots fit");
 constexpr int SCRATCH = BM * BN * 4;          // the plan's accumulator: in registers
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -332,6 +215,278 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
+
+// cp.async of 16 bytes from global to shared memory: `bytes` (at most 16)
+// are read, the rest is zero-filled; `src` is 16-byte aligned. No memory
+// clobber: the consumers' shared reads of other stages may move across it.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+}
+// cp_async16 when `pred`
+__device__ __forceinline__ void cp_async16_if(uint32_t dst, const void* src, int bytes, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %3, 0;\n"
+      "@q cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+      "}\n" ::"r"(dst), "l"(src), "r"(bytes), "r"((int)pred));
+}
+__device__ __forceinline__ void st_shared(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// 16 bytes to shared address `dst` when `pred`
+__device__ __forceinline__ void st_shared_if(uint32_t dst, uint4 v, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %5, 0;\n"
+      "@q st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+      "}\n" ::"r"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"((int)pred)
+      : "memory");
+}
+// the mbarrier at `bar` counts one arrival once this thread's earlier
+// cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// returns once at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ uint4 ld_shared(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// orders this thread's generic-proxy shared-memory accesses before (or
+// after) its async-proxy ones: wgmma reads its operands through the async
+// proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// whether every 16-byte chunk of a bf16 matrix at `p` with rows `ld`
+// elements apart starts 16-byte aligned
+inline bool vec16(const void* p, long long ld) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0;
+}
+
+// The 16 bytes at byte `off` (2 .. 14, even) of the 32 bytes lo:hi, by
+// selects and funnel shifts: no register array is indexed at run time.
+__device__ __forceinline__ uint4 realign(uint4 lo, uint4 hi, uint32_t off) {
+  const uint32_t u[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  uint32_t t[6], v[5];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) t[j] = (off & 8) ? u[j + 2] : u[j];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) v[j] = (off & 4) ? t[j + 1] : t[j];
+  const uint32_t sh = (off & 2) * 8;                      // 0 or 16 bits
+  return make_uint4(__funnelshift_r(v[0], v[1], sh), __funnelshift_r(v[1], v[2], sh),
+                    __funnelshift_r(v[2], v[3], sh), __funnelshift_r(v[3], v[4], sh));
+}
+// the mask of a chunk's first `valid` (0 .. 8) bf16 elements
+__device__ __forceinline__ uint4 keep_mask(int valid) {
+  auto word = [valid](int e) { return e + 2 <= valid ? ~0u : e + 1 == valid ? 0xffffu : 0u; };
+  return make_uint4(word(0), word(2), word(4), word(6));
+}
+__device__ __forceinline__ uint4 shfl_down(uint4 x, int width) {
+  return make_uint4(__shfl_down_sync(~0u, x.x, 1, width), __shfl_down_sync(~0u, x.y, 1, width),
+                    __shfl_down_sync(~0u, x.z, 1, width), __shfl_down_sync(~0u, x.w, 1, width));
+}
+__device__ __forceinline__ uint4 shfl(uint4 x, int lane) {
+  return make_uint4(__shfl_sync(~0u, x.x, lane), __shfl_sync(~0u, x.y, lane),
+                    __shfl_sync(~0u, x.z, lane), __shfl_sync(~0u, x.w, lane));
+}
+// the 16 bytes at `p` (16-byte aligned) when `pred`, else zeros. Volatile:
+// a batch's loads are all issued, in order, before the first is used.
+__device__ __forceinline__ uint4 ld16_if(const void* p, bool pred) {
+  uint4 v = make_uint4(0, 0, 0, 0);
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %4, 0;\n"
+      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%5];\n"
+      "}\n"
+      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
+      : "r"((int)pred), "l"(p));
+  return v;
+}
+
+// One operand's share of the copy producers' stages (wgmma_cp, decode_cp),
+// where TMA cannot describe it. For stage t, threads pt = 0 .. T-1 copy the
+// tile of R rows × 8·W columns of the row-major bf16 matrix g (rows × cols,
+// rows ld elements apart) at (row0 + t·DR, col0 + t·DC) to the bytes the TMA
+// boxes would write from shared address `tile`: W / 8 boxes of 64 columns
+// side by side, box x at tile + x·R·128, row r of a box at r·128 and its
+// 16-byte chunk c at (c ^ r % 8)·16 (the 128-byte swizzle), zeros past the
+// matrix's rows and columns. W lanes of a warp take one row, lane c its
+// chunk c, so a row's lanes read contiguous bytes; a pass of the T threads
+// takes ROWS = T / W rows, so a thread's chunks lie ROWS rows apart at every
+// pass and stage, in the same swizzle slot (ROWS is a multiple of 8), and
+// each row's offset from 16-byte alignment is the same at every stage (DR
+// and DC are multiples of 8): the constructor computes them once.
+// A chunk whose address is 16-byte aligned (with `vec` every chunk is) is
+// one cp.async, zero-filled past the last column. Any other chunk is shifted
+// out of the two aligned 16-byte words under it in registers, its elements
+// past the last column zeroed, and stored by one st.shared.v4. The words
+// come one of two ways:
+// - staged (issue_rows, land_rows; wgmma_cp): every row of the tile, aligned
+//   or not, is copied as W + 1 aligned words from the one under its first
+//   chunk by cp.async into `raw`, stages ahead, the words spread flat over
+//   the T threads so that no cp.async is issued predicated off; once they
+//   have landed, lane c shifts its chunk out of its row's words c and c + 1.
+//   No register holds a word in flight.
+// - in registers (issue, land; decode_cp, whose blocks have no shared memory
+//   to spare): lane c loads the word under its chunk's start, takes the
+//   next from lane c + 1, which loads it as its own, by a shuffle; the word
+//   after a row's last chunk is loaded by one lane of the warp per row of
+//   the stage (lane j: pass j / (32 / W), the warp's row j % (32 / W)) and
+//   shuffled to the row's last lane. A stage's words fly at once, in w and
+//   x; land realigns LB passes' chunks side by side.
+// A word is read only when it holds an element of the matrix, so it lies on
+// the operand's pages; its other bytes never reach the tile.
+template <int T, int R, int W, int DR, int DC, int LB = 4>
+struct TileCopy {
+  static constexpr int ROWS = T / W, PASSES = R / ROWS, SEGS = 32 / W;
+  static_assert(32 % W == 0 && R % ROWS == 0 && ROWS % 8 == 0 && PASSES <= 8 &&
+                    PASSES * SEGS <= 32 && DR % 8 == 0 && DC % 8 == 0 && PASSES % LB == 0,
+                "bad copy tile");
+  const raw16* g;
+  const raw16* src;        // the thread's chunk at pass 0 of stage 0
+  const raw16* xsrc;       // the last chunk of the row whose end word the lane reads, stage 0
+  const raw16* org;        // the tile's first element, stage 0
+  long long ld;
+  int row0, cols0;         // the tile's first row, and the matrix's columns from its first, stage 0
+  int rows, row, xrow;     // the matrix's rows; the rows of src and xsrc
+  int left, xleft;         // the matrix's columns from src's and from xsrc's chunk on
+  uint32_t dst;            // src's chunk in the tile
+  uint32_t raw_at;         // src's word in the staged rows
+  uint32_t offs, xoff;     // each pass's row's (4 bits a pass) and xsrc's row's byte offset
+  bool vec, xlane;         // every chunk aligned; the lane reads a row-end word
+
+  __device__ __forceinline__ TileCopy(const raw16* g_, long long ld_, int rows_, int cols,
+                                      int row0_, int col0, bool vec_, int pt)
+      : g(g_), org(g_ + (long long)row0_ * ld_ + col0), ld(ld_), row0(row0_),
+        cols0(cols - col0), rows(rows_), vec(vec_) {
+    const int lane = pt % 32, c = pt % W;
+    row = row0 + pt / W;
+    left = cols - (col0 + 8 * c);
+    src = g + (long long)row * ld + col0 + 8 * c;
+    dst = (c / 8) * (R * 128) + (pt / W) * 128 + (((c % 8) ^ ((pt / W) % 8)) << 4);
+    raw_at = ((pt / W) * (W + 1) + c) * 16;
+    const uint32_t base = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(g)) + 2 * col0;
+    auto skew = [&](int r) { return (base + 2 * static_cast<uint32_t>(r * ld)) & 15; };
+    offs = 0;
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) offs |= skew(row + p * ROWS) << (4 * p);
+    xlane = lane < PASSES * SEGS;
+    xrow = row0 + (lane / SEGS) * ROWS + (pt - lane) / W + lane % SEGS;
+    xleft = cols - (col0 + 8 * (W - 1));
+    xsrc = g + (long long)xrow * ld + col0 + 8 * (W - 1);
+    xoff = skew(xrow);
+  }
+  __device__ __forceinline__ long long stage_step() const { return DR * ld + DC; }
+
+  // stage t's cp.async copies of every chunk (vec)
+  __device__ __forceinline__ void issue_vec(uint32_t tile, int t) const {
+    const raw16* s = src + t * stage_step();
+    const int r = row + t * DR, v = max(0, min(8, left - t * DC));
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const bool in = r + p * ROWS < rows && v > 0;
+      cp_async16(tile + dst + p * ROWS * 128, in ? s + p * ROWS * ld : g, in ? 2 * v : 0);
+    }
+  }
+  // stage t's rows as staged words: the R · (W + 1) aligned 16-byte words
+  // from the one under each row's first chunk, row by row into `raw`, one
+  // cp.async each, spread flat over the T threads (a word past the matrix's
+  // rows or columns is zero-filled, not read)
+  __device__ __forceinline__ void issue_rows(uint32_t raw, int t) const {
+    constexpr int WORDS = R * (W + 1);
+    const int pt = threadIdx.x % T, cols_t = cols0 - t * DC;
+    const raw16* o = org + t * stage_step();
+#pragma unroll
+    for (int i = 0; i < (WORDS + T - 1) / T; ++i) {
+      const int f = i * T + pt;
+      if (WORDS % T != 0 && f >= WORDS) break;
+      const int rr = f / (W + 1), wd = f % (W + 1);
+      const uintptr_t start = reinterpret_cast<uintptr_t>(o + rr * ld);
+      const int lead = static_cast<int>(start & 15) / 2;   // elements of the word before the row
+      const bool copy = row0 + t * DR + rr < rows && 8 * wd - lead < cols_t;
+      cp_async16(raw + f * 16,
+                 copy ? reinterpret_cast<const void*>((start & ~uintptr_t(15)) + 16 * wd) : g,
+                 copy ? 16 : 0);
+    }
+  }
+  // stage t's chunks from the words issue_rows staged in `raw`, once they
+  // have landed: each shifted out of its row's words c and c + 1, zero past
+  // the matrix's rows and columns
+  __device__ __forceinline__ void land_rows(uint32_t tile, uint32_t raw, int t) const {
+    const int r = row + t * DR;
+    const uint4 mask = keep_mask(max(0, min(8, left - t * DC)));
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const uint32_t at = raw + raw_at + p * ROWS * (W + 1) * 16;
+      const uint4 o = realign(ld_shared(at), ld_shared(at + 16), (offs >> (4 * p)) & 15);
+      const bool in = r + p * ROWS < rows;
+      st_shared(tile + dst + p * ROWS * 128,
+                in ? make_uint4(o.x & mask.x, o.y & mask.y, o.z & mask.z, o.w & mask.w)
+                   : make_uint4(0, 0, 0, 0));
+    }
+  }
+  // stage t's cp.async copies of its aligned chunks and the words of the others
+  __device__ __forceinline__ void issue(uint32_t tile, int t, uint4 (&w)[PASSES], uint4& x) const {
+    const raw16* s = src + t * stage_step();
+    const int r = row + t * DR, lt = left - t * DC, v = max(0, min(8, lt));
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const uint32_t off = (offs >> (4 * p)) & 15;
+      const bool in = r + p * ROWS < rows;
+      const raw16* chunk = s + p * ROWS * ld;
+      cp_async16_if(tile + dst + p * ROWS * 128, in && v > 0 ? chunk : g,
+                    in && v > 0 ? 2 * v : 0, off == 0 || !in);
+      // the aligned word under the chunk holds the row's elements from off / 2 before it on
+      w[p] = ld16_if(chunk - off / 2, off != 0 && in && lt + (int)off / 2 > 0);
+    }
+    x = ld16_if(xsrc + t * stage_step() - xoff / 2 + 8,
+                xlane && xoff != 0 && xrow + t * DR < rows && xleft - t * DC + (int)xoff / 2 > 8);
+  }
+  // stage t's realigned chunks from the words issue read: LB passes' chunks
+  // computed side by side, then stored where the row needs it
+  __device__ __forceinline__ void land(uint32_t tile, int t, const uint4 (&w)[PASSES],
+                                       uint4 x) const {
+    const int lane = threadIdx.x % 32, c = lane % W, r = row + t * DR;
+    const uint4 mask = keep_mask(max(0, min(8, left - t * DC)));
+#pragma unroll
+    for (int p0 = 0; p0 < PASSES; p0 += LB) {
+      uint4 out[LB];
+#pragma unroll
+      for (int i = 0; i < LB; ++i) {
+        const int p = p0 + i;
+        const uint4 next = shfl_down(w[p], W), end = shfl(x, p * SEGS + lane / W);
+        const uint4 o = realign(w[p], c == W - 1 ? end : next, (offs >> (4 * p)) & 15);
+        out[i] = make_uint4(o.x & mask.x, o.y & mask.y, o.z & mask.z, o.w & mask.w);
+      }
+#pragma unroll
+      for (int i = 0; i < LB; ++i) {
+        const int p = p0 + i;
+        st_shared_if(tile + dst + p * ROWS * 128, out[i],
+                     ((offs >> (4 * p)) & 15) != 0 && r + p * ROWS < rows);
+      }
+    }
+  }
+};
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
 // leading and stride byte offsets (16-byte units), layout type 1 (B128)
@@ -400,12 +555,31 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y, bool 
   }
 }
 
+template <int D>
+struct Depth {
+  static constexpr int value = D;
+};
+
 // A's stage holds rows group·64 .. +64 of the tile at group · 8 KB in both
 // layouts: K-major, 64 rows of 128 bytes; M-major, the group's 64 × 64 box.
-template <typename Out, bool AT, bool BKM>
-__global__ void __launch_bounds__(kThreads, 1)
+// CP (wgmma_cp, default layouts only): two producer warpgroups (256 threads)
+// fill each stage by TileCopy from a and b (rows lda and ldb apart, k deep;
+// a_vec, b_vec: every chunk 16-byte aligned) instead of TMA from the tensor
+// maps, which are then unused. Each thread arrives on the stage's full
+// barrier when its cp.async copies have landed; where an operand is
+// realigned, each producer warp also arrives once after its lanes' stores
+// (__syncwarp, then lane 0). A realigned operand's words are staged four
+// stages ahead in shared memory past the ring (one stage ahead when both
+// are realigned), so no register holds a word in flight; each chunk's shifts
+// and selects are the producers' work, shared by 256 threads; the 512
+// threads keep 128 registers each (no setmaxnreg).
+template <typename Out, bool AT, bool BKM, bool CP>
+__global__ void __launch_bounds__(CP ? kCpThreads : kThreads, 1)
 matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-             Out* __restrict__ c, int m, int n, long long ldc, int k_tiles) {
+             const raw16* __restrict__ a, const raw16* __restrict__ b, long long lda,
+             long long ldb, int k, int a_vec, int b_vec, Out* __restrict__ c, int m, int n,
+             long long ldc, int k_tiles) {
+  static_assert(!CP || (!AT && !BKM), "the copy producer takes the default layouts");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle wants 1 KB
   const uint32_t full = ring + STAGES * STAGE_BYTES;            // full[s]: full + 8 s
@@ -423,14 +597,71 @@ matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);                    // the producer's expect_tx
+      // the producer's expect_tx, or a copy thread's cp.async (+ a warp's stores)
+      mbar_init(full + 8 * s, !CP ? 1 : a_vec && b_vec ? 256 : 256 + 8);
       mbar_init(empty + 8 * s, 2);                   // one arrival per consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (group == 2) {                                  // producer: the TMA stream
+  if (group >= 2 && CP) {                            // producers: copies, 256 threads
+    const int pt = tid - 256;
+    using CopyA = TileCopy<256, BM, BK / 8, 0, BK>;
+    using CopyB = TileCopy<256, BK, BN / 8, BK, 0>;
+    const CopyA ca(a, lda, m, k, m0, 0, a_vec, pt);
+    const CopyB cb(b, ldb, k, n, 0, n0, b_vec, pt);
+    const uint32_t raw0 = full + RAW_AT;
+    auto stage = [&](int t) { return ring + (t % STAGES) * STAGE_BYTES; };
+    // stage t, once the consumers have freed it: the aligned operands by
+    // cp.async into the ring; each thread arrives on full[t] when its copies
+    // land
+    auto open = [&](int t) {
+      if (t >= STAGES) mbar_wait(empty + 8 * (t % STAGES), (t / STAGES - 1) & 1);
+      if (a_vec) ca.issue_vec(stage(t), t);
+      if (b_vec) cb.issue_vec(stage(t) + A_BYTES, t);
+      cp_async_arrive(full + 8 * (t % STAGES));
+    };
+    // the realigned operands' rows are staged E stages ahead of the stage
+    // being realigned, whatever the ring's state, in E + 1 slots. Turn t of
+    // the loop: open stage t; wait for this thread's words of stage t (one
+    // cp.async group a stage, committed E turns before, so all but the E - 1
+    // newest groups); bar.sync the producers, so every producer's words of
+    // stage t are visible and every producer has read slot t - 1; refill
+    // that slot with stage t + E's words; realign stage t.
+    auto stream = [&](auto depth) {
+      constexpr int E = decltype(depth)::value;
+      const uint32_t slot_bytes = E == 4 ? RAW_A : RAW_A + RAW_B;
+      auto raw_a = [&](int t) { return raw0 + (t % (E + 1)) * slot_bytes; };
+      auto raw_b = [&](int t) { return raw_a(t) + (E == 4 ? 0 : RAW_A); };
+      auto words = [&](int t) {
+        if (t < k_tiles) {
+          if (!a_vec) ca.issue_rows(raw_a(t), t);
+          if (!b_vec) cb.issue_rows(raw_b(t), t);
+        }
+        cp_async_commit();
+      };
+      for (int t = 0; t < E; ++t) words(t);
+      for (int t = 0; t < k_tiles; ++t) {
+        open(t);
+        cp_async_wait<E - 1>();                      // this thread's words of stage t
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");   // and every producer's
+        words(t + E);
+        if (!a_vec) ca.land_rows(stage(t), raw_a(t), t);
+        if (!b_vec) cb.land_rows(stage(t) + A_BYTES, raw_b(t), t);
+        __syncwarp();                                // the warp's stores
+        if (tid % 32 == 0) mbar_arrive(full + 8 * (t % STAGES));
+      }
+    };
+    if (a_vec && b_vec) {
+      for (int t = 0; t < k_tiles; ++t) open(t);
+    } else if (a_vec || b_vec) {
+      stream(Depth<4>());                            // one operand staged: 5 slots
+    } else {
+      stream(Depth<1>());                            // both: 2 slots
+    }
+    cp_async_wait_all();
+  } else if (group == 2) {                           // producer: the TMA stream
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 256) {
       for (int t = 0; t < k_tiles; ++t) {
@@ -453,7 +684,7 @@ matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
       }
     }
   } else {                                           // consumers: rows group·64 .. +64
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if (!CP) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     float d[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[i] = 0.f;
@@ -461,8 +692,14 @@ matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
     for (int t = 0; t < k_tiles; ++t) {
       const int s = t % STAGES;
       mbar_wait(full + 8 * s, (t / STAGES) & 1);
-      const uint32_t a = ring + s * STAGE_BYTES + group * (64 * 128);
-      const uint32_t b = ring + s * STAGE_BYTES + A_BYTES;
+      // CP: the stage was written through the generic proxy (cp.async and
+      // st.shared) and wgmma reads it through the async proxy. The fence
+      // stands after the wait, on the path from every write of the stage to
+      // this warpgroup's products: the cp.async writes reach the consumers
+      // only through the barrier, so the producer cannot fence them itself.
+      if (CP) fence_proxy_async();
+      const uint32_t sa = ring + s * STAGE_BYTES + group * (64 * 128);
+      const uint32_t sb = ring + s * STAGE_BYTES + A_BYTES;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
@@ -470,8 +707,8 @@ matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
         // swizzled 128-byte rows, 8-row groups 1 KB apart (SBO). MN-major
         // (B given as (k, n), or A as (k, m)): 16 k = 16 rows of 128 bytes;
         // 8-row groups 1 KB apart (SBO), 64-column boxes 8 KB apart (LBO).
-        const uint64_t da = AT ? desc(a + kk * 2048, B_BOX, 1024) : desc(a + kk * 32, 16, 1024);
-        const uint64_t db = BKM ? desc(b + kk * 32, 16, 1024) : desc(b + kk * 2048, B_BOX, 1024);
+        const uint64_t da = AT ? desc(sa + kk * 2048, B_BOX, 1024) : desc(sa + kk * 32, 16, 1024);
+        const uint64_t db = BKM ? desc(sb + kk * 32, 16, 1024) : desc(sb + kk * 2048, B_BOX, 1024);
         wgmma_m64n128k16<AT ? 1 : 0, BKM ? 0 : 1>(d, da, db);
       }
       wgmma_commit();
@@ -540,47 +777,32 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int rows, int c
          CUDA_SUCCESS;
 }
 
-template <typename Out, bool AT, bool BKM>
+// CP: wgmma_cp, whose producer copies from a and b; no tensor map is encoded
+template <typename Out, bool AT, bool BKM, bool CP>
 cudaError_t launch(int device, dim3 grid, int k_tiles, int scratch_bytes, cudaStream_t stream,
                    const void* a, const void* b, void* c, int m, int n, int k, long long lda,
                    long long ldb, long long ldc) {
   if (scratch_bytes != SCRATCH || grid.z != 1) return cudaErrorInvalidValue;
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return cudaErrorSymbolNotFound;
-  CUtensorMap ta, tb;
-  const bool a_ok = AT ? encode(enc, &ta, a, k, m, lda, BK, 64)
-                       : encode(enc, &ta, a, m, k, lda, BM, BK);
-  const bool b_ok = BKM ? encode(enc, &tb, b, n, k, ldb, BN, BK)
-                        : encode(enc, &tb, b, k, n, ldb, BK, 64);
-  if (!a_ok || !b_ok) return cudaErrorInvalidValue;
-  auto kernel = matmul_wgmma<Out, AT, BKM>;
-  cudaError_t err = bsps::prepare_smem(kernel, device, SMEM);
+  CUtensorMap ta = {}, tb = {};
+  if (!CP) {
+    EncodeTiled enc = encoder();
+    if (enc == nullptr) return cudaErrorSymbolNotFound;
+    const bool a_ok = AT ? encode(enc, &ta, a, k, m, lda, BK, 64)
+                         : encode(enc, &ta, a, m, k, lda, BM, BK);
+    const bool b_ok = BKM ? encode(enc, &tb, b, n, k, ldb, BN, BK)
+                          : encode(enc, &tb, b, k, n, ldb, BK, 64);
+    if (!a_ok || !b_ok) return cudaErrorInvalidValue;
+  }
+  auto kernel = matmul_wgmma<Out, AT, BKM, CP>;
+  cudaError_t err = bsps::prepare_smem(kernel, device, CP ? CP_SMEM : SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, SMEM, stream>>>(ta, tb, static_cast<Out*>(c), m, n, ldc, k_tiles);
+  kernel<<<grid, CP ? kCpThreads : kThreads, CP ? CP_SMEM : SMEM, stream>>>(
+      ta, tb, static_cast<const raw16*>(a), static_cast<const raw16*>(b), lda, ldb, k,
+      vec16(a, lda), vec16(b, ldb), static_cast<Out*>(c), m, n, ldc, k_tiles);
   return cudaGetLastError();
 }
 
 }  // namespace wg
-
-template <int BM, int BN, int BK, int WM, int WN, typename Out>
-cudaError_t launch(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
-                   const void* a, const void* b, void* c, float* partials, int m, int n,
-                   int k, long long lda, long long ldb, long long ldc) {
-  using T = Tile<BM, BN, BK, WM, WN>;
-  if (scratch_bytes != T::SCRATCH) return cudaErrorInvalidValue;  // plan and kernel disagree
-  auto kernel = matmul_kernel<BM, BN, BK, WM, WN, Out>;
-  cudaError_t err = bsps::prepare_smem(kernel, device, T::SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, T::kThreads, T::SMEM, stream>>>(
-      static_cast<const raw16*>(a), static_cast<const raw16*>(b), static_cast<Out*>(c),
-      grid.z > 1 ? partials : nullptr, m, n, k, lda, ldb, ldc, k_steps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || grid.z == 1) return err;
-  const long long total = (long long)m * n;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  splitk_reduce<Out><<<blocks, 256, 0, stream>>>(partials, grid.z, m, n, static_cast<Out*>(c), ldc);
-  return cudaGetLastError();
-}
 
 // -- the decode variant (m ≤ 16) ----------------------------------------------------------
 
@@ -589,7 +811,10 @@ namespace gv {
 constexpr int NB = 2;                         // 64-column TMA boxes side by side per stage
 constexpr int BN = 64 * NB, BK = 128 / NB, STAGES = 4;
 constexpr int kConsumers = 4;                 // warps 0-3 run the products, warp 4 the TMA stream
-constexpr int kThreads = 32 * (kConsumers + 1);
+constexpr int kCopyWarps = 4;                 // CP: warps 4-7 copy the weight stream
+// the block's threads: 4 consumer warps and 1 producer warp, or (CP) 4 copy warps
+template <bool CP>
+__host__ __device__ constexpr int threads() { return 32 * (kConsumers + (CP ? kCopyWarps : 1)); }
 constexpr int BOX_BYTES = BK * 128;           // BK k-rows of 64 columns (128 B)
 constexpr int STAGE_BYTES = NB * BOX_BYTES;   // 16 KB
 constexpr int RING = STAGES * STAGE_BYTES;    // 64 KB of weights in flight per block
@@ -667,9 +892,7 @@ __device__ __forceinline__ void stage_a(uint32_t dst, const raw16* __restrict__ 
     const uint32_t d = dst + (r * A_ROW + col) * 2;
     if (a_vec) {
       const int bytes = max(0, min(16, 2 * (k - k0 - col)));
-      const raw16* src = a + (long long)r * lda + (bytes > 0 ? k0 + col : 0);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-                   "r"(bytes));
+      wg::cp_async16(d, a + (long long)r * lda + (bytes > 0 ? k0 + col : 0), bytes);
     } else {
       const uint4 v = load8(a, lda, m, k, r, k0 + col);
       asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(d), "r"(v.x),
@@ -678,8 +901,7 @@ __device__ __forceinline__ void stage_a(uint32_t dst, const raw16* __restrict__ 
     }
   }
   if (a_vec)
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(full)
-                 : "memory");
+    wg::cp_async_arrive(full);
   else
     wg::mbar_arrive(full);
 }
@@ -695,11 +917,21 @@ __device__ __forceinline__ void stage_a(uint32_t dst, const raw16* __restrict__ 
 // producer warp's 32 lanes, so A's K share no longer bounds k. The stage's
 // full barrier then counts 33 arrivals: the TMA's expect_tx and one per
 // producer lane once its A copies have landed.
-template <int NT, typename Out, bool BKM, bool DEEP>
-__global__ void __launch_bounds__(kThreads)
+// CP (decode_cp, with DEEP, B as (k, n)): instead of lane 0's TMA boxes from
+// the tensor map (then unused), the 128 threads of kCopyWarps producer warps
+// copy B's stage from b (rows ldb apart; b_vec: every chunk 16-byte aligned)
+// by TileCopy and arrive as wgmma_cp's (each thread once its cp.async copies
+// have landed, each warp once after its stores where B is realigned),
+// beside the first producer warp's 32 arrivals for A. Three blocks an SM, as
+// decode_deep's shared memory allows (the wrapper's deep_split counts them).
+template <int NT, typename Out, bool BKM, bool DEEP, bool CP>
+__global__ void __launch_bounds__(threads<CP>(), CP ? 3 : 1)
 matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ a,
-              Out* __restrict__ c, int m, int n, int k, long long lda, long long ldc,
-              int k_tiles, int per, int a_vec) {
+              const raw16* __restrict__ b, Out* __restrict__ c, int m, int n, int k,
+              long long lda, long long ldb, long long ldc, int k_tiles, int per, int a_vec,
+              int b_vec) {
+  static_assert(!CP || (DEEP && !BKM), "the copy producer streams A and takes B as (k, n)");
+  constexpr int kThreads = threads<CP>();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = wg::smem_u32(smem_raw);
   const uint32_t ring = (base + 1023) & ~1023u;              // the swizzle wants 1 KB
@@ -718,7 +950,9 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      wg::mbar_init(full + 8 * s, DEEP ? 33 : 1);            // expect_tx (+ A's 32 lanes)
+      // expect_tx (+ A's 32 lanes), or (CP) a copy thread (+ a copy warp) + A's 32 lanes
+      wg::mbar_init(full + 8 * s,
+                    CP ? 32 * kCopyWarps + (b_vec ? 0 : kCopyWarps) + 32 : DEEP ? 33 : 1);
       wg::mbar_init(empty + 8 * s, kConsumers);              // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -730,12 +964,35 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
   for (int j = 0; j < CG; ++j)
 #pragma unroll
     for (int t = 0; t < NT; ++t) d[j][t][0] = d[j][t][1] = d[j][t][2] = d[j][t][3] = 0.f;
-  if (warp == kConsumers) {                                  // producer: the weight stream
-    // lane 0 issues the TMA boxes; in DEEP every lane also copies its part
-    // of A's slice into the same stage
+  if (warp >= kConsumers) {                                  // producer: the weight stream
+    // lane 0 issues the TMA boxes (CP: the copy warps copy them); in DEEP
+    // every lane of the first producer warp also copies its part of A's
+    // slice into the same stage
+    using CopyB = wg::TileCopy<32 * kCopyWarps, BK, BN / 8, BK, 0, 1>;
+    const CopyB cb(b, ldb, k, n, k0, n0, CP && b_vec, tid - 32 * kConsumers);
     for (int t = 0; t < tiles && (DEEP || lane == 0); ++t) {
       const int s = t % STAGES;
       if (t >= STAGES) wg::mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
+      if (CP) {
+        // B's aligned chunks and the words of the others fly while the first
+        // producer warp copies A's slice; then the realigned chunks land
+        const uint32_t st = ring + s * STAGE_BYTES;
+        uint4 w[CopyB::PASSES], x;
+        if (b_vec)
+          cb.issue_vec(st, t);
+        else
+          cb.issue(st, t, w, x);
+        wg::cp_async_arrive(full + 8 * s);
+        if (warp == kConsumers)
+          stage_a(ring + RING + s * (8 * NT * A_ROW * 2), a, lda, m, k, k0 + t * BK, a_vec,
+                  lane, full + 8 * s);
+        if (!b_vec) {
+          cb.land(st, t, w, x);
+          __syncwarp();                                      // the warp's stores are done
+          if (lane == 0) wg::mbar_arrive(full + 8 * s);
+        }
+        continue;
+      }
       if (lane == 0) {
         wg::mbar_expect_tx(full + 8 * s, STAGE_BYTES);
 #pragma unroll
@@ -748,11 +1005,11 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
                          n0 + 64 * bx, k0 + t * BK);
         }
       }
-      if (DEEP)
+      if (DEEP && warp == kConsumers)
         stage_a(ring + RING + s * (8 * NT * A_ROW * 2), a, lda, m, k, k0 + t * BK, a_vec, lane,
                 full + 8 * s);
     }
-    if (DEEP) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (DEEP) wg::cp_async_wait_all();
   } else {
     if (!DEEP) {
       // the block's K share of A, once, while the first stages are in
@@ -860,7 +1117,14 @@ matmul_decode(const __grid_constant__ CUtensorMap tb, const raw16* __restrict__ 
   cluster_sync();                                            // no block leaves while read
 }
 
-template <int NT, typename Out, bool BKM, bool DEEP>
+// dynamic shared memory of a block: alignment, ring, A's share or slices, barriers
+template <int NT, bool DEEP>
+int smem_bytes(int m, int per) {
+  return 1024 + RING + ((a_bytes<NT, DEEP>(m, per) + 15) & ~15) + 2 * STAGES * 8;
+}
+
+// CP: decode_cp, whose producer copies B from b; no tensor map is encoded
+template <int NT, typename Out, bool BKM, bool DEEP, bool CP>
 cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream_t stream,
                    const void* a, const void* b, void* c, int m, int n, int k, long long lda,
                    long long ldb, long long ldc) {
@@ -869,22 +1133,23 @@ cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream
   if (grid.z != 1 || splits > MAX_SPLIT || (int)grid.y != (n + BN - 1) / BN || m > 8 * NT ||
       (splits - 1) * per >= k_tiles || splits * per < k_tiles)
     return cudaErrorInvalidValue;
-  const int a_share = a_bytes<NT, DEEP>(m, per);
-  if (scratch_bytes != RING + a_share) return cudaErrorInvalidValue;  // plan and kernel disagree
-  const int smem = 1024 + RING + ((a_share + 15) & ~15) + 2 * STAGES * 8;
-  const int a_vec = reinterpret_cast<uintptr_t>(a) % 16 == 0 && lda % 8 == 0;
-  wg::EncodeTiled enc = wg::encoder();
-  if (enc == nullptr) return cudaErrorSymbolNotFound;
-  CUtensorMap tb;
-  const bool b_ok = BKM ? wg::encode(enc, &tb, b, n, k, ldb, 64, BK)
-                        : wg::encode(enc, &tb, b, k, n, ldb, BK, 64);
-  if (!b_ok) return cudaErrorInvalidValue;
-  auto kernel = matmul_decode<NT, Out, BKM, DEEP>;
+  if (scratch_bytes != RING + a_bytes<NT, DEEP>(m, per))
+    return cudaErrorInvalidValue;                  // plan and kernel disagree
+  const int smem = smem_bytes<NT, DEEP>(m, per);
+  CUtensorMap tb = {};
+  if (!CP) {
+    wg::EncodeTiled enc = wg::encoder();
+    if (enc == nullptr) return cudaErrorSymbolNotFound;
+    const bool b_ok = BKM ? wg::encode(enc, &tb, b, n, k, ldb, 64, BK)
+                          : wg::encode(enc, &tb, b, k, n, ldb, BK, 64);
+    if (!b_ok) return cudaErrorInvalidValue;
+  }
+  auto kernel = matmul_decode<NT, Out, BKM, DEEP, CP>;
   cudaError_t err = bsps::prepare_smem(kernel, device, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(threads<CP>(), 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -894,8 +1159,9 @@ cudaError_t launch(int device, dim3 grid, int per, int scratch_bytes, cudaStream
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, tb, static_cast<const raw16*>(a), static_cast<Out*>(c),
-                           m, n, k, lda, ldc, k_tiles, per, a_vec);
+  err = cudaLaunchKernelEx(&cfg, kernel, tb, static_cast<const raw16*>(a),
+                           static_cast<const raw16*>(b), static_cast<Out*>(c), m, n, k, lda, ldb,
+                           ldc, k_tiles, per, (int)wg::vec16(a, lda), (int)wg::vec16(b, ldb));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -908,22 +1174,14 @@ namespace sf {
 
 constexpr int GROUP_M = 8;
 
-// cp.async of 16 or 4 bytes from global to shared memory: `bytes` (at most
-// the copy's size) are read, the rest of the copy is zero-filled. No memory
-// clobber: the consumers' shared reads of other stages may move across them.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
-}
+using wg::cp_async16;
+using wg::cp_async_arrive;
+using wg::cp_async_wait_all;
+
+// cp.async of 4 bytes from global to shared memory: `bytes` (4 or 0) are
+// read, the rest is zero-filled. No memory clobber, as cp_async16.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
-}
-// the mbarrier at `bar` counts one arrival once this thread's earlier
-// cp.async copies have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // One configuration: a BM × BN output tile per block, K streamed BK at a
@@ -1167,32 +1425,31 @@ cudaError_t launch(int device, dim3 grid, int k_tiles, int scratch_bytes, cudaSt
 }  // namespace sf
 
 // the variant codes of the wrapper's VARIANTS, in its order
-enum Variant { kDecode = 0, kWgmma = 1, kWmma = 2, kDecodeWmma = 3, kSimtF32 = 4,
+enum Variant { kDecode = 0, kWgmma = 1, kWgmmaCp = 2, kDecodeCp = 3, kSimtF32 = 4,
                kDecodeDeep = 5 };
 // the operand layout bits of the wrapper's b_layout / a_layout
 enum Layout { kBRowsN = 1, kAColMajor = 2 };
 
-template <typename Out, bool BKM, bool DEEP>
+template <typename Out, bool BKM, bool DEEP, bool CP = false>
 cudaError_t decode(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
                    const void* a, const void* b, void* c, int m, int n, int k, long long lda,
                    long long ldb, long long ldc) {
   if (m <= 8)
-    return gv::launch<1, Out, BKM, DEEP>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
-                                         m, n, k, lda, ldb, ldc);
-  return gv::launch<2, Out, BKM, DEEP>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m,
-                                       n, k, lda, ldb, ldc);
+    return gv::launch<1, Out, BKM, DEEP, CP>(device, grid, k_steps, scratch_bytes, stream, a, b,
+                                             c, m, n, k, lda, ldb, ldc);
+  return gv::launch<2, Out, BKM, DEEP, CP>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
+                                           m, n, k, lda, ldb, ldc);
 }
 
 template <typename Out>
 cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cudaStream_t stream,
-                     const void* a, const void* b, void* c, float* partials, int m, int n,
-                     int k, long long lda, long long ldb, long long ldc, int variant,
-                     int layout) {
-  // the wmma variants and the decode variant's A take the default layouts
+                     const void* a, const void* b, void* c, int m, int n, int k, long long lda,
+                     long long ldb, long long ldc, int variant, int layout) {
+  // the copy variants and the decode variant's A take the default layouts
   // only; wgmma and simt_f32 take either layout of one operand, not both
   if (layout & ~(kBRowsN | kAColMajor) || layout == (kBRowsN | kAColMajor) ||
       ((layout & kAColMajor) && variant != kWgmma && variant != kSimtF32) ||
-      (layout && (variant == kWmma || variant == kDecodeWmma)))
+      (layout && (variant == kWgmmaCp || variant == kDecodeCp)))
     return cudaErrorInvalidValue;
   switch (variant) {
     case kDecode:
@@ -1207,21 +1464,21 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
                                        n, k, lda, ldb, ldc);
       return decode<Out, false, true>(device, grid, k_steps, scratch_bytes, stream, a, b, c, m,
                                       n, k, lda, ldb, ldc);
+    case kDecodeCp:
+      return decode<Out, false, true, true>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
+                                            m, n, k, lda, ldb, ldc);
     case kWgmma:
       if (layout == kBRowsN)
-        return wg::launch<Out, false, true>(device, grid, k_steps, scratch_bytes, stream, a, b,
-                                            c, m, n, k, lda, ldb, ldc);
+        return wg::launch<Out, false, true, false>(device, grid, k_steps, scratch_bytes, stream,
+                                                   a, b, c, m, n, k, lda, ldb, ldc);
       if (layout == kAColMajor)
-        return wg::launch<Out, true, false>(device, grid, k_steps, scratch_bytes, stream, a, b,
-                                            c, m, n, k, lda, ldb, ldc);
-      return wg::launch<Out, false, false>(device, grid, k_steps, scratch_bytes, stream, a, b, c,
-                                           m, n, k, lda, ldb, ldc);
-    case kWmma:
-      return launch<64, 64, 32, 2, 2, Out>(device, grid, k_steps, scratch_bytes, stream, a, b,
-                                           c, partials, m, n, k, lda, ldb, ldc);
-    case kDecodeWmma:
-      return launch<16, 64, 64, 1, 4, Out>(device, grid, k_steps, scratch_bytes, stream, a, b,
-                                           c, partials, m, n, k, lda, ldb, ldc);
+        return wg::launch<Out, true, false, false>(device, grid, k_steps, scratch_bytes, stream,
+                                                   a, b, c, m, n, k, lda, ldb, ldc);
+      return wg::launch<Out, false, false, false>(device, grid, k_steps, scratch_bytes, stream, a,
+                                                  b, c, m, n, k, lda, ldb, ldc);
+    case kWgmmaCp:
+      return wg::launch<Out, false, false, true>(device, grid, k_steps, scratch_bytes, stream, a,
+                                                 b, c, m, n, k, lda, ldb, ldc);
     case kSimtF32:
       if (layout == kBRowsN)
         return sf::launch<sf::Default, Out, true, true>(device, grid, k_steps, scratch_bytes,
@@ -1236,6 +1493,34 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
   }
 }
 
+// the compiled attributes of a decode instance (default layouts, Out output)
+template <typename Out, bool CP>
+cudaError_t decode_attrs(int device, int m, int* out) {
+  return m <= 8 ? bsps::attrs(gv::matmul_decode<1, Out, false, true, CP>, device,
+                              gv::threads<CP>(), gv::smem_bytes<1, true>(m, 1), out)
+                : bsps::attrs(gv::matmul_decode<2, Out, false, true, CP>, device,
+                              gv::threads<CP>(), gv::smem_bytes<2, true>(m, 1), out);
+}
+
+// the compiled attributes of a bf16 instance in the default layouts, Out output
+template <typename Out>
+cudaError_t matmul_attrs(int device, int variant, int m, int* out) {
+  switch (variant) {
+    case kWgmma:
+      return bsps::attrs(wg::matmul_wgmma<Out, false, false, false>, device, wg::kThreads,
+                         wg::SMEM, out);
+    case kWgmmaCp:
+      return bsps::attrs(wg::matmul_wgmma<Out, false, false, true>, device, wg::kCpThreads,
+                         wg::CP_SMEM, out);
+    case kDecodeDeep:
+      return m >= 1 && m <= 16 ? decode_attrs<Out, false>(device, m, out) : cudaErrorInvalidValue;
+    case kDecodeCp:
+      return m >= 1 && m <= 16 ? decode_attrs<Out, true>(device, m, out) : cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C = A·B, A (m, k) and B (k, n) with row strides lda, ldb — bf16, or fp32
@@ -1244,29 +1529,40 @@ cudaError_t dispatch(int device, dim3 grid, int k_steps, int scratch_bytes, cuda
 // (decode, wgmma and simt_f32); kAColMajor — A is given as its (k, m)
 // transpose, rows lda apart (wgmma and simt_f32).
 // `variant` (enum Variant) picks the kernel:
-// decode and decode_deep — grid (splits, n tiles), one cluster of `splits`
-// per column tile, loop = K tiles per split, B TMA-describable; wgmma — grid (n tiles, m
-// tiles), loop = K tiles, A and B TMA-describable; wmma and decode_wmma —
-// grid (n tiles, m tiles, splits), loop = K tiles per split, and with
-// splits > 1 `partials` holds splits·m·n floats; simt_f32 — grid (n tiles,
-// m tiles), loop = K tiles of 32, fp32 operands in either layout of one
-// operand.
+// decode, decode_deep and decode_cp — grid (splits, n tiles), one cluster of
+// `splits` per column tile, loop = K tiles per split, B TMA-describable but
+// for decode_cp; wgmma and wgmma_cp — grid (n tiles, m tiles), loop = K
+// tiles, A and B TMA-describable but for wgmma_cp; simt_f32 — grid (n
+// tiles, m tiles), loop = K tiles of 32, fp32 operands in either layout of
+// one operand. One launch each.
 BSPS_EXPORT int bsps_matmul(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
-                            void* stream, const void* a, const void* b, void* c,
-                            float* partials, int m, int n, int k, long long lda,
-                            long long ldb, long long ldc, int variant, int layout,
-                            int out_dtype) {
+                            void* stream, const void* a, const void* b, void* c, int m, int n,
+                            int k, long long lda, long long ldb, long long ldc, int variant,
+                            int layout, int out_dtype) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (gx < 1 || gy < 1 || gz < 1 || loop < 1 || (gz > 1 && partials == nullptr))
-    return cudaErrorInvalidValue;
+  if (gx < 1 || gy < 1 || gz != 1 || loop < 1) return cudaErrorInvalidValue;
   const dim3 grid(gx, gy, gz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == bsps::kBFloat16)
-    return dispatch<__nv_bfloat16>(device, grid, loop, scratch_bytes, s, a, b, c, partials, m,
-                                   n, k, lda, ldb, ldc, variant, layout);
+    return dispatch<__nv_bfloat16>(device, grid, loop, scratch_bytes, s, a, b, c, m, n, k, lda,
+                                   ldb, ldc, variant, layout);
   if (out_dtype == bsps::kFloat32)
-    return dispatch<float>(device, grid, loop, scratch_bytes, s, a, b, c, partials, m, n, k,
-                           lda, ldb, ldc, variant, layout);
+    return dispatch<float>(device, grid, loop, scratch_bytes, s, a, b, c, m, n, k, lda, ldb, ldc,
+                           variant, layout);
+  return cudaErrorInvalidValue;
+}
+
+// The compiled attributes of a bf16 matmul instance in the default layouts
+// with `out_dtype` output, as the CUDA runtime reports them: `variant` one
+// of wgmma, wgmma_cp, decode_deep and decode_cp, `m` the rows (the decode
+// variants' instance: 1-8 or 9-16). out[0] registers a thread, out[1]
+// local (spilled) bytes a thread, out[2] dynamic shared memory a block,
+// out[3] resident blocks an SM.
+BSPS_EXPORT int bsps_matmul_attrs(int device, int variant, int m, int out_dtype, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (out_dtype == bsps::kBFloat16) return matmul_attrs<__nv_bfloat16>(device, variant, m, out);
+  if (out_dtype == bsps::kFloat32) return matmul_attrs<float>(device, variant, m, out);
   return cudaErrorInvalidValue;
 }

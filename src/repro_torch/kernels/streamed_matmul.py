@@ -11,11 +11,11 @@ maps: A's tile (i, s) is fetched again for every j.
 
 :func:`matmul_plan` with ``split_k=1`` is exactly the JAX package's plan.
 When the output tiles alone cannot fill the card — decode, where m is the
-batch — the K stream is split: in the ``wmma`` variants over a third
-"parallel" axis (``split_k``), each split streaming its share of K into an
-fp32 partial tile and a closing launch summing the partials; in the
-``decode`` variants over the blocks of a cluster (:func:`decode_plan`),
-summed inside the launch.
+batch — the K stream is split over the blocks of a thread-block cluster
+(:func:`decode_plan`), whose partials are summed inside the launch: no
+variant writes a partial tensor or launches twice. ``split_k > 1`` keeps
+the plan of the same split with the partials streamed up as tokens, which
+the plan lint verifies.
 
 The kernel has six variants (``csrc/streamed_matmul.cu``), and
 :func:`variant_for` picks one from the dtype, shapes, strides and alignment
@@ -36,10 +36,15 @@ alone — five for bf16 operands:
 * ``"wgmma"`` — m > 16 when TMA can describe both operands: 128×128 output
   tiles, K streamed 64 at a time by TMA through an ``mbarrier`` ring into
   ``wgmma``, no split;
-* ``"wmma"`` — m > 16 otherwise: a 64×64×32 ``wmma`` tile with split K;
-* ``"decode_wmma"`` — m ≤ 16 when TMA cannot describe B: a 16×64×64
-  ``wmma`` tile with split K (:func:`split_for`) and a second launch that
-  sums the splits;
+* ``"wgmma_cp"`` — m > 16 otherwise: ``wgmma``'s kernel whose two producer
+  warpgroups copy each stage themselves into the bytes the TMA boxes would
+  write (an aligned operand by 16-byte ``cp.async``; an unaligned one's
+  rows as the aligned words under them, staged in shared memory ahead and
+  shifted into place), so the consumers are ``wgmma``'s: one launch;
+* ``"decode_cp"`` — m ≤ 16 when TMA cannot describe B: ``decode_deep``'s
+  kernel whose four producer warps copy B's stages (an unaligned chunk
+  shifted out of the aligned words under it in registers), with
+  :func:`deep_split`'s cluster split and sum: one launch;
 
 and one for fp32 operands, at any m:
 
@@ -59,7 +64,7 @@ variants stream such a B by TMA boxes over its rows and reads them with
 weight gradient Aᵀ·dC reads the activations so — for bf16 on ``wgmma``
 only, as its M-major operand. One operand at a time is transposed. A
 transposed bf16 operand needs TMA (16-byte base and row stride); the
-``wmma`` variants take the default layouts only, so the wrapper stages an
+copy variants take the default layouts only, so the wrapper stages an
 operand of a transposed product that TMA cannot describe into a padded,
 aligned copy (:func:`tma_rows`, the launch's staging: a roofline count
 leaves it out) and the product runs on a TMA variant. ``simt_f32``
@@ -69,14 +74,14 @@ tile. The plans describe the same tokens in every layout: only their order
 in memory differs.
 
 A build, encode or launch that fails raises; nothing falls back to another
-variant. ``streamed_matmul.launches_by_variant`` counts launches per variant,
+variant. :func:`forced_variant` says which variant a caller may force.
+``streamed_matmul.launches_by_variant`` counts launches per variant,
 ``streamed_matmul.launches_by_layout`` per (a_layout, b_layout).
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 
@@ -84,19 +89,23 @@ from repro_torch.core.plan import ScratchSpec, StreamPlan, TokenSpec
 from repro_torch.core.roofline import KernelCost, counted
 from repro_torch.kernels import pipeline, ref
 
-__all__ = ["streamed_matmul", "matmul_plan", "decode_plan", "variant_for", "tma_rows",
-           "split_for", "decode_split", "deep_split", "decode_fits", "cost", "VARIANTS",
-           "LAYOUTS"]
+__all__ = ["streamed_matmul", "matmul_plan", "decode_plan", "variant_for", "forced_variant",
+           "tma_rows", "decode_split", "deep_split", "decode_fits", "kernel_attrs", "cost",
+           "VARIANTS", "LAYOUTS"]
 
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the (a_layout, b_layout) pairs the kernel takes, and their code on the C side
 LAYOUTS = {("mk", "kn"): 0, ("mk", "nk"): 1, ("km", "kn"): 2}
 #: (block_m, block_n, block_k) of each kernel variant, in the C side's code
 #: order; the decode variants' block_m is the most rows they take
-VARIANTS = {"decode": (16, 128, 64), "wgmma": (128, 128, 64), "wmma": (64, 64, 32),
-            "decode_wmma": (16, 64, 64), "simt_f32": (256, 128, 32),
+VARIANTS = {"decode": (16, 128, 64), "wgmma": (128, 128, 64), "wgmma_cp": (128, 128, 64),
+            "decode_cp": (16, 128, 64), "simt_f32": (256, 128, 32),
             "decode_deep": (16, 128, 64)}
 _CODES = {name: i for i, name in enumerate(VARIANTS)}
+#: the copy variants (no TMA; default layouts only), and the variants the
+#: rule picks that each may be forced onto
+_COPY_VARIANTS = ("wgmma_cp", "decode_cp")
+_FORCIBLE = {"decode_cp": ("decode", "decode_deep"), "wgmma_cp": ("wgmma",)}
 _TMA_ALIGN = 16   # bytes: TMA's base-address and row-stride granule
 DECODE_STAGES = 4              # the decode variants' ring of 16 KB weight stages
 DECODE_MAX_SPLIT = 8           # the portable thread-block cluster size
@@ -330,8 +339,8 @@ def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
     multiple of 16. m ≤ 16 is ``"decode"`` when TMA can describe B and A's
     K share fits a block (:func:`decode_fits`; A is read with plain loads),
     ``"decode_deep"`` when TMA can describe B and the share does not fit,
-    ``"decode_wmma"`` when TMA cannot describe B; m > 16 is ``"wgmma"``
-    when TMA can describe both operands and ``"wmma"`` when not. A bf16
+    ``"decode_cp"`` when TMA cannot describe B; m > 16 is ``"wgmma"``
+    when TMA can describe both operands and ``"wgmma_cp"`` when not. A bf16
     (k, m) A always takes ``"wgmma"``. A transposed bf16 operand that the
     chosen variant cannot read raises ``ValueError`` (:func:`streamed_matmul`
     stages such operands with :func:`tma_rows` first).
@@ -342,11 +351,11 @@ def variant_for(m: int, a_addr: int, lda: int, b_addr: int, ldb: int, k: int, *,
     b_tma = b_addr % _TMA_ALIGN == 0 and 2 * ldb % _TMA_ALIGN == 0
     a_tma = a_addr % _TMA_ALIGN == 0 and 2 * lda % _TMA_ALIGN == 0
     if a_layout == "km" or m > VARIANTS["decode"][0]:
-        variant = "wgmma" if a_tma and b_tma else "wmma"
+        variant = "wgmma" if a_tma and b_tma else "wgmma_cp"
     else:
         variant = (("decode" if decode_fits(m, k) else "decode_deep") if b_tma
-                   else "decode_wmma")
-    if variant in ("wmma", "decode_wmma") and (a_layout, b_layout) != ("mk", "kn"):
+                   else "decode_cp")
+    if variant in _COPY_VARIANTS and (a_layout, b_layout) != ("mk", "kn"):
         raise ValueError(f"a={a_layout!r}, b={b_layout!r} operands need TMA: 16-byte "
                          f"aligned bases and row strides (lda {lda}, ldb {ldb} elements)")
     return variant
@@ -366,12 +375,34 @@ def tma_rows(t: torch.Tensor) -> torch.Tensor:
     return buf[:, :cols]
 
 
-def split_for(tiles: int, k_tiles: int, sms: int) -> int:
-    """How many ways to split the K stream so ``tiles`` output tiles fill
-    ``sms`` multiprocessors about four blocks deep: the largest divisor of
-    ``k_tiles`` not above the shortfall (1 when the tiles fill the card)."""
-    want = math.ceil(4 * sms / tiles)
-    return max(d for d in range(1, min(want, k_tiles) + 1) if k_tiles % d == 0)
+def forced_variant(variant: str | None, picked: str, a_layout: str = "mk",
+                   b_layout: str = "kn") -> str:
+    """The variant a call runs when its caller names ``variant`` and
+    :func:`variant_for` picks ``picked``: ``picked`` for ``None`` or itself;
+    in the default layouts, ``"decode_cp"`` where the rule picks
+    ``"decode"`` or ``"decode_deep"`` and ``"wgmma_cp"`` where it picks
+    ``"wgmma"`` (the copy producers on operands TMA could read, as
+    ``chip_smoke.py`` times them). Any other name raises ``ValueError``."""
+    if variant is None or variant == picked:
+        return picked
+    if (a_layout, b_layout) == ("mk", "kn") and picked in _FORCIBLE.get(variant, ()):
+        return variant
+    raise ValueError(f"variant {variant!r} cannot take a product that the rule gives "
+                     f"{picked!r} (a={a_layout!r}, b={b_layout!r})")
+
+
+def kernel_attrs(variant: str, m: int, device: torch.device,
+                 out_dtype: torch.dtype = torch.bfloat16) -> dict[str, int]:
+    """``registers`` and ``spill_bytes`` a thread, ``smem_bytes`` a block
+    and ``blocks_per_sm`` of ``variant``'s kernel instance for ``m`` rows
+    (``"wgmma"``, ``"wgmma_cp"``, ``"decode_deep"`` or ``"decode_cp"``;
+    default layouts, ``out_dtype`` output) on ``device``, as the CUDA
+    runtime reports them."""
+    regs, spill, smem, blocks = pipeline.kernel_attrs("bsps_matmul_attrs", device,
+                                                      _CODES[variant], m,
+                                                      _OUT_DTYPES[out_dtype])
+    return {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
+            "blocks_per_sm": blocks}
 
 
 @functools.lru_cache(maxsize=256)
@@ -382,10 +413,10 @@ def _decode_plan(m: int, k: int, n: int, split: int, out_dtype: torch.dtype,
 
 @functools.lru_cache(maxsize=256)
 def _plan(m: int, k: int, n: int, tile: tuple[int, int, int], out_dtype: torch.dtype,
-          split: int, dtype: torch.dtype) -> StreamPlan:
+          dtype: torch.dtype) -> StreamPlan:
     bm, bn, bk = tile
     return matmul_plan(m, k, n, block_m=bm, block_n=bn, block_k=bk,
-                       dtype=dtype, out_dtype=out_dtype, split_k=split)
+                       dtype=dtype, out_dtype=out_dtype)
 
 
 def cost(m: int, k: int, n: int, itemsize: int, out_itemsize: int | None = None) -> KernelCost:
@@ -416,9 +447,10 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
     output bf16 or float32 (rows n elements apart, n odd or even). CPU
     tensors go to :func:`repro_torch.kernels.ref.matmul_ref`.
 
-    ``variant="decode_wmma"`` runs that variant where the rule gives a
-    decode variant to default layouts (``chip_smoke.py`` times it so beside
-    ``decode_deep``); any other forced variant raises ``ValueError``.
+    ``variant=`` forces a copy variant where :func:`forced_variant` allows
+    it (``"decode_cp"`` where the rule gives a decode variant, ``"wgmma_cp"``
+    where it gives ``"wgmma"``, in the default layouts); any other forced
+    variant raises ``ValueError``.
     """
     _check_layouts(a_layout, b_layout)
     if a.dim() != 2 or b.dim() != 2:
@@ -449,29 +481,15 @@ def streamed_matmul(a: torch.Tensor, b: torch.Tensor, *,
         a, b = tma_rows(a), tma_rows(b)     # only the TMA variants read these layouts
     picked = variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k,
                          a_layout=a_layout, b_layout=b_layout, dtype=a.dtype)
-    if variant not in (None, picked) and not (
-            variant == "decode_wmma" and picked in ("decode", "decode_deep")
-            and (a_layout, b_layout) == ("mk", "kn")):
-        raise ValueError(f"variant {variant!r} cannot take the {m}x{k}x{n} {a.dtype} product "
-                         f"a={a_layout!r}, b={b_layout!r} (the rule gives {picked!r})")
-    variant = variant or picked
-    partials = None
-    if variant in ("decode", "decode_deep"):
-        deep = variant == "decode_deep"
+    variant = forced_variant(variant, picked, a_layout, b_layout)
+    if variant in ("decode", "decode_deep", "decode_cp"):
+        deep = variant != "decode"      # decode_cp: decode_deep's consumers and split
         split = (deep_split if deep else decode_split)(m, n, k, pipeline.sm_count(a.device))
         plan = _decode_plan(m, k, n, split, out_dtype, deep)
     else:
-        tile = VARIANTS[variant]
-        bm, bn, bk = tile
-        split = 1 if variant in ("wgmma", "simt_f32") else split_for(
-            math.ceil(m / bm) * math.ceil(n / bn), math.ceil(k / bk),
-            pipeline.sm_count(a.device))
-        plan = _plan(m, k, n, tile, out_dtype, split, a.dtype)
-        if split > 1:
-            partials = torch.empty((split, m, n), dtype=torch.float32, device=a.device)
+        plan = _plan(m, k, n, VARIANTS[variant], out_dtype, a.dtype)
     launch = pipeline.lower(plan, "bsps_matmul", a.device)
     pipeline.launch(launch, a.device, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                    None if partials is None else partials.data_ptr(),
                     m, n, k, a.stride(0), b.stride(0), n, _CODES[variant],
                     LAYOUTS[a_layout, b_layout], _OUT_DTYPES[out_dtype])
     streamed_matmul.launches += 1

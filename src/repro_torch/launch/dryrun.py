@@ -75,9 +75,9 @@ def _round_up(x: int, to: int) -> int:
 
 def matmul_candidates(m: int, k: int, n: int) -> list[dict[str, int]]:
     """The tiles the card's bf16 matmul launches for an m-row product:
-    the m ≤ 16 variants' (``decode``, ``decode_deep``, ``decode_wmma``)
-    or the larger ones' (``wgmma``, ``wmma``), from ``VARIANTS``."""
-    names = (("decode", "decode_deep", "decode_wmma") if m <= 16 else ("wgmma", "wmma"))
+    the m ≤ 16 variants' (``decode``, ``decode_deep``, ``decode_cp``)
+    or the larger ones' (``wgmma``, ``wgmma_cp``), from ``VARIANTS``."""
+    names = (("decode", "decode_deep", "decode_cp") if m <= 16 else ("wgmma", "wgmma_cp"))
     tiles = sorted({VARIANTS[v] for v in names})
     return [{"block_m": bm, "block_n": bn, "block_k": bk} for bm, bn, bk in tiles]
 

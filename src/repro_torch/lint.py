@@ -168,8 +168,8 @@ def _lint_matmul(machine, device) -> list[Diagnostic]:
 
     diags: list[Diagnostic] = []
     for name, (bm, bn, bk) in VARIANTS.items():
-        if name in ("decode", "decode_deep"):
-            plan = decode_plan(4, 2304, 5760, 4, deep=name == "decode_deep")
+        if name in ("decode", "decode_deep", "decode_cp"):
+            plan = decode_plan(4, 2304, 5760, 4, deep=name != "decode")
         else:
             dtype = torch.float32 if name == "simt_f32" else torch.bfloat16
             plan = matmul_plan(512, 512, 512, block_m=bm, block_n=bn, block_k=bk, dtype=dtype)

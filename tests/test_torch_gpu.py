@@ -45,9 +45,9 @@ def _rand(shape, dtype, device, seed=0):
     (1024, 2304, 5760, "wgmma"),                           # prefill MLP
     (1000, 264, 1032, "wgmma"),                            # ragged m, n and k
     (130, 200, 136, "wgmma"), (17, 8, 8, "wgmma"),         # one partial tile
-    (300, 200, 130, "wmma"), (17, 64, 65, "wmma"),         # B's rows not 16-byte apart
-    (1, 37, 9, "decode_wmma"),                             # B's rows 18 bytes apart
-    (4, 2304, 5761, "decode_wmma"),                        # the same, split K
+    (300, 200, 130, "wgmma_cp"), (17, 64, 65, "wgmma_cp"),  # B's rows not 16-byte apart
+    (1, 37, 9, "decode_cp"),                               # B's rows 18 bytes apart
+    (4, 2304, 5761, "decode_cp"),                          # the same, split K
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_matmul_kernel_matches_plain(cuda, m, k, n, variant, out_dtype):
@@ -109,8 +109,8 @@ def test_decode_product_is_one_launch(cuda):
     ops.reset_launch_counts()
     ops.matmul(a, b)
     assert ops.launch_counts()["streamed_matmul"] == 1
-    assert ops.matmul_variant_counts() == {"decode": 1, "wgmma": 0, "wmma": 0, "decode_wmma": 0,
-                                           "simt_f32": 0, "decode_deep": 0}
+    assert ops.matmul_variant_counts() == {"decode": 1, "wgmma": 0, "wgmma_cp": 0,
+                                           "decode_cp": 0, "simt_f32": 0, "decode_deep": 0}
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -214,7 +214,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         streamed_matmul(torch.ones(4, 4, device=cuda).half(), torch.ones(4, 4, device=cuda).half())
     with pytest.raises(TypeError):      # fp32 and bf16 operands mixed
         streamed_matmul(torch.ones(4, 4, device=cuda), torch.ones(4, 4, device=cuda).bfloat16())
-    q = torch.ones(1, 1, 8, 32, device=cuda)
+    q = torch.ones(1, 1, 8, 320, device=cuda)  # head dims above 256 are refused
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
     x, a, d = (torch.ones(1, 8, 64, device=cuda), -torch.ones(64, 32, device=cuda),
@@ -1203,21 +1203,107 @@ def test_decode_deep_is_one_launch(cuda):
 
 
 def test_forced_decode_wmma_matches_the_rule(cuda):
-    """``variant="decode_wmma"`` runs the old variant where the rule gives a
-    decode variant (chip_smoke.py times it so): the same product within two
-    ulps; any other forced variant raises."""
-    for k in (40000, 5760):                      # decode_deep, decode
-        a = _rand((4, k), torch.bfloat16, cuda, 76)
-        b = _rand((k, 2304), torch.bfloat16, cuda, 77) * k ** -0.5
-        want = streamed_matmul(a, b, out_dtype=torch.float32)
-        before = ops.matmul_variant_counts()["decode_wmma"]
-        got = streamed_matmul(a, b, out_dtype=torch.float32, variant="decode_wmma")
-        assert ops.matmul_variant_counts()["decode_wmma"] == before + 1
-        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
-    for variant, layout in (("wgmma", "kn"), ("decode_deep", "kn"), ("decode_wmma", "nk")):
+    """``variant="decode_cp"`` where the rule gives ``decode_deep`` gives
+    its bits (the same split, consumers and sum order), and where it gives
+    ``decode`` the same product within two ulps; ``variant="wgmma_cp"``
+    gives ``wgmma``'s bits (the same stage bytes and consumers), ragged
+    edges included. Any other forced variant raises."""
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for k in (40000, 5760):                  # decode_deep, decode
+            a = _rand((4, k), torch.bfloat16, cuda, 76)
+            b = _rand((k, 2304), torch.bfloat16, cuda, 77) * k ** -0.5
+            want = streamed_matmul(a, b, out_dtype=out_dtype)
+            before = ops.matmul_variant_counts()["decode_cp"]
+            got = streamed_matmul(a, b, out_dtype=out_dtype, variant="decode_cp")
+            assert ops.matmul_variant_counts()["decode_cp"] == before + 1
+            if k == 40000:
+                assert torch.equal(got, want)
+            else:
+                tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-3
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        for m, k, n in ((1024, 2304, 5760), (1000, 264, 1032), (17, 8, 8)):
+            a = _rand((m, k), torch.bfloat16, cuda, 78)
+            b = _rand((k, n), torch.bfloat16, cuda, 79) * k ** -0.5
+            want = streamed_matmul(a, b, out_dtype=out_dtype)
+            before = ops.matmul_variant_counts()["wgmma_cp"]
+            got = streamed_matmul(a, b, out_dtype=out_dtype, variant="wgmma_cp")
+            assert ops.matmul_variant_counts()["wgmma_cp"] == before + 1
+            assert torch.equal(got, want)
+    a = _rand((4, 5760), torch.bfloat16, cuda, 76)
+    b = _rand((5760, 2304), torch.bfloat16, cuda, 77)
+    for variant, layout in (("wgmma", "kn"), ("decode_deep", "kn"), ("decode_cp", "nk"),
+                            ("wgmma_cp", "kn"), ("decode_wmma", "kn")):
         with pytest.raises(ValueError, match="cannot take"):
             streamed_matmul(a, b if layout == "kn" else b.T.contiguous(), b_layout=layout,
                             variant=variant)
+
+
+# operands TMA cannot describe: (A's base offset, pad past k of A's rows,
+# B's base offset, pad past n of B's rows) in elements, and k, n (ragged)
+_UNALIGNED = [(0, 0, 0, 1, 200, 130), (1, 0, 0, 3, 200, 130), (0, 1, 1, 0, 200, 130),
+              (3, 5, 5, 3, 75, 257), (7, 2, 2, 7, 130, 9), (4, 4, 6, 0, 64, 200),
+              (5, 3, 7, 5, 1000, 300), (2, 6, 3, 2, 17, 1031)]
+
+
+def _strided(rows, cols, offset, pad, device, seed, scale=1.0):
+    """A (rows, cols) bf16 view whose rows are cols + pad apart, ``offset``
+    elements into its buffer."""
+    ld = cols + pad
+    buf = _rand((offset + rows * ld,), torch.bfloat16, device, seed) * scale
+    return buf.as_strided((rows, cols), (ld, 1), offset)
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 300])
+@pytest.mark.parametrize("a_off,a_pad,b_off,b_pad,k,n", _UNALIGNED)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_copy_variants_read_unaligned_operands(cuda, m, a_off, a_pad, b_off, b_pad, k, n,
+                                               out_dtype):
+    """Base offsets of 0-7 elements and row strides that are not a multiple
+    of 16 bytes, at ragged m, n and k: B is never TMA-describable, so m ≤ 16
+    takes decode_cp and m > 16 wgmma_cp, each against the plain version."""
+    a = _strided(m, k, a_off, a_pad, cuda, 80)
+    b = _strided(k, n, b_off, b_pad, cuda, 81, k ** -0.5)
+    variant = "decode_cp" if m <= 16 else "wgmma_cp"
+    before = ops.matmul_variant_counts()[variant]
+    got = streamed_matmul(a, b, out_dtype=out_dtype)
+    want = ref.matmul_ref(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ops.matmul_variant_counts()[variant] == before + 1
+    tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m,k,n,variant", [
+    (4, 2304, 5761, None), (16, 18432, 2049, None),         # decode_cp, unaligned B
+    (300, 200, 130, None), (1024, 2304, 5761, None),        # wgmma_cp, unaligned B
+    (4, 73728, 256, "decode_cp"), (1024, 2304, 5760, "wgmma_cp"),   # forced, aligned
+])
+def test_copy_variants_repeat_their_bits(cuda, m, k, n, variant):
+    """20 launches on the same inputs give the same bits: a stage read
+    before all of its copies are visible (a missing barrier arrival or proxy
+    fence) shows as bits that change now and then."""
+    a = _rand((m, k), torch.bfloat16, cuda, 82)
+    b = _rand((k, n), torch.bfloat16, cuda, 83) * k ** -0.5
+    name = variant or ("decode_cp" if m <= 16 else "wgmma_cp")
+    before = ops.matmul_variant_counts()[name]
+    one = streamed_matmul(a, b, variant=variant)
+    assert ops.matmul_variant_counts()[name] == before + 1
+    assert all(torch.equal(one, streamed_matmul(a, b, variant=variant)) for _ in range(20))
+
+
+@pytest.mark.parametrize("k,n", [(2304, 5761), (5761, 2305), (18432, 2049)])
+def test_decode_cp_rows_alone_equal_the_batch(cuda, k, n):
+    """decode_cp's split depends on m only through the instance (1-8 or
+    9-16), so a row alone rounds as it does among 8, and the first r rows of
+    16 as they do among 16."""
+    a = _rand((16, k), torch.bfloat16, cuda, 84)
+    b = _rand((k, n), torch.bfloat16, cuda, 85) * k ** -0.5
+    before = ops.matmul_variant_counts()["decode_cp"]
+    full8 = streamed_matmul(a[:8], b)
+    assert ops.matmul_variant_counts()["decode_cp"] == before + 1
+    assert all(torch.equal(streamed_matmul(a[i:i + 1], b), full8[i:i + 1]) for i in range(8))
+    full16 = streamed_matmul(a, b)
+    assert all(torch.equal(streamed_matmul(a[:r], b), full16[:r]) for r in range(9, 16))
 
 
 # the scan's backward against its plain version. fp32: sums in another order

@@ -50,8 +50,9 @@ from repro_torch.kernels.streamed_matmul import (
     decode_split,
     _deep_blocks_per_sm,
     deep_split,
+    forced_variant,
     matmul_plan,
-    split_for,
+    streamed_matmul,
     tma_rows,
     variant_for,
 )
@@ -189,15 +190,18 @@ def test_kernel_geometry_follows_the_plans():
 
 def test_decode_tiles_and_split():
     assert VARIANTS[variant_for(4, 0, 2304, 0, 5760, 2304)] == (16, 128, 64)
-    assert VARIANTS[variant_for(4, 0, 2304, 0, 5761, 2304)] == (16, 64, 64)
+    assert variant_for(4, 0, 2304, 0, 5761, 2304) == "decode_cp"
+    assert VARIANTS["decode_cp"] == (16, 128, 64)
     assert VARIANTS[variant_for(1024, 0, 2304, 0, 5760, 2304)] == (128, 128, 64)
-    assert VARIANTS[variant_for(1024, 0, 37, 0, 5760, 37)] == (64, 64, 32)
-    # split_for, the wmma and decode_wmma variants' rule: decode up/down
-    # projections of minicpm-2b on 132 SMs, the split fills the card about
-    # four blocks deep and divides the K tiles
-    assert split_for(90, 36, 132) == 6
-    assert split_for(36, 90, 132) == 15
-    assert split_for(16 * 90, 72, 132) == 1
+    assert variant_for(1024, 0, 37, 0, 5760, 37) == "wgmma_cp"
+    assert VARIANTS["wgmma_cp"] == (128, 128, 64)
+    # decode_cp takes decode_deep's split: one per instance, the same for
+    # every m of 1 .. 8 and of 9 .. 16 (minicpm's up projection one column
+    # wider, and nemotron's down projection, on 132 SMs)
+    for k, n in ((2304, 5761), (73728, 18433)):
+        for rows in (range(1, 9), range(9, 17)):
+            assert len({deep_split(m, n, k, 132) for m in rows}) == 1
+    assert deep_split(4, 5761, 2304, 132) == 6
 
 
 def _bf16(shape):
@@ -207,14 +211,14 @@ def _bf16(shape):
 @pytest.mark.parametrize("case,want", [
     ("decode", "decode"),              # m ≤ 16, B TMA-describable
     ("decode_odd_lda", "decode"),      # A's rows 194 bytes apart: A takes plain loads
-    ("decode_odd_ldb", "decode_wmma"),  # n = 9: B's rows 18 bytes apart
+    ("decode_odd_ldb", "decode_cp"),   # n = 9: B's rows 18 bytes apart
     ("decode_deep_k", "decode_deep"),  # m 16, k 65536: A's K share overflows a block
     ("forward", "wgmma"),              # minicpm's up projection
-    ("odd_ldb", "wmma"),               # n = 130: B's rows 260 bytes apart
-    ("odd_lda", "wmma"),               # k = 37: A's rows 74 bytes apart
-    ("sliced_rows", "wmma"),           # A a column slice, row stride 100 elements
+    ("odd_ldb", "wgmma_cp"),           # n = 130: B's rows 260 bytes apart
+    ("odd_lda", "wgmma_cp"),           # k = 37: A's rows 74 bytes apart
+    ("sliced_rows", "wgmma_cp"),       # A a column slice, row stride 100 elements
     ("wide_slice", "wgmma"),           # A a column slice, row stride 96 (192 bytes)
-    ("offset_base", "wmma"),           # A starts one element into its buffer
+    ("offset_base", "wgmma_cp"),       # A starts one element into its buffer
 ])
 def test_variant_for(case, want):
     """The variant rule reads only m, k, the base addresses and the row
@@ -234,6 +238,66 @@ def test_variant_for(case, want):
     elif case == "offset_base":
         a = _bf16((m * k + 1,))[1:].view(m, k)
     assert variant_for(m, a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), k) == want
+
+
+_DEFAULT, _NK, _KM = ("mk", "kn"), ("mk", "nk"), ("km", "kn")
+
+
+@pytest.mark.parametrize("forced,picked,layouts,want", [
+    (None, "decode", _DEFAULT, "decode"),             # no forced name: the rule's
+    (None, "wgmma_cp", _DEFAULT, "wgmma_cp"),
+    ("wgmma", "wgmma", _NK, "wgmma"),                 # the rule's own name, any layout
+    ("decode_cp", "decode_cp", _DEFAULT, "decode_cp"),
+    ("decode_cp", "decode", _DEFAULT, "decode_cp"),   # the copy producers on TMA's operands
+    ("decode_cp", "decode_deep", _DEFAULT, "decode_cp"),
+    ("wgmma_cp", "wgmma", _DEFAULT, "wgmma_cp"),
+    ("decode_cp", "decode", _NK, ValueError),         # the copy variants: default layouts only
+    ("decode_cp", "decode_deep", _NK, ValueError),
+    ("wgmma_cp", "wgmma", _NK, ValueError),
+    ("wgmma_cp", "wgmma", _KM, ValueError),
+    ("decode_cp", "wgmma", _DEFAULT, ValueError),     # m > 16 is not a decode product
+    ("wgmma_cp", "decode", _DEFAULT, ValueError),
+    ("wgmma_cp", "decode_cp", _DEFAULT, ValueError),
+    ("decode_cp", "wgmma_cp", _DEFAULT, ValueError),
+    ("decode_deep", "decode", _DEFAULT, ValueError),  # only the copy variants are forced
+    ("decode", "decode_cp", _DEFAULT, ValueError),
+    ("wgmma", "wgmma_cp", _DEFAULT, ValueError),
+    ("simt_f32", "wgmma", _DEFAULT, ValueError),
+    ("decode_wmma", "decode", _DEFAULT, ValueError),  # the retired names
+    ("wmma", "wgmma", _DEFAULT, ValueError),
+])
+def test_forced_variant_rule(forced, picked, layouts, want):
+    """Which forced names a picked variant and its layouts accept: a copy
+    variant runs where the rule gives the TMA variant it mirrors, in the
+    default layouts; anything else raises."""
+    if want is ValueError:
+        with pytest.raises(ValueError, match="cannot take"):
+            forced_variant(forced, picked, *layouts)
+    else:
+        assert forced_variant(forced, picked, *layouts) == want
+
+
+def test_the_matmul_has_six_variants():
+    """``VARIANTS``, the launch counts and their reset name the same six
+    variants: the copy producers replace the wmma ones."""
+    six = {"decode", "decode_deep", "decode_cp", "wgmma", "wgmma_cp", "simt_f32"}
+    assert set(VARIANTS) == six
+    assert set(streamed_matmul.launches_by_variant) == six
+    ops.reset_launch_counts()
+    assert set(ops.matmul_variant_counts()) == six
+
+
+@pytest.mark.parametrize("kernel", ["matmul", "flash", "scan_bwd"])
+def test_time_kernels_refuses_to_run_without_a_card(kernel, monkeypatch, capsys):
+    """The parent/change timer times only on the card: without one it exits
+    with its reason before it makes any input."""
+    from repro_torch.launch import time_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["time_kernels.py", "--kernel", kernel])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        time_kernels.main()
+    assert capsys.readouterr().out == ""
 
 
 # (m, k, n) -> cluster size on 132 SMs: the largest split whose blocks fill
@@ -339,7 +403,7 @@ def test_decode_split_is_one_for_rows_1_to_8(k, n):
 ])
 def test_variant_for_layouts(m, k, n, a_layout, b_layout, ldb, want):
     """A transposed operand takes a TMA variant (decode for an (n, k) B at
-    m ≤ 16, wgmma otherwise) or raises: the wmma variants read the default
+    m ≤ 16, wgmma otherwise) or raises: the copy variants read the default
     layouts only. ``lda``/``ldb`` are the stored rows' strides."""
     lda = 37 if (m, k) == (64, 37) else (k if a_layout == "mk" else m)
     if want is ValueError:
@@ -492,8 +556,8 @@ def test_reset_clears_the_variant_counts():
 
     streamed_matmul.launches_by_variant["wgmma"] += 3
     ops.reset_launch_counts()
-    assert ops.matmul_variant_counts() == {"decode": 0, "wgmma": 0, "wmma": 0, "decode_wmma": 0,
-                                           "simt_f32": 0, "decode_deep": 0}
+    assert ops.matmul_variant_counts() == {"decode": 0, "wgmma": 0, "wgmma_cp": 0,
+                                           "decode_cp": 0, "simt_f32": 0, "decode_deep": 0}
 
 
 def test_cpu_tensors_never_reach_the_library(rng, monkeypatch):
