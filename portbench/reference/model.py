@@ -1,0 +1,311 @@
+"""Plain fp32 PyTorch reference of the benchmark's models.
+
+The dense decoder (RMSNorm, RoPE, causal GQA attention, SwiGLU), Jamba's
+Mamba mixer (causal depthwise conv, selective scan walked position by
+position), its top-k MoE with GShard capacity (token-major choices sorted
+stably by expert, each expert keeping its first ``ceil(T·k/E·factor)``,
+the rest dropped) and untied or tied heads. It reads the configuration's
+JSON file and the benchmark's weights (the parameter tree of
+``portbench.weights``); every product runs in fp32 with TF32 off.
+
+``Ref(cfg, params, quant=True)`` is the control: the same reference with
+both operands of every product rounded to fp8 (e4m3, one scale a tensor),
+the step below the configuration's bf16.
+
+It imports nothing of the program.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["Ref", "fp8_round", "exact_fp32"]
+
+_NEG = -1e30
+_FP8_MAX = 448.0
+
+
+def exact_fp32() -> None:
+    """Products in true fp32: TF32 off for matmuls and convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def fp8_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, rounded to e4m3 under one per-tensor scale (amax to
+    448), as an fp8 product's operand is."""
+    x = x.float()
+    amax = x.abs().amax().clamp(min=1e-30)
+    scale = _FP8_MAX / amax
+    return (x * scale).to(torch.float8_e4m3fn).float() / scale
+
+
+class _Fp8Product(torch.autograd.Function):
+    """x @ w with both operands rounded to fp8; the backward's products
+    take fp8 operands too."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return fp8_round(x) @ fp8_round(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g8 = fp8_round(g)
+        return g8 @ fp8_round(w).transpose(-1, -2), fp8_round(x).transpose(-1, -2) @ g8
+
+
+class Ref:
+    """The reference model over ``params`` (leaves of any float dtype,
+    read as fp32). ``params`` may hold fp32 leaves that require grad (the
+    training reference differentiates through them)."""
+
+    def __init__(self, cfg: dict, params: dict, *, quant: bool = False):
+        self.cfg = cfg
+        self.p = params
+        self.quant = quant
+        d = cfg["d_model"]
+        self.d = d
+        self.h, self.hkv = cfg["num_heads"], cfg["num_kv_heads"]
+        self.hd = cfg.get("head_dim") or d // self.h
+        self.eps = cfg["norm_eps"]
+        self.pattern = [tuple(b) for b in cfg["pattern"]]
+        self.periods = cfg["num_layers"] // len(self.pattern)
+        self.ds = cfg.get("ssm_d_state", 16)
+        self.dtr = cfg.get("ssm_dt_rank") or math.ceil(d / 16)
+        self.vocab = cfg["vocab_size"]
+
+    # -- pieces ---------------------------------------------------------------
+
+    def mm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        x, w = x.float(), w.float()
+        if self.quant:
+            return _Fp8Product.apply(x, w)
+        return x @ w
+
+    def norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps) * scale.float()
+
+    def rope(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """(B, S, H, D) rotated by positions (B, S): the two halves of each
+        head as the real and imaginary parts."""
+        if self.cfg.get("rope_type", "rope") != "rope":
+            return x
+        hd = x.shape[-1]
+        inv = 1.0 / (self.cfg["rope_theta"] ** (
+            torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd))
+        ang = pos[..., None].float() * inv
+        cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
+        x1, x2 = x.chunk(2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+    def mlp(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        return self.mm(F.silu(self.mm(x, p["w_gate"])) * self.mm(x, p["w_up"]), p["w_down"])
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        e = self.p["embed"]
+        if self.cfg.get("tie_embeddings", False):
+            return self.mm(x, e["tokens"].transpose(0, 1))
+        return self.mm(x, e["head"])
+
+    # -- attention --------------------------------------------------------------
+
+    def _qkv(self, p: dict, x: torch.Tensor, pos: torch.Tensor):
+        b, s, _ = x.shape
+        q = self.mm(x, p["wq"]).view(b, s, self.h, self.hd)
+        k = self.mm(x, p["wk"]).view(b, s, self.hkv, self.hd)
+        v = self.mm(x, p["wv"]).view(b, s, self.hkv, self.hd)
+        return self.rope(q, pos), self.rope(k, pos), v
+
+    def attend(self, q, k, v, q0: int, block: int = 1024) -> torch.Tensor:
+        """Causal softmax attention of q (B, Sq, H, D) at positions q0.. over
+        k, v (B, Skv, Hkv, D) at positions 0.., in blocks of queries."""
+        b, sq, h, hd = q.shape
+        g = h // self.hkv
+        kk = k.permute(0, 2, 3, 1)[:, :, None]                 # (B, Hkv, 1, D, Skv)
+        vv = v.permute(0, 2, 1, 3)[:, :, None]                 # (B, Hkv, 1, Skv, D)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        outs = []
+        for s0 in range(0, sq, block):
+            qb = q[:, s0:s0 + block]
+            n = qb.shape[1]
+            qg = qb.permute(0, 2, 1, 3).reshape(b, self.hkv, g, n, hd)
+            sc = self.mm(qg, kk) * hd ** -0.5                   # (B, Hkv, g, n, Skv)
+            qpos = q0 + s0 + torch.arange(n, device=q.device)
+            sc = sc.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
+            o = self.mm(torch.softmax(sc, dim=-1), vv)          # (B, Hkv, g, n, D)
+            outs.append(o.reshape(b, h, n, hd).permute(0, 2, 1, 3))
+        return torch.cat(outs, dim=1).reshape(b, sq, h * hd)
+
+    # -- MoE ----------------------------------------------------------------------
+
+    def moe(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        """x (T, d) -> (T, d): top-k routing, GShard capacity, renormalised
+        weights; a dropped choice adds nothing."""
+        cfg = self.cfg
+        e, k = cfg["moe_experts"], cfg["moe_top_k"]
+        t = x.shape[0]
+        cap = max(1, math.ceil(t * k / e * cfg["moe_capacity_factor"]))
+        probs = torch.softmax(self.mm(x, p["router"]), dim=-1)
+        top_p, top_e = torch.topk(probs, k, dim=-1)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+        flat_e = top_e.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        first = torch.searchsorted(sorted_e, torch.arange(e, device=x.device))
+        rank = torch.empty_like(flat_e)
+        rank[order] = torch.arange(t * k, device=x.device) - first[sorted_e]
+        kept = (rank < cap).view(t, k)
+        y = torch.zeros_like(x)
+        tok = torch.arange(t, device=x.device)[:, None].expand(t, k)
+        for j in range(e):
+            sel = (top_e == j) & kept
+            if not bool(sel.any()):
+                continue
+            rows, w = tok[sel], top_p[sel]
+            h = F.silu(self.mm(x[rows], p["w_gate"][j])) * self.mm(x[rows], p["w_up"][j])
+            y.index_add_(0, rows, self.mm(h, p["w_down"][j]) * w[:, None])
+        return y
+
+    # -- Mamba ----------------------------------------------------------------------
+
+    def _mamba_in(self, p: dict, x: torch.Tensor, conv_state: torch.Tensor | None):
+        """(xin after conv and SiLU, z, the conv window's new state)."""
+        di = self.cfg.get("ssm_expand", 2) * self.d
+        xz = self.mm(x, p["w_in"])
+        xin, z = xz[..., :di], xz[..., di:]
+        kc = p["conv_w"].shape[0]
+        left = (torch.zeros(x.shape[0], kc - 1, di, device=x.device)
+                if conv_state is None else conv_state)
+        xp = torch.cat([left, xin], dim=1)
+        w = p["conv_w"].float()
+        conv = sum(xp[:, i:i + xin.shape[1]] * w[i] for i in range(kc)) + p["conv_b"].float()
+        return F.silu(conv), z, xp[:, -(kc - 1):]
+
+    def _ssm_params(self, p: dict, xin: torch.Tensor):
+        proj = self.mm(xin, p["w_x"])
+        dt_low = proj[..., :self.dtr]
+        bm = proj[..., self.dtr:self.dtr + self.ds]
+        cm = proj[..., self.dtr + self.ds:]
+        dt = F.softplus(self.mm(dt_low, p["w_dt"]) + p["dt_bias"].float())
+        a = -torch.exp(p["a_log"].float())
+        return dt, bm, cm, a
+
+    def mamba(self, p: dict, x: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+        """Full sequence x (B, S, d): h_t = exp(Δ_t A) h_{t-1} + Δ_t x_t B_t,
+        y_t = h_t·C_t + D x_t, walked one position at a time."""
+        xin, z, _ = self._mamba_in(p, x, None)
+        dt, bm, cm, a = self._ssm_params(p, xin)
+        b, s, di = xin.shape
+        h = torch.zeros(b, di, self.ds, device=x.device)
+        ys = []
+        for c0 in range(0, s, chunk):
+            da = torch.exp(dt[:, c0:c0 + chunk, :, None] * a)            # (B, c, di, ds)
+            dbx = (dt[:, c0:c0 + chunk] * xin[:, c0:c0 + chunk])[..., None] \
+                * bm[:, c0:c0 + chunk, None, :]
+            for t in range(da.shape[1]):
+                h = da[:, t] * h + dbx[:, t]
+                ys.append(torch.einsum("bis,bs->bi", h, cm[:, c0 + t]))
+        y = torch.stack(ys, dim=1) + xin * p["d_skip"].float()
+        return self.mm(y * F.silu(z), p["w_out"])
+
+    def mamba_step(self, p: dict, x: torch.Tensor, state: dict) -> torch.Tensor:
+        """One position x (B, 1, d) against ``state`` ({"conv", "h"}, updated)."""
+        xin, z, state["conv"] = self._mamba_in(p, x, state["conv"])
+        dt, bm, cm, a = self._ssm_params(p, xin)
+        state["h"] = torch.exp(dt[:, 0, :, None] * a) * state["h"] \
+            + (dt[:, 0] * xin[:, 0])[..., None] * bm[:, 0, None, :]
+        y = torch.einsum("bis,bs->bi", state["h"], cm[:, 0]) + xin[:, 0] * p["d_skip"].float()
+        return self.mm(y[:, None] * F.silu(z), p["w_out"])
+
+    # -- the stack --------------------------------------------------------------------
+
+    def blocks(self):
+        for i in range(self.periods):
+            for j, kind in enumerate(self.pattern):
+                yield (i, j), kind, self.p["stack"][i][j]
+
+    def block(self, kind, p: dict, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Full-sequence block on x (B, S, d)."""
+        mixer, mlp = kind
+        hn = self.norm(x, p["ln1"]["scale"])
+        if mixer == "attn":
+            q, k, v = self._qkv(p["mixer"], hn, pos)
+            hn = self.mm(self.attend(q, k, v, 0), p["mixer"]["wo"])
+        else:
+            hn = self.mamba(p["mixer"], hn)
+        x = x + hn
+        if mlp == "none":
+            return x
+        hn = self.norm(x, p["ln2"]["scale"])
+        if mlp == "dense":
+            return x + self.mlp(p["mlp"], hn)
+        b, s, d = hn.shape
+        return x + self.moe(p["mlp"], hn.reshape(b * s, d)).view(b, s, d)
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.p["embed"]["tokens"][tokens.long()].float()
+
+    def hidden(self, tokens: torch.Tensor, *, checkpoint: bool = False) -> torch.Tensor:
+        """Final-normed hidden states (B, S, d) of a full-sequence forward."""
+        b, s = tokens.shape
+        pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        x = self.embed(tokens)
+        for _, kind, p in self.blocks():
+            if checkpoint:
+                x = torch.utils.checkpoint.checkpoint(self.block, kind, p, x, pos,
+                                                      use_reentrant=False)
+            else:
+                x = self.block(kind, p, x, pos)
+        return self.norm(x, self.p["final_norm"]["scale"])
+
+    def logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.head(self.hidden(tokens))
+
+    # -- step-by-step decoding over every row -------------------------------------------
+
+    def decode_state(self, batch: int, max_len: int, device: Any) -> dict:
+        di = self.cfg.get("ssm_expand", 2) * self.d
+        kc = self.cfg.get("ssm_d_conv", 4)
+        st: dict = {"len": 0}
+        for at, (mixer, _), _ in self.blocks():
+            if mixer == "attn":
+                st[at] = {"k": torch.zeros(batch, max_len, self.hkv, self.hd, device=device),
+                          "v": torch.zeros(batch, max_len, self.hkv, self.hd, device=device)}
+            else:
+                st[at] = {"conv": torch.zeros(batch, kc - 1, di, device=device),
+                          "h": torch.zeros(batch, di, self.ds, device=device)}
+        return st
+
+    def step(self, tok: torch.Tensor, st: dict) -> torch.Tensor:
+        """Logits (B, V) after feeding one token a row (B,) at position
+        ``st["len"]``; every row is one request of one batch, so an MoE
+        layer routes the B tokens as one group."""
+        b = tok.shape[0]
+        t = st["len"]
+        x = self.embed(tok[:, None])
+        pos = torch.full((b, 1), t, device=tok.device)
+        for at, (mixer, mlp), p in self.blocks():
+            hn = self.norm(x, p["ln1"]["scale"])
+            if mixer == "attn":
+                q, k, v = self._qkv(p["mixer"], hn, pos)
+                c = st[at]
+                c["k"][:, t], c["v"][:, t] = k[:, 0], v[:, 0]
+                o = self.attend(q, c["k"][:, :t + 1], c["v"][:, :t + 1], t)
+                hn = self.mm(o, p["mixer"]["wo"])
+            else:
+                hn = self.mamba_step(p["mixer"], hn, st[at])
+            x = x + hn
+            if mlp == "none":
+                continue
+            hn = self.norm(x, p["ln2"]["scale"])
+            x = x + (self.mlp(p["mlp"], hn) if mlp == "dense"
+                     else self.moe(p["mlp"], hn[:, 0])[:, None])
+        st["len"] = t + 1
+        return self.head(self.norm(x, self.p["final_norm"]["scale"]))[:, 0]
