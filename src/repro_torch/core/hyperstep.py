@@ -94,6 +94,7 @@ import torch
 from repro_torch.core.bsp import BSPAccelerator
 from repro_torch.core.plan import StreamPlan
 from repro_torch.core.stream import Stream
+from repro_torch.core.trace import span, traced
 from repro_torch.core.verify import Diagnostic, PlanVerificationError, verify_runner
 from repro_torch.device import resolve_device
 
@@ -854,6 +855,7 @@ class HyperstepRunner:
                 and sched.start_out_cursors
                 == [[s.cursor for s in outs] for outs in self._out_streams])
 
+    @traced("repro_torch.hyperstep.compile")
     def compile(self, num_hypersteps: int | None = None) -> CompiledHyperstepProgram:
         """Build the whole hyperstep program as one replay of the cursor walk.
 
@@ -864,7 +866,8 @@ class HyperstepRunner:
         return an out token for *every* slot every hyperstep (the flush mask
         drops the non-completing ones; the ``None`` skip is a host-loop-only
         contract). Programs are cached per hyperstep count;
-        ``run(compiled=True)`` compiles on first use.
+        ``run(compiled=True)`` compiles on first use. Under a profiler each
+        build is a ``repro_torch.hyperstep.compile`` span.
         """
         for ss in (*self._streams, *self._out_streams):
             for s in ss:
@@ -958,30 +961,32 @@ class HyperstepRunner:
             # staging: the whole pseudo-stream crosses the external link once
             # (the compiled twin of the prologue + the per-step prefetches)
             t0 = time.perf_counter()
-            stacked = [[s.as_stacked(self.device) for s in ss]
-                       for ss in self._streams]
-            out_bufs = [[s.as_stacked(self.device) for s in outs]
-                        for outs in self._out_streams]
-            _block(stacked)
-            _block(out_bufs)
-            if self.faults is not None:
-                # the whole run stages at once, so every dma_stall trigger in
-                # range lands on this one link crossing
-                d = sum(self.faults.fetch_delay(g)
-                        for g in range(base, base + total))
-                if d:
-                    time.sleep(d)
+            with span("repro_torch.hyperstep.stage"):
+                stacked = [[s.as_stacked(self.device) for s in ss]
+                           for ss in self._streams]
+                out_bufs = [[s.as_stacked(self.device) for s in outs]
+                            for outs in self._out_streams]
+                _block(stacked)
+                _block(out_bufs)
+                if self.faults is not None:
+                    # the whole run stages at once, so every dma_stall
+                    # trigger in range lands on this one link crossing
+                    d = sum(self.faults.fetch_delay(g)
+                            for g in range(base, base + total))
+                    if d:
+                        time.sleep(d)
             stage_s = time.perf_counter() - t0
 
             t1 = time.perf_counter()
-            state, out_bufs = prog(state, out_bufs, stacked)
-            _block(state)
-            _block(out_bufs)
-            if self.faults is not None:
-                d = sum(self.faults.compute_delay(g)
-                        for g in range(base, base + total))
-                if d:
-                    time.sleep(d)
+            with span("repro_torch.hyperstep.replay"):
+                state, out_bufs = prog(state, out_bufs, stacked)
+                _block(state)
+                _block(out_bufs)
+                if self.faults is not None:
+                    d = sum(self.faults.compute_delay(g)
+                            for g in range(base, base + total))
+                    if d:
+                        time.sleep(d)
             run_s = time.perf_counter() - t1
 
             # the run's boundary: corruption triggers land on the scattered
@@ -998,11 +1003,12 @@ class HyperstepRunner:
             # drain the finished output tokens back to external memory and
             # advance the cursors to the walk's final positions
             t2 = time.perf_counter()
-            for c, (core, outs) in enumerate(zip(self._core_ids,
-                                                 self._out_streams)):
-                for j, s in enumerate(outs):
-                    s.load_stacked(out_bufs[c][j])
-                    s.seek(core, sched.final_out_cursors[c][j] - s.cursor)
+            with span("repro_torch.hyperstep.drain"):
+                for c, (core, outs) in enumerate(zip(self._core_ids,
+                                                     self._out_streams)):
+                    for j, s in enumerate(outs):
+                        s.load_stacked(out_bufs[c][j])
+                        s.seek(core, sched.final_out_cursors[c][j] - s.cursor)
             drain_s = time.perf_counter() - t2
             for c, (core, ins) in enumerate(zip(self._core_ids, self._streams)):
                 for i, s in enumerate(ins):

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.stream import StreamOwnership
+from repro_torch.core.trace import traced
 
 __all__ = ["DataConfig", "DataSourceError", "TokenStream", "BatchStream",
            "Prefetcher"]
@@ -282,6 +283,7 @@ class BatchStream(StreamOwnership):
     def _rewind(self) -> None:
         self._cursor = 0
 
+    @traced("repro_torch.data.fetch")
     def move_down(self, core: int) -> dict[str, Any]:
         self._check_owner(core)
         if not 0 <= self._cursor < self._num:

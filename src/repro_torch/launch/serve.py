@@ -28,6 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import time
 from typing import Any
 
@@ -40,6 +41,7 @@ from repro_torch.core.calibrate import default_machine
 from repro_torch.core.hyperstep import HyperstepRecord, HyperstepRunner
 from repro_torch.core.plan import ScratchSpec, StreamPlan, autotune, host_plan, streamed_operand
 from repro_torch.core.stream import StreamSet
+from repro_torch.core.trace import span, traced
 from repro_torch.device import resolve_device
 from repro_torch.launch.registry import Registry
 from repro_torch.models import model as M
@@ -154,13 +156,14 @@ def compiled_serve_fns(cfg, temperature: float, *, device: Any = None):
     serve_step = make_serve_step(cfg, device=device)
 
     def decode_fn(params, logits, cache, gen):
-        last = logits[:, -1]
-        if temperature > 0:
-            probs = torch.softmax(last.float() / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
-        else:
-            tok = torch.argmax(last, dim=-1)
-        tok = tok.to(torch.int32)[:, None]
+        with span("repro_torch.serve.sample"):
+            last = logits[:, -1]
+            if temperature > 0:
+                probs = torch.softmax(last.float() / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            else:
+                tok = torch.argmax(last, dim=-1)
+            tok = tok.to(torch.int32)[:, None]
         logits, cache = serve_step(params, cache, {"tokens": tok})
         return tok, logits, cache, gen
 
@@ -183,7 +186,11 @@ def _decode_plan(cfg, batch: int, max_len: int, generated):
 #: (see :mod:`repro_torch.launch.registry`).
 decode_runners = Registry(capacity=8)
 
+#: each generate call's number, carried in its spans' arguments
+_requests = itertools.count()
 
+
+@traced("repro_torch.serve.build_runner")
 def _build_decode_runner(cfg, temperature: float, batch: int, max_len: int,
                          steps: int, device: torch.device):
     """One compiled decode runner per request shape (the serving hot path).
@@ -231,81 +238,91 @@ def generate(
     per-token records (measurement mode). ``max_len`` overrides the cache
     length (default ``prompt_len + steps``). ``prefill_block`` overrides the
     autotuned prefill chunk size (:func:`prefill_block_size`).
+
+    Under a profiler the call is a ``repro_torch.serve.generate`` span
+    (``request=<n>``, a number per call), holding ``serve.prefill`` (the
+    bounds of ``prefill_seconds``), a ``serve.build_runner`` where no runner
+    of the request's shape is cached, the runner's spans and, inside them,
+    a ``serve.step`` a prefill chunk or token step and a ``serve.sample`` a
+    generated token.
     """
-    device = M._on(params, device)
-    prompt_tokens = torch.as_tensor(prompt_tokens).to(device, torch.int32)
-    b, s = prompt_tokens.shape
-    if s < 1:
-        raise ValueError("need a non-empty prompt")
-    if max_len is None:
-        max_len = s + steps
-    elif max_len < s + steps:
-        raise ValueError(f"max_len={max_len} < prompt + steps = {s + steps}")
-    cache = M.init_cache(cfg, b, max_len, device=device)
+    request = next(_requests)
+    with span("repro_torch.serve.generate", request=request):
+        device = M._on(params, device)
+        prompt_tokens = torch.as_tensor(prompt_tokens).to(device, torch.int32)
+        b, s = prompt_tokens.shape
+        if s < 1:
+            raise ValueError("need a non-empty prompt")
+        if max_len is None:
+            max_len = s + steps
+        elif max_len < s + steps:
+            raise ValueError(f"max_len={max_len} < prompt + steps = {s + steps}")
+        cache = M.init_cache(cfg, b, max_len, device=device)
 
-    machine = machine or default_machine(device=device)
-    if prefill_block is None:
-        prefill_block = prefill_block_size(cfg, b, s, machine)
-    prefill = make_prefill(cfg, prefill_block, device=device)
-    _, decode_fn = compiled_serve_fns(cfg, temperature, device=device)
+        machine = machine or default_machine(device=device)
+        if prefill_block is None:
+            prefill_block = prefill_block_size(cfg, b, s, machine)
+        prefill = make_prefill(cfg, prefill_block, device=device)
+        _, decode_fn = compiled_serve_fns(cfg, temperature, device=device)
 
-    # -- prefill ---------------------------------------------------------------
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, cache, prompt_tokens)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    prefill_s = time.perf_counter() - t0
+        # -- prefill -----------------------------------------------------------
+        t0 = time.perf_counter()
+        with span("repro_torch.serve.prefill", request=request):
+            logits, cache = prefill(params, cache, prompt_tokens)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        prefill_s = time.perf_counter() - t0
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
 
-    if compiled:
-        # -- decode: the whole run replayed with no per-token host sync --------
-        with decode_runners.acquire(
-                (cfg, temperature, b, max_len, steps, str(device)),
-                lambda: _build_decode_runner(cfg, temperature, b, max_len,
-                                             steps, device)) as entry:
-            runner, generated = entry.value
-            with entry.lock:            # cached runner + stream are shared
-                runner.machine = machine
-                runner.reset_records()  # per-request row, program stays cached
-                runner.run((params, logits, cache, gen), compiled=True)
-                decode_seconds = [runner.records[-1].step_seconds]
-                generated_ids = np.array(generated.data, np.int32)
-                records = list(runner.records)
-                plan_row = runner.predicted_vs_measured()
-    else:
-        # -- decode: one instrumented hyperstep per generated token ------------
-        streams = StreamSet()
-        generated = streams.create(np.zeros((steps, b), np.int32), 1,
-                                   name="generated")
+        if compiled:
+            # -- decode: the whole run replayed with no per-token host sync ----
+            with decode_runners.acquire(
+                    (cfg, temperature, b, max_len, steps, str(device)),
+                    lambda: _build_decode_runner(cfg, temperature, b, max_len,
+                                                 steps, device)) as entry:
+                runner, generated = entry.value
+                with entry.lock:            # cached runner + stream are shared
+                    runner.machine = machine
+                    runner.reset_records()  # per-request row, program stays cached
+                    runner.run((params, logits, cache, gen), compiled=True)
+                    decode_seconds = [runner.records[-1].step_seconds]
+                    generated_ids = np.array(generated.data, np.int32)
+                    records = list(runner.records)
+                    plan_row = runner.predicted_vs_measured()
+        else:
+            # -- decode: one instrumented hyperstep per generated token --------
+            streams = StreamSet()
+            generated = streams.create(np.zeros((steps, b), np.int32), 1,
+                                       name="generated")
 
-        def hyperstep(state, _tokens):
-            logits, cache, gen = state
-            tok, logits, cache, gen = decode_fn(params, logits, cache, gen)
-            # the sampled ids stream up; the DMA lane copies them to the host
-            # off the compute path
-            return (logits, cache, gen), [tok[:, 0]]
+            def hyperstep(state, _tokens):
+                logits, cache, gen = state
+                tok, logits, cache, gen = decode_fn(params, logits, cache, gen)
+                # the sampled ids stream up; the DMA lane copies them to the
+                # host off the compute path
+                return (logits, cache, gen), [tok[:, 0]]
 
-        runner = HyperstepRunner(
-            hyperstep, [], out_streams=[generated], device=device,
-            plan=_decode_plan(cfg, b, max_len, generated), machine=machine)
-        runner.run((logits, cache, gen))
-        decode_seconds = [r.compute_seconds for r in runner.records]
-        generated_ids = np.array(generated.data, np.int32)
-        records = list(runner.records)
-        plan_row = runner.predicted_vs_measured()
+            runner = HyperstepRunner(
+                hyperstep, [], out_streams=[generated], device=device,
+                plan=_decode_plan(cfg, b, max_len, generated), machine=machine)
+            runner.run((logits, cache, gen))
+            decode_seconds = [r.compute_seconds for r in runner.records]
+            generated_ids = np.array(generated.data, np.int32)
+            records = list(runner.records)
+            plan_row = runner.predicted_vs_measured()
 
-    out = torch.cat(
-        [prompt_tokens, torch.from_numpy(generated_ids).T.to(device)], dim=1)
-    stats = ServeStats(
-        prefill_seconds=prefill_s,
-        decode_seconds=decode_seconds,
-        records=records,
-        plan_row=plan_row,
-        compiled=compiled,
-    )
-    return out, stats
+        out = torch.cat(
+            [prompt_tokens, torch.from_numpy(generated_ids).T.to(device)], dim=1)
+        stats = ServeStats(
+            prefill_seconds=prefill_s,
+            decode_seconds=decode_seconds,
+            records=records,
+            plan_row=plan_row,
+            compiled=compiled,
+        )
+        return out, stats
 
 
 def main() -> None:

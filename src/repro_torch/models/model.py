@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.trace import span
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (
@@ -194,9 +195,16 @@ def _inputs(cfg: ModelConfig, params: Params, tokens: Any, embeds: Any,
     embeddings in the config's dtype. Exactly one of the two."""
     if (tokens is None) == (embeds is None):
         raise ValueError("pass exactly one of tokens / embeds")
-    if embeds is None:
-        return embed_tokens(params["embed"], torch.as_tensor(tokens, device=device))
-    return torch.as_tensor(embeds, device=device).to(torch_dtype(cfg))
+    with span("repro_torch.model.embed"):
+        if embeds is None:
+            return embed_tokens(params["embed"], torch.as_tensor(tokens, device=device))
+        return torch.as_tensor(embeds, device=device).to(torch_dtype(cfg))
+
+
+def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the LM head: (B, S, d) -> logits (B, S, V)."""
+    with span("repro_torch.model.head"):
+        return lm_head(cfg, params["embed"], apply_norm(cfg, params["final_norm"], x))
 
 
 def forward(
@@ -222,8 +230,7 @@ def forward(
         pos2d = positions if positions.dim() == 2 else positions[0]
         x = x + sinusoidal_positions(cfg.d_model, pos2d).to(x.dtype)
     x, aux = tf.apply_stack(cfg, params["stack"], x, positions)
-    x = apply_norm(cfg, params["final_norm"], x)
-    return lm_head(cfg, params["embed"], x), aux
+    return _head(cfg, params, x), aux
 
 
 def loss_fn(
@@ -343,8 +350,7 @@ def decode_step(
         x = x + sinusoidal_positions(cfg.d_model, pos).to(x.dtype)
     x, new_layers = tf.apply_stack_decode(cfg, params["stack"], cache["layers"], x,
                                           cache_len)
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = lm_head(cfg, params["embed"], x)
+    logits = _head(cfg, params, x)
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., : cfg.vocab_size]
     return logits, {"layers": new_layers, "len": cache_len + s}

@@ -25,6 +25,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import Block, ModelConfig
+from repro_torch.core.trace import span
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
@@ -56,47 +57,57 @@ def init_block(cfg: ModelConfig, blk: Block, gen: torch.Generator, dtype, device
     return p
 
 
+#: each mixer's and MLP's span (:mod:`repro_torch.core.trace`), by the
+#: config's own names: its pre-norm, its body and its residual add
+SPANS = {k: f"repro_torch.model.{k}" for k in (*_INIT, "dense", "moe")}
+
+
 def _apply_mlp(cfg: ModelConfig, blk: Block, p: Params,
                x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(x + mlp(norm(x)), the MoE aux loss or None)."""
     if blk.mlp == "none":
         return x, None
-    h = apply_norm(cfg, p["ln2"], x)
-    if blk.mlp == "dense":
-        return x + apply_mlp(cfg, p["mlp"], h), None
-    y, aux = moe_mod.moe_forward(cfg, p["mlp"], h)
-    return x + y, aux
+    with span(SPANS[blk.mlp]):
+        h = apply_norm(cfg, p["ln2"], x)
+        if blk.mlp == "dense":
+            return x + apply_mlp(cfg, p["mlp"], h), None
+        y, aux = moe_mod.moe_forward(cfg, p["mlp"], h)
+        return x + y, aux
 
 
 def apply_block(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Full-sequence (train/prefill) block: (x, its MoE aux loss or None)."""
     _check_block(blk)
-    h = apply_norm(cfg, p["ln1"], x)
-    if blk.mixer == "attn":
-        h = attn.attention_forward(cfg, p["mixer"], h, positions)
-    elif blk.mixer == "mamba":
-        h = mb.mamba_forward(cfg, p["mixer"], h)
-    elif blk.mixer == "mlstm":
-        h = xl.mlstm_forward(cfg, p["mixer"], h)
-    else:
-        h = xl.slstm_forward(cfg, p["mixer"], h)
-    return _apply_mlp(cfg, blk, p, x + h)
+    with span(SPANS[blk.mixer]):
+        h = apply_norm(cfg, p["ln1"], x)
+        if blk.mixer == "attn":
+            h = attn.attention_forward(cfg, p["mixer"], h, positions)
+        elif blk.mixer == "mamba":
+            h = mb.mamba_forward(cfg, p["mixer"], h)
+        elif blk.mixer == "mlstm":
+            h = xl.mlstm_forward(cfg, p["mixer"], h)
+        else:
+            h = xl.slstm_forward(cfg, p["mixer"], h)
+        x = x + h
+    return _apply_mlp(cfg, blk, p, x)
 
 
 def apply_block_decode(cfg: ModelConfig, blk: Block, p: Params, x: torch.Tensor,
                        cache: Params, cache_len: Any) -> tuple[torch.Tensor, Params]:
     _check_block(blk)
-    h = apply_norm(cfg, p["ln1"], x)
-    if blk.mixer == "attn":
-        h, cache = attn.attention_decode(cfg, p["mixer"], h, cache, cache_len)
-    elif blk.mixer == "mamba":
-        h, cache = mb.mamba_decode(cfg, p["mixer"], h, cache)
-    elif blk.mixer == "mlstm":
-        h, cache = xl.mlstm_decode(cfg, p["mixer"], h, cache)
-    else:
-        h, cache = xl.slstm_decode(cfg, p["mixer"], h, cache)
-    return _apply_mlp(cfg, blk, p, x + h)[0], cache
+    with span(SPANS[blk.mixer]):
+        h = apply_norm(cfg, p["ln1"], x)
+        if blk.mixer == "attn":
+            h, cache = attn.attention_decode(cfg, p["mixer"], h, cache, cache_len)
+        elif blk.mixer == "mamba":
+            h, cache = mb.mamba_decode(cfg, p["mixer"], h, cache)
+        elif blk.mixer == "mlstm":
+            h, cache = xl.mlstm_decode(cfg, p["mixer"], h, cache)
+        else:
+            h, cache = xl.slstm_decode(cfg, p["mixer"], h, cache)
+        x = x + h
+    return _apply_mlp(cfg, blk, p, x)[0], cache
 
 
 def init_block_cache(cfg: ModelConfig, blk: Block, batch: int, max_len: int, dtype,

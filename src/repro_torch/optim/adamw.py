@@ -18,6 +18,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core.trace import traced
 from repro_torch.optim.compress import tree_map
 
 __all__ = ["AdamW", "global_norm", "leaves"]
@@ -62,13 +63,15 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
+    @traced("repro_torch.optim.update")
     def update(self, grads: Params, state: dict[str, Any], params: Params, *,
                gnorm: torch.Tensor | None = None,
                ) -> tuple[Params, dict[str, Any], dict[str, torch.Tensor]]:
         """Returns (params, state, {"grad_norm", "lr"}); ``params`` and the
         state's moments are updated in place. ``gnorm`` is the norm the
         gradients are clipped by, where ``grads`` are one rank's shards of
-        the gradient (default: ``global_norm(grads)``)."""
+        the gradient (default: ``global_norm(grads)``). Under a profiler
+        the call is a ``repro_torch.optim.update`` span."""
         step = state["step"] + 1
         lr = self.schedule(step).to(torch.float32)
         if gnorm is None:

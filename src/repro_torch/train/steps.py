@@ -18,6 +18,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.trace import span
 from repro_torch.device import resolve_device
 from repro_torch.distributed import ctx
 from repro_torch.models import model as M
@@ -47,7 +48,9 @@ def make_grad_fn(cfg: ModelConfig, *, aux_weight: float = 0.01, compress_bf16: b
     ``compress_bf16`` (the JAX package's ``bf16_grads``). The metrics hold
     the loss, ce and moe_aux as 0-d tensors. ``grads(params, batch,
     denom)`` divides the CE sum by ``denom`` instead of the batch's own
-    count of labelled positions.
+    count of labelled positions. Under a profiler the loss is a
+    ``repro_torch.train.forward`` span and the gradients and their cast a
+    ``repro_torch.train.backward`` span.
     """
     device = resolve_device(device)
 
@@ -55,16 +58,19 @@ def make_grad_fn(cfg: ModelConfig, *, aux_weight: float = 0.01, compress_bf16: b
                  denom: torch.Tensor | None = None):
         # leaves that share the parameters' storage and take gradients
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        _, metrics = M.loss_fn(cfg, live, batch.get("tokens"), batch["labels"],
-                               embeds=batch.get("embeds"), positions=batch.get("positions"),
-                               aux_weight=aux_weight, denom=denom, device=device)
-        flat = leaves(live)
-        grads = torch.autograd.grad(metrics["loss"], flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
-        grads = _unflatten(live, grads)
-        if compress_bf16:
-            # halves the data-parallel all-reduce; the moments keep fp32
-            grads = bf16_grads(grads)
+        with span("repro_torch.train.forward"):
+            _, metrics = M.loss_fn(cfg, live, batch.get("tokens"), batch["labels"],
+                                   embeds=batch.get("embeds"),
+                                   positions=batch.get("positions"),
+                                   aux_weight=aux_weight, denom=denom, device=device)
+        with span("repro_torch.train.backward"):
+            flat = leaves(live)
+            grads = torch.autograd.grad(metrics["loss"], flat, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+            grads = _unflatten(live, grads)
+            if compress_bf16:
+                # halves the data-parallel all-reduce; the moments keep fp32
+                grads = bf16_grads(grads)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     return grads_of
@@ -212,11 +218,14 @@ def _unflatten(tree: Any, flat: list[torch.Tensor]) -> Any:
 
 
 def make_serve_step(cfg: ModelConfig, *, device: Any = None):
+    """One decode step over a prefill chunk or one token: under a profiler a
+    ``repro_torch.serve.step`` span."""
     device = resolve_device(device)
 
     def serve_step(params: Params, cache: Params, batch: dict[str, torch.Tensor]):
-        return M.decode_step(cfg, params, cache, batch.get("tokens"),
-                             embeds=batch.get("embeds"), device=device)
+        with span("repro_torch.serve.step"):
+            return M.decode_step(cfg, params, cache, batch.get("tokens"),
+                                 embeds=batch.get("embeds"), device=device)
 
     return serve_step
 
