@@ -163,6 +163,7 @@ from repro_torch.launch.serve import generate, make_prefill, prefill_block_size 
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.mamba import chunked_selective_scan  # noqa: E402
+from repro_torch.models import flash as flash_fn  # noqa: E402
 from repro_torch.models.flash import FlashAttention  # noqa: E402
 from repro_torch.optim.adamw import AdamW, leaves  # noqa: E402
 from repro_torch.optim.compress import tree_map  # noqa: E402
@@ -204,6 +205,9 @@ KERNEL_META = {
                         "src/repro/kernels/streamed_matmul.py:44"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:40"),
+    # no Pallas backward either: the reference's jnp two-pass _flash_bwd
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/models/flash.py:129"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:35"),
     # the JAX package has no Pallas backward: jax.grad through its
@@ -667,6 +671,8 @@ def check_flash(rows: dict) -> None:
             check_flash_lse_and_grads(sets, shape, b_ms, lib)
     for case in FLASH_HEAD_DIM_CASES:
         check_flash_head_dim(rows, *case)
+    for idx, case in enumerate(FLASH_BWD_CASES):
+        check_flash_bwd(rows, idx, *case)
     for dtype in (torch.bfloat16, torch.float32):
         for d in flash_mod.HEAD_DIMS:
             attrs = flash_mod.kernel_attrs(d, dtype, torch.device("cuda"))
@@ -676,6 +682,70 @@ def check_flash(rows: dict) -> None:
                   f"flash_attention {name} spills {attrs['spill_bytes']} bytes a thread")
             if f"flash_attention.{name}" in rows:
                 rows[f"flash_attention.{name}"].update(attrs)
+    for d in flash_mod.HEAD_DIMS:
+        for pass_ in ("dq", "dkv"):
+            attrs = flash_mod.bwd_kernel_attrs(d, pass_, torch.device("cuda"))
+            log(f"[kernel] flash_attention_bwd bf16.d{d} {pass_} attrs: {json.dumps(attrs)}")
+            check(attrs["spill_bytes"] == 0,
+                  f"flash_attention_bwd d{d} {pass_} spills {attrs['spill_bytes']} bytes a thread")
+
+
+# (label, B, Hq, Hkv, S, D) of the backward's timed checks, causal: minicpm-2b's
+# train step (the benchmark's cell) and jamba's (GQA 32/8, D 128)
+FLASH_BWD_CASES = [("minicpm-2b train", 8, 36, 36, 2048, 64),
+                   ("jamba train", 4, 32, 8, 256, 128)]
+
+
+def check_flash_bwd(rows: dict, idx: int, label, b, hq, hkv, s_len, d) -> None:
+    """The bf16 backward kernel at a train step's shape: its gradients
+    against the torch-op ``_flash_bwd`` on the same saved forward (fp32
+    products of the same bf16 inputs; 2% of each gradient's largest entry),
+    the same bits from two calls, one ``flash_attention_bwd`` count a call;
+    timed beside its bound (10·d a kept pair at the bf16 peak), the torch
+    ops and SDPA forward + backward (the library yardstick)."""
+    def make(i):
+        q = randn((b, hq, s_len, d), torch.bfloat16, 10 * i + 31)
+        k = randn((b, hkv, s_len, d), torch.bfloat16, 10 * i + 32)
+        v = randn((b, hkv, s_len, d), torch.bfloat16, 10 * i + 33)
+        out, lse = ops.attention(q, k, v, return_lse=True)
+        return q, k, v, out, lse, randn((b, hq, s_len, d), torch.bfloat16, 10 * i + 34)
+
+    sets = copies_past_l2(make, (3 * b * hq * s_len * d + 2 * b * hkv * s_len * d) * 2)
+    scale = d ** -0.5
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = ops.attention_bwd(*sets[0])
+    again = ops.attention_bwd(*sets[0])
+    want = flash_fn._flash_bwd(*sets[0], True, scale, 1024, 1024)
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["flash_attention_bwd"] == before + 2,
+          f"flash_attention_bwd {label}: launches {ops.launch_counts()} from {before}")
+    errs = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+            for g, w in zip(got, want)]
+    shape = f"{label} b{b} h{hq}/{hkv} s{s_len} d{d}"
+    check(max(errs) <= 0.02, f"flash_attention_bwd {shape}: relative errs {errs}")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"flash_attention_bwd {shape}: two calls gave different bits")
+    del got, again, want
+    ms, enqueue = bench_ms(lambda *t: ops.attention_bwd(*t), sets, 20)
+    plain, _ = bench_ms(lambda *t: flash_fn._flash_bwd(*t, True, scale, 1024, 1024), sets, 3)
+
+    def sdpa(q, k, v, out, lse, dout):
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*qkv, is_causal=True, enable_gqa=hq != hkv)
+        return torch.autograd.grad(o, qkv, dout)
+
+    lib, _ = bench_ms(sdpa, sets, 20)
+    b_ms, b_by = bound(flash_mod.bwd_cost(b, hq, hkv, s_len, s_len, d, 2))
+    log(f"[kernel] flash_attention_bwd {shape}: (dq, dk, dv) max err / max |grad| against the "
+        f"torch ops {[round(e, 5) for e in errs]} (tol 0.02) ms={ms:.4f} "
+        f"enqueue_ms={enqueue:.4f} torch_op_ms={plain:.4f} sdpa_fwd_bwd_ms={lib:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    if idx == 0:
+        rows["flash_attention_bwd"] = dict(shape=shape, max_rel_err=max(errs), ms=ms,
+                                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=lib)
+    del sets
+    torch.cuda.empty_cache()
 
 
 # (label, B, Hq, Hkv, Sq, Skv, D, dtype): the fp32 kernel at train_lm's shape
@@ -767,8 +837,8 @@ def check_flash_lse_and_grads(sets, shape: str, fwd_bound_ms: float, sdpa_ms: fl
     got = torch.autograd.grad(FlashAttention.apply(*qkv, True), qkv, do)
     cpu = [t.detach().float().cpu().requires_grad_(True) for t in (q, k, v)]
     ref_grads = torch.autograd.grad(FlashAttention.apply(*cpu, True), cpu, do.float().cpu())
-    # bf16 inputs, P rounded to bf16 in the kernel's forward, bf16 outputs:
-    # bounded at 2% of each gradient's largest entry
+    # bf16 inputs, P rounded to bf16 in the forward, P and dS in the
+    # backward, bf16 outputs: bounded at 2% of each gradient's largest entry
     errs = [((a.float().cpu() - b).abs().max() / b.abs().max()).item()
             for a, b in zip(got, ref_grads)]
     check(max(errs) <= 0.02, f"FlashAttention {shape}: (dq, dk, dv) relative errs {errs}")
@@ -790,7 +860,7 @@ def check_flash_lse_and_grads(sets, shape: str, fwd_bound_ms: float, sdpa_ms: fl
     pairs = s_len * (s_len + 1) // 2
     b_ms, b_by = bound(roofline.KernelCost(7 * 2.0 * b * hq * d * pairs, (6 * nq + 6 * nkv) * 2,
                                            "bf16"))
-    log(f"[kernel] FlashAttention {shape} forward + backward (kernel forward, torch-op "
+    log(f"[kernel] FlashAttention {shape} forward + backward (kernel forward, kernel "
         f"backward): (dq, dk, dv) max err / max |grad| {[round(e, 5) for e in errs]} (tol "
         f"0.02) ms={bwd_ms:.4f} sdpa_fwd_bwd_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
 
@@ -1752,7 +1822,8 @@ def train_slice() -> dict:
         check(c["streamed_matmul"] == c["streamed_matmul.wgmma"] == 4 * prods - 1
               and c["streamed_matmul.mk/kn"] == 2 * prods - 1
               and c["streamed_matmul.mk/nk"] == c["streamed_matmul.km/kn"] == prods
-              and c["flash_attention"] == 2 * cfg.num_layers,
+              and c["flash_attention"] == 2 * cfg.num_layers
+              and c["flash_attention_bwd"] == cfg.num_layers,
               f"train step launches {c}")
     wall = float(np.median(walls))
     log(f"[train] minicpm-2b {cfg.num_layers} layers remat={cfg.remat}, B {batch} x S {seq}, "
@@ -1815,7 +1886,8 @@ def remat_dots_beside_full(cfg, opt, params, state, data, step, prods: int):
     check(c["streamed_matmul"] == c["streamed_matmul.wgmma"] == 3 * prods
           and c["streamed_matmul.mk/kn"] == c["streamed_matmul.mk/nk"]
           == c["streamed_matmul.km/kn"] == prods
-          and c["flash_attention"] == 2 * cfg.num_layers,
+          and c["flash_attention"] == 2 * cfg.num_layers
+          and c["flash_attention_bwd"] == cfg.num_layers,
           f"remat dots train step launches {c}")
     grad_peaks, grads_gb = {}, {}
     for remat in ("full", "dots"):
@@ -2627,6 +2699,7 @@ def train_jamba() -> dict:
     prods = products_per_forward(cfg)
     for c in per_step:
         check(c["ssm_scan"] == 14 and c["ssm_scan_bwd"] == 7 and c["flash_attention"] == 2
+              and c["flash_attention_bwd"] == 1
               and c["streamed_matmul"] == c["streamed_matmul.wgmma"] == 4 * prods - 1,
               f"jamba train step launches {c}")
     grads_of = make_grad_fn(cfg, device="cuda")
@@ -3238,12 +3311,13 @@ def main() -> int:
     examples = main_path("examples", examples_path)
     for name in ("streamed_dot", "streamed_matmul", "flash_attention"):
         check(dense[name] > 0, f"{name} was not launched on the minicpm-2b path")
-    for name in ("streamed_matmul", "flash_attention"):
+    for name in ("streamed_matmul", "flash_attention", "flash_attention_bwd"):
         check(train[name] > 0, f"{name} was not launched on the train path")
         check(loop[name] > 0, f"{name} was not launched on the train-loop path")
     for name in ("streamed_matmul", "flash_attention", "ssm_scan"):
         check(hybrid[name] > 0, f"{name} was not launched on the jamba path")
-    for name in ("ssm_scan", "ssm_scan_bwd", "streamed_matmul", "flash_attention"):
+    for name in ("ssm_scan", "ssm_scan_bwd", "streamed_matmul", "flash_attention",
+                 "flash_attention_bwd"):
         check(hybrid_train[name] > 0, f"{name} was not launched on the jamba-train path")
     check(recurrent["streamed_matmul"] > 0, "streamed_matmul was not launched on the xlstm path")
     for name in ("streamed_matmul", "flash_attention"):

@@ -746,6 +746,502 @@ cudaError_t launch(int device, dim3 grid, int n_kv, int scratch_bytes, cudaStrea
   return cudaErrorInvalidValue;
 }
 
+// -- bf16 backward: FlashAttention-2 in two deterministic passes ------------------
+//
+// Replaces: no Pallas kernel. The reference's backward is jnp
+// (src/repro/models/flash.py:129, _flash_bwd), whose counterpart in the port
+// was torch ops (models/flash.py, _flash_bwd, still the CPU's and fp32's
+// plain version): the same two passes, in fp32, over 1024 × 1024 blocks, so
+// every block's S, P, dP and dS was a (B, Hkv, group, 1024, 1024) fp32
+// tensor written to and read back from device memory.
+//
+// Bound on this card by operations at long sequences: 7 products of 2·D
+// FLOPs on each kept (query, key) pair (S and dP in both passes, dQ in pass
+// A, dV and dK in pass B; the harness counts 10·D, FlashAttention-2's count
+// with a dQ atomic), against reading Q, K, V, O, dO and lse and writing dQ,
+// dK, dV once. At minicpm-2b's train step (B 8, H 36, S 2048, D 64, causal)
+// that is 541 GFLOP (387 counted) against 0.61 GB: 0.55 ms of tensor cores
+// to 0.18 ms of bytes. At jamba's (B 4, H 32/8, S 256, D 128) it is 7.5
+// GFLOP against 42 MB, 7.6 µs to 12.6 µs: bytes.
+//
+// What the design does about it: the products run on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, fp32 accumulators) from swizzled
+// shared tiles read by ldmatrix, with the streamed tiles double-buffered by
+// cp.async; P and dS are rounded to bf16 only as operands of the next
+// product (as the forward rounds P for P·V), and no score tile leaves the
+// registers. Softmax, lse, delta and every sum stay fp32.
+//
+// - Pass A (flash_bwd_dq): grid (Q tiles of 64, Hq, B), each warp 16 query
+//   rows, heaviest causal tiles first. Its prologue computes
+//   delta = rowsum(dO ∘ O) in fp32 for its rows (written for pass B). Then
+//   it streams the KV blocks up to the diagonal, NK keys a step: S = Q·Kᵀ,
+//   dP = dO·Vᵀ, P = exp2(S·scale·log2 e − lse·log2 e), dS = P ∘ (dP − delta),
+//   dQ += dS·K in registers; dQ·scale is written once.
+// - Pass B (flash_bwd_dkv): grid (KV blocks of 64 × column splits, Hkv, B),
+//   each warp 16 keys. It streams the group's query heads and, in each, the
+//   Q tiles from the first that sees the block, BQ queries a step, and
+//   computes the transposed tiles directly (Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ), so
+//   that Pᵀ and dSᵀ are the A operands of dV += Pᵀ·dO and dK += dSᵀ·Q
+//   straight from the accumulators. Above D 128 the dK and dV accumulators
+//   (D fp32 a lane for 16 keys) do not fit beside the tiles, so each block
+//   accumulates half of the columns and two blocks share a KV block, both
+//   computing its Sᵀ and dPᵀ.
+//
+// Determinism: no atomics. dQ is summed by the one block that owns its rows
+// and dK, dV by the one block (per column half) that owns their keys, each
+// in a fixed order (KV blocks ascending; heads, then Q tiles ascending), and
+// delta by a fixed pairing. This costs pass B's second recomputation of S
+// and dP (14·D FLOPs a pair against 10·D with a dQ atomic) and gives the
+// same bits on every run and at every batch size: a row's work never
+// depends on the other rows of the batch.
+//
+// Ragged Sq and Skv are masked in the kernels (rows past the ends are
+// zero-filled and their pairs' P set to 0), queries sit at the end of the
+// keys (q_offset = Skv − Sq), heads may be strided with a contiguous head
+// dim and 16-byte aligned rows, and D is one of the forward's head dims.
+
+// the backward's tiles at head dim D (flash_attention.bwd_tiles mirrors them)
+template <int D>
+struct BwdTile {
+  // pass A: a block owns BQ = 64 queries and streams NK keys a step
+  static constexpr int NK = D > 128 ? 32 : 64;
+  // pass B: a block owns BKV = 64 keys and streams QB queries a step, and
+  // accumulates DC of the D columns of dK and dV (NSPLIT blocks a KV block)
+  static constexpr int QB = D >= 128 ? 32 : 64;
+  static constexpr int NSPLIT = D > 128 ? 2 : 1, DC = D / NSPLIT;
+  // the A operands that stay in registers for the whole loop (Q and dO in
+  // pass A, K and V in pass B); above D 64 they are read from shared memory
+  // at each k-step
+  static constexpr bool FRAGS = D <= 64;
+  static constexpr int SMEM_A = (2 * BQ + 4 * NK) * D * 2 + BQ * 4;
+  static constexpr int SMEM_B = (2 * BKV + 4 * QB) * D * 2 + 4 * QB * 4;
+  static_assert(DC % 16 == 0 && NK % 16 == 0 && QB % 16 == 0, "whole m16n8k16 steps");
+};
+
+// (batch, head, sequence) element strides of the backward's eight tensors
+struct BwdStrides {
+  long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// cp.async of ROWS rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix with row
+// stride `rs` into a swizzled tile; rows at or past `limit` are zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* __restrict__ src,
+                                          long long rs, int r0, int limit, int tid) {
+  constexpr int CH = D / 8;
+  constexpr int N = ROWS * CH;
+#pragma unroll
+  for (int i = 0; i < (N + kThreads - 1) / kThreads; ++i) {
+    const int idx = tid + i * kThreads;
+    if (N % kThreads == 0 || idx < N) {
+      const int r = idx / CH, c = idx % CH;
+      const bool ok = r0 + r < limit;
+      const bf16* p = ok ? src + (long long)(r0 + r) * rs + c * 8 : src;
+      cp_async16(dst + swz<D>(r, c) * 2, p, ok);
+    }
+  }
+}
+
+// the A fragment (16 rows × 16 columns, k-step kk) of a swizzled [rows][D]
+// tile whose rows `row0`.. are this warp's
+template <int D>
+__device__ __forceinline__ void a_frag(uint32_t tile, int row0, int kk, int lane,
+                                       uint32_t (&r)[4]) {
+  ldsm_x4(tile + swz<D>(row0 + (lane & 7) + (((lane >> 3) & 1) << 3), kk * 2 + (lane >> 4)) * 2, r);
+}
+
+// the B fragments of n-tiles 2p and 2p + 1 (16 rows of the tile as the n
+// dimension) at k-step kk: the tile's rows are n, its columns k
+template <int D>
+__device__ __forceinline__ void b_frag_n(uint32_t tile, int p, int kk, int lane,
+                                         uint32_t (&r)[4]) {
+  ldsm_x4(tile + swz<D>(p * 16 + (lane & 7) + ((lane >> 4) << 3), kk * 2 + ((lane >> 3) & 1)) * 2,
+          r);
+}
+
+// the B fragments of column tiles 2p and 2p + 1 (column chunk c0 + 2p) at
+// k-step kk: the tile's rows are k, its columns n
+template <int D>
+__device__ __forceinline__ void b_frag_k(uint32_t tile, int c0, int p, int kk, int lane,
+                                         uint32_t (&r)[4]) {
+  ldsm_x4_trans(
+      tile + swz<D>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3), c0 + p * 2 + (lane >> 4)) * 2,
+      r);
+}
+
+// the A operand of k-step kk from fp32 accumulators c[n-tile][4] (rows g,
+// g + 8 of the warp's 16; n-tiles 2kk and 2kk + 1 are the 16 k columns)
+template <int NT>
+__device__ __forceinline__ void a_from_acc(const float (&c)[NT][4], int kk, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// rows g and g + 8 of a warp's 16 × (8·CT) fp32 accumulator, times `mul`,
+// into bf16 rows row0 + g (+ 8) from column col0, rows at or past `limit`
+// skipped
+template <int CT>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, long long rs, int row0,
+                                           int limit, int col0, const float (&c)[CT][4],
+                                           float mul, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= limit) continue;
+    bf16* p = dst + (long long)row * rs + col0 + 2 * tig;
+#pragma unroll
+    for (int t = 0; t < CT; ++t)
+      *reinterpret_cast<uint32_t*>(p + t * 8) = pack_bf16(c[t][2 * r] * mul, c[t][2 * r + 1] * mul);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+             const bf16* __restrict__ o, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
+             int hq, int hkv, int sq, int skv, int q_offset, int causal, float scale_log2,
+             float scale, int n_kv, BwdStrides st) {
+  using T = BwdTile<D>;
+  constexpr int NK = T::NK, KT = D / 16, DT = D / 8, NT = NK / 8, TILE = NK * D;
+  extern __shared__ __align__(128) unsigned char smem_bwd[];
+  const bf16* do_s = reinterpret_cast<const bf16*>(smem_bwd) + BQ * D;
+  const uint32_t q_a = smem_u32(smem_bwd);               // [BQ][D]
+  const uint32_t do_a = q_a + BQ * D * 2;                 // [BQ][D]
+  const uint32_t k_a = do_a + BQ * D * 2;                 // [2][NK][D]
+  const uint32_t v_a = k_a + 2 * TILE * 2;                // [2][NK][D]
+  float* delta_s = reinterpret_cast<float*>(smem_bwd + (2 * BQ + 4 * NK) * D * 2);  // [BQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int qi = gridDim.x - 1 - blockIdx.x;            // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const bf16* qh = q + b * st.q[0] + h * st.q[1];
+  const bf16* oh = o + b * st.o[0] + h * st.o[1];
+  const bf16* doh = dout + b * st.dout[0] + h * st.dout[1];
+  const bf16* kh = k + b * st.k[0] + hk * st.k[1];
+  const bf16* vh = v + b * st.v[0] + hk * st.v[1];
+  const long long rows = ((long long)b * hq + h) * sq;   // this head's lse and delta
+
+  int last = n_kv - 1;                                   // the last KV block the causal skip keeps
+  if (causal) {
+    const int lim = qi * BQ + q_offset + BQ - 1;
+    last = lim < 0 ? -1 : min(last, lim / NK);
+  }
+  load_rows<D, BQ>(q_a, qh, st.q[2], qi * BQ, sq, tid);
+  load_rows<D, BQ>(do_a, doh, st.dout[2], qi * BQ, sq, tid);
+  cp_async_commit();
+  if (last >= 0) {
+    load_rows<D, NK>(k_a, kh, st.k[2], 0, skv, tid);
+    load_rows<D, NK>(v_a, vh, st.v[2], 0, skv, tid);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(dO ∘ O) in fp32: two threads a row, each half of its
+  // chunks, added by one shuffle; written for pass B
+  cp_async_wait<1>();                                    // Q and dO have landed
+  __syncthreads();
+  {
+    constexpr int CH = D / 8, HALF = CH / 2;
+    const int r = tid >> 1, grow = qi * BQ + r;
+    float acc = 0.f;
+    if (grow < sq) {
+      const bf16* orow = oh + (long long)grow * st.o[2];
+#pragma unroll
+      for (int c = (tid & 1) * HALF; c < (tid & 1) * HALF + HALF; ++c) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(do_s + swz<D>(r, c));
+        const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(op[e]), y = __bfloat1622float2(dp[e]);
+          acc = fmaf(x.x, y.x, acc);
+          acc = fmaf(x.y, y.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((tid & 1) == 0) {
+      delta_s[r] = acc;
+      if (grow < sq) delta[rows + grow] = acc;
+    }
+  }
+  __syncthreads();
+
+  const int row0 = warp * 16;                            // the warp's rows of the tile
+  const int qpos = qi * BQ + row0 + g + q_offset;        // this lane's first row; +8 the second
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int grow = qi * BQ + row0 + g + 8 * r;
+    lse2[r] = grow < sq ? lse[rows + grow] * kLog2e : 0.f;
+    dl[r] = delta_s[row0 + g + 8 * r];
+  }
+  uint32_t qf[T::FRAGS ? KT : 1][4], dof[T::FRAGS ? KT : 1][4];
+  if constexpr (T::FRAGS) {
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      a_frag<D>(q_a, row0, kk, lane, qf[kk]);
+      a_frag<D>(do_a, row0, kk, lane, dof[kk]);
+    }
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  for (int j = 0; j <= last; ++j) {                      // the KV stream
+    const int buf = j & 1;
+    if (j < last) {                                      // the next block, in flight
+      load_rows<D, NK>(k_a + (buf ^ 1) * TILE * 2, kh, st.k[2], (j + 1) * NK, skv, tid);
+      load_rows<D, NK>(v_a + (buf ^ 1) * TILE * 2, vh, st.v[2], (j + 1) * NK, skv, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t kb = k_a + buf * TILE * 2, vb = v_a + buf * TILE * 2;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows × NK keys a warp
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[4], da[4];
+      if constexpr (T::FRAGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e], da[e] = dof[kk][e];
+      } else {
+        a_frag<D>(q_a, row0, kk, lane, qa);
+        a_frag<D>(do_a, row0, kk, lane, da);
+      }
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t f[4];
+        b_frag_n<D>(kb, p, kk, lane, f);
+        mma_bf16(s[2 * p], qa, f[0], f[1]);
+        mma_bf16(s[2 * p + 1], qa, f[2], f[3]);
+        b_frag_n<D>(vb, p, kk, lane, f);
+        mma_bf16(dp[2 * p], da, f[0], f[1]);
+        mma_bf16(dp[2 * p + 1], da, f[2], f[3]);
+      }
+    }
+
+    // P from lse, masked only in blocks that cross an edge; dS = P ∘ (dP − delta) into s
+    const int k0 = j * NK;
+    const bool edge = k0 + NK > skv || (causal && k0 + NK - 1 > qi * BQ + q_offset);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(fmaf(s[t][e], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kp = k0 + t * 8 + 2 * tig + (e & 1);
+          if (kp >= skv || (causal && kp > qpos + 8 * r)) p = 0.f;
+        }
+        s[t][e] = p * (dp[t][e] - dl[r]);
+      }
+
+    // dQ += dS·K: dS's fragments are its accumulators, rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk) {
+      uint32_t a[4];
+      a_from_acc<NT>(s, kk, a);
+#pragma unroll
+      for (int p = 0; p < D / 16; ++p) {
+        uint32_t f[4];
+        b_frag_k<D>(kb, 0, p, kk, lane, f);
+        mma_bf16(acc[2 * p], a, f[0], f[1]);
+        mma_bf16(acc[2 * p + 1], a, f[2], f[3]);
+      }
+    }
+    __syncthreads();                                     // this buffer may be refilled
+  }
+  cp_async_wait<0>();
+  store_rows<DT>(dq + b * st.dq[0] + h * st.dq[1], st.dq[2], qi * BQ + row0, sq, 0, acc, scale,
+                 lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+              const bf16* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+              int hq, int hkv, int sq, int skv, int q_offset, int causal, float scale_log2,
+              float scale, int n_q, BwdStrides st) {
+  using T = BwdTile<D>;
+  constexpr int QB = T::QB, DC = T::DC, KT = D / 16, NT = QB / 8, CT = DC / 8, TILE = QB * D;
+  extern __shared__ __align__(128) unsigned char smem_bwd[];
+  const uint32_t k_a = smem_u32(smem_bwd);               // [BKV][D]
+  const uint32_t v_a = k_a + BKV * D * 2;                 // [BKV][D]
+  const uint32_t q_a = v_a + BKV * D * 2;                 // [2][QB][D]
+  const uint32_t do_a = q_a + 2 * TILE * 2;               // [2][QB][D]
+  const uint32_t lse_a = do_a + 2 * TILE * 2;             // [2][QB] fp32
+  const uint32_t dl_a = lse_a + 2 * QB * 4;               // [2][QB] fp32
+  const float* lse_s = reinterpret_cast<const float*>(smem_bwd + (2 * BKV + 4 * QB) * D * 2);
+  const float* dl_s = lse_s + 2 * QB;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int kj = blockIdx.x / T::NSPLIT, c0 = (blockIdx.x % T::NSPLIT) * DC;
+  const int hk = blockIdx.y, b = blockIdx.z, group = hq / hkv;
+  const int k0 = kj * BKV;
+  // the Q tiles that see this KV block: from the first whose last query
+  // reaches its first key
+  const int first = causal ? min(n_q, max(0, k0 - q_offset) / QB) : 0;
+  const int per_head = n_q - first, steps = group * per_head;
+
+  auto load_step = [&](int i, int buf) {                 // step i: head i / per_head's tile
+    const int h = hk * group + i / per_head, q0 = (first + i % per_head) * QB;
+    load_rows<D, QB>(q_a + buf * TILE * 2, q + b * st.q[0] + h * st.q[1], st.q[2], q0, sq, tid);
+    load_rows<D, QB>(do_a + buf * TILE * 2, dout + b * st.dout[0] + h * st.dout[1], st.dout[2],
+                     q0, sq, tid);
+    const long long rows = ((long long)b * hq + h) * sq + q0;
+    if (tid < QB) {
+      const bool ok = q0 + tid < sq;
+      cp_async4(lse_a + (buf * QB + tid) * 4, ok ? lse + rows + tid : lse, ok);
+    } else if (tid < 2 * QB) {
+      const int i2 = tid - QB;
+      const bool ok = q0 + i2 < sq;
+      cp_async4(dl_a + (buf * QB + i2) * 4, ok ? delta + rows + i2 : delta, ok);
+    }
+  };
+  if (steps > 0) {
+    load_rows<D, BKV>(k_a, k + b * st.k[0] + hk * st.k[1], st.k[2], k0, skv, tid);
+    load_rows<D, BKV>(v_a, v + b * st.v[0] + hk * st.v[1], st.v[2], k0, skv, tid);
+    load_step(0, 0);
+  }
+  cp_async_commit();
+
+  const int row0 = warp * 16;                            // the warp's keys of the block
+  const int kpos = k0 + row0 + g;                        // this lane's first key; +8 the second
+  uint32_t kf[T::FRAGS ? KT : 1][4], vf[T::FRAGS ? KT : 1][4];
+  float dk_acc[CT][4], dv_acc[CT][4];
+#pragma unroll
+  for (int t = 0; t < CT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[t][e] = dv_acc[t][e] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {                      // the Q stream
+    const int buf = i & 1;
+    if (i + 1 < steps) {                                 // the next step, in flight
+      load_step(i + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (T::FRAGS) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          a_frag<D>(k_a, row0, kk, lane, kf[kk]);
+          a_frag<D>(v_a, row0, kk, lane, vf[kk]);
+        }
+      }
+    }
+    const int q0 = (first + i % per_head) * QB;
+    const uint32_t qb = q_a + buf * TILE * 2, dob = do_a + buf * TILE * 2;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys × QB queries a warp
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ka[4], va[4];
+      if constexpr (T::FRAGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ka[e] = kf[kk][e], va[e] = vf[kk][e];
+      } else {
+        a_frag<D>(k_a, row0, kk, lane, ka);
+        a_frag<D>(v_a, row0, kk, lane, va);
+      }
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        uint32_t f[4];
+        b_frag_n<D>(qb, p, kk, lane, f);
+        mma_bf16(s[2 * p], ka, f[0], f[1]);
+        mma_bf16(s[2 * p + 1], ka, f[2], f[3]);
+        b_frag_n<D>(dob, p, kk, lane, f);
+        mma_bf16(dp[2 * p], va, f[0], f[1]);
+        mma_bf16(dp[2 * p + 1], va, f[2], f[3]);
+      }
+    }
+
+    // Pᵀ from each query's lse into s, dSᵀ = Pᵀ ∘ (dPᵀ − delta) into dp;
+    // masked only in steps that cross an edge
+    const float* lb = lse_s + buf * QB;
+    const float* db = dl_s + buf * QB;
+    const bool edge = q0 + QB > sq || k0 + BKV > skv || (causal && k0 + BKV - 1 > q0 + q_offset);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = t * 8 + 2 * tig + c;
+        const float l2 = lb[col] * kLog2e, dlt = db[col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          float p = exp2f(fmaf(s[t][e], scale_log2, -l2));
+          if (edge) {
+            const int qp = q0 + col, kp = kpos + 8 * r;
+            if (qp >= sq || kp >= skv || (causal && kp > qp + q_offset)) p = 0.f;
+          }
+          s[t][e] = p;
+          dp[t][e] = p * (dp[t][e] - dlt);
+        }
+      }
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q over this block's DC columns
+#pragma unroll
+    for (int kk = 0; kk < QB / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      a_from_acc<NT>(s, kk, pa);
+      a_from_acc<NT>(dp, kk, da);
+#pragma unroll
+      for (int p = 0; p < DC / 16; ++p) {
+        uint32_t f[4];
+        b_frag_k<D>(dob, c0 / 8, p, kk, lane, f);
+        mma_bf16(dv_acc[2 * p], pa, f[0], f[1]);
+        mma_bf16(dv_acc[2 * p + 1], pa, f[2], f[3]);
+        b_frag_k<D>(qb, c0 / 8, p, kk, lane, f);
+        mma_bf16(dk_acc[2 * p], da, f[0], f[1]);
+        mma_bf16(dk_acc[2 * p + 1], da, f[2], f[3]);
+      }
+    }
+    __syncthreads();                                     // this buffer may be refilled
+  }
+  cp_async_wait<0>();
+  store_rows<CT>(dk + b * st.dk[0] + hk * st.dk[1], st.dk[2], k0 + row0, skv, c0, dk_acc, scale,
+                 lane);
+  store_rows<CT>(dv + b * st.dv[0] + hk * st.dv[1], st.dv[2], k0 + row0, skv, c0, dv_acc, 1.f,
+                 lane);
+}
+
+// the kernels' strides from the wrapper's (q, k, v, o, dout, dq, dk, dv) × 3
+inline BwdStrides bwd_strides(const long long* s) {
+  BwdStrides st;
+  long long* dst[8] = {st.q, st.k, st.v, st.o, st.dout, st.dq, st.dk, st.dv};
+  for (int t = 0; t < 8; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = s[3 * t + i];
+  return st;
+}
+
 }  // namespace
 
 // O = softmax(Q·Kᵀ·scale) V per (b, h), GQA, queries at the end of the keys.
@@ -782,5 +1278,82 @@ BSPS_EXPORT int bsps_flash_attrs(int device, int d, int dtype, int* out) {
     return dtype == bsps::kBFloat16
                ? bsps::attrs(flash_fwd_mma<D>, device, kThreads, kSmemMma<D>, out)
                : bsps::attrs(flash_fwd_f32<D>, device, F32Tile<D>::kThreads, F32Tile<D>::SMEM, out);
+  });
+}
+
+// The backward's pass A: dQ, and delta = rowsum(dO ∘ O) for pass B. grid (Q
+// tiles of 64, Hq, B), loop = KV blocks of BwdTile<D>::NK keys; the plan's
+// scratch is the dQ accumulator the warps keep in registers. `strides` holds
+// the (batch, head, sequence) element strides of q, k, v, o, dout, dq, dk
+// and dv in that order; rows 16-byte aligned (the wrapper checks).
+BSPS_EXPORT int bsps_flash_bwd_dq(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
+                                  void* stream, const void* q, const void* k, const void* v,
+                                  const void* o, const void* dout, const float* lse, float* delta,
+                                  void* dq, int hq, int hkv, int sq, int skv, int d, int q_offset,
+                                  int causal, float scale, const long long* strides) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (gy != hq || gz < 1 || hkv < 1 || hq % hkv) return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto dk_) {
+    constexpr int D = decltype(dk_)::value;
+    using T = BwdTile<D>;
+    if (scratch_bytes != BQ * D * 4 || gx != (sq + BQ - 1) / BQ || loop != (skv + T::NK - 1) / T::NK)
+      return cudaErrorInvalidValue;  // plan and kernel disagree
+    auto kernel = flash_bwd_dq<D>;
+    cudaError_t e = bsps::prepare_smem(kernel, device, T::SMEM_A);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), kThreads, T::SMEM_A, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta,
+        static_cast<bf16*>(dq), hq, hkv, sq, skv, q_offset, causal, scale * kLog2e, scale, loop,
+        bwd_strides(strides));
+    return cudaGetLastError();
+  });
+}
+
+// The backward's pass B: dK and dV from pass A's delta. grid (KV blocks of
+// 64, Hkv, B), loop = the group's query heads × Q tiles of BwdTile<D>::QB;
+// the plan's scratch is the dK and dV accumulators. Above D 128 the launch
+// runs BwdTile<D>::NSPLIT blocks a KV block, each over its share of the
+// columns. Strides as for pass A.
+BSPS_EXPORT int bsps_flash_bwd_dkv(int device, int gx, int gy, int gz, int loop, int scratch_bytes,
+                                   void* stream, const void* q, const void* k, const void* v,
+                                   const void* dout, const float* lse, const float* delta,
+                                   void* dk, void* dv, int hq, int hkv, int sq, int skv, int d,
+                                   int q_offset, int causal, float scale,
+                                   const long long* strides) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (gy != hkv || gz < 1 || hkv < 1 || hq % hkv) return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto dk_) {
+    constexpr int D = decltype(dk_)::value;
+    using T = BwdTile<D>;
+    const int n_q = (sq + T::QB - 1) / T::QB;
+    if (scratch_bytes != 2 * BKV * D * 4 || gx != (skv + BKV - 1) / BKV || loop != hq / hkv * n_q)
+      return cudaErrorInvalidValue;  // plan and kernel disagree
+    auto kernel = flash_bwd_dkv<D>;
+    cudaError_t e = bsps::prepare_smem(kernel, device, T::SMEM_B);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx * T::NSPLIT, gy, gz), kThreads, T::SMEM_B,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), hq, hkv, sq, skv, q_offset, causal, scale * kLog2e, scale, n_q,
+        bwd_strides(strides));
+    return cudaGetLastError();
+  });
+}
+
+// The backward kernels' compiled attributes at head dim d (an instantiated
+// one): pass 0 is pass A (flash_bwd_dq), 1 pass B (flash_bwd_dkv); out as
+// for bsps_flash_attrs.
+BSPS_EXPORT int bsps_flash_bwd_attrs(int device, int d, int pass, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (pass != 0 && pass != 1) return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto dk_) {
+    constexpr int D = decltype(dk_)::value;
+    return pass == 0 ? bsps::attrs(flash_bwd_dq<D>, device, kThreads, BwdTile<D>::SMEM_A, out)
+                     : bsps::attrs(flash_bwd_dkv<D>, device, kThreads, BwdTile<D>::SMEM_B, out);
   });
 }

@@ -15,10 +15,15 @@ region the outputs of its :class:`Matmul` calls are kept from the forward
 and handed back when the backward pass recomputes the region, so each
 product launches once and everything else is recomputed.
 
+:func:`attention_bwd` is the one entry with no plain version here: it takes
+bf16 CUDA tensors only, and ``models/flash.FlashAttention`` sends every
+other gradient to its own torch-op backward.
+
 Inside :func:`repro_torch.core.roofline.count` each kernel call records its
 module's ``cost`` (``streamed_matmul.cost``, ``streamed_dot.cost``,
-``flash_attention.cost``, ``ssm_scan.cost`` and ``bwd_cost``) on both
-devices, in place of the torch ops of its plain version.
+``flash_attention.cost`` and ``bwd_cost``, ``ssm_scan.cost`` and
+``bwd_cost``) on both devices, in place of the torch ops of its plain
+version.
 """
 
 from __future__ import annotations
@@ -28,12 +33,12 @@ import threading
 import torch
 
 from repro_torch.core.roofline import uncounted
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 from repro_torch.kernels.streamed_dot import streamed_dot
 from repro_torch.kernels.streamed_matmul import streamed_matmul, tma_rows
 
-__all__ = ["matmul", "dot", "attention", "selective_scan", "launch_counts",
+__all__ = ["matmul", "dot", "attention", "attention_bwd", "selective_scan", "launch_counts",
            "matmul_variant_counts", "matmul_layout_counts", "flash_variant_counts",
            "reset_launch_counts", "KERNELS", "Matmul", "KeptProducts"]
 
@@ -42,6 +47,7 @@ KERNELS = {
     "streamed_dot": streamed_dot,
     "streamed_matmul": streamed_matmul,
     "flash_attention": flash_attention,
+    "flash_attention_bwd": flash_attention_bwd,
     "ssm_scan": ssm_scan,
     "ssm_scan_bwd": ssm_scan_bwd,
 }
@@ -175,6 +181,14 @@ def dot(v: torch.Tensor, u: torch.Tensor, *, token_size: int = 8 * 1024) -> torc
 def attention(q, k, v, *, causal: bool = True, sm_scale: float | None = None,
               return_lse: bool = False):
     return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale, return_lse=return_lse)
+
+
+def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                  sm_scale: float | None = None):
+    """``(dq, dk, dv)`` of :func:`attention` from its saved ``out`` and
+    ``lse``: the backward kernel, for bf16 CUDA tensors only (one count of
+    ``flash_attention_bwd`` a call)."""
+    return flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, sm_scale=sm_scale)
 
 
 def selective_scan(x, dt, b, c, a, d, *, chunk: int = 128):

@@ -65,6 +65,8 @@ ENTRIES: dict[str, list[Any]] = {
     "bsps_dot": [_P, _P, _LL, _I, _I, _P, _P],
     "bsps_matmul": [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I],
     "bsps_flash": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P],
+    "bsps_flash_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "bsps_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _P],
     "bsps_ssm_scan": [_P] * 8 + [_I] * 7,
     "bsps_ssm_scan_bwd": [_P] * 17 + [_I] * 8,
 }
@@ -72,6 +74,7 @@ ENTRIES: dict[str, list[Any]] = {
 #: then an int[4] the entry fills (:func:`kernel_attrs`)
 QUERIES: dict[str, list[Any]] = {"bsps_ssm_scan_bwd_attrs": [_I, _I, _I, _P],
                                  "bsps_flash_attrs": [_I, _I, _I, _P],
+                                 "bsps_flash_bwd_attrs": [_I, _I, _I, _P],
                                  "bsps_matmul_attrs": [_I, _I, _I, _I, _P]}
 _LIBRARY_ENTRIES = {"bsps_smem_optin": [_I], **QUERIES,
                     **{name: _PREFIX + args for name, args in ENTRIES.items()}}
@@ -265,9 +268,9 @@ def launch(plan_launch: Launch, device: torch.device, *args: Any) -> None:
 def kernel_attrs(query: str, device: torch.device, *args: int) -> tuple[int, int, int, int]:
     """The four ints that the library's ``query`` entry reports for a
     kernel on ``device`` (what each means is the entry's: for
-    ``bsps_ssm_scan_bwd_attrs``, ``bsps_flash_attrs`` and
-    ``bsps_matmul_attrs`` registers and spilled bytes a thread, shared
-    memory a block, resident blocks an SM).
+    ``bsps_ssm_scan_bwd_attrs``, ``bsps_flash_attrs``,
+    ``bsps_flash_bwd_attrs`` and ``bsps_matmul_attrs`` registers and
+    spilled bytes a thread, shared memory a block, resident blocks an SM).
     Raises on a CUDA error."""
     if query not in QUERIES:
         raise ValueError(f"unknown kernel query {query!r}")

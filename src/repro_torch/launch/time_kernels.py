@@ -4,7 +4,7 @@ path: the parent/change timer of the port's kernels.
 From a checkout's root, on the card:
 
     PYTHONPATH=src python src/repro_torch/launch/time_kernels.py --label change \\
-        [--kernel matmul flash scan_bwd]
+        [--kernel matmul flash flash_bwd scan_bwd]
 
 Run by file path, it times the package that ``PYTHONPATH`` names, so two
 checkouts can be compared in one call on one card, in turns (A, B, B, A).
@@ -22,6 +22,15 @@ Each line starts ``[time_kernels] <label>: <kernel>``:
   ms, max error of the output and of the lse against the plain version,
   whether two calls gave the same bits, a sha1 and the instance's compiled
   attributes.
+- ``flash_bwd``: the bf16 attention backward as ``FlashAttention.backward``
+  runs it from the saved forward (the kernel where the package has one,
+  else the torch ops), at minicpm-2b's train step (B 8, H 36, S 2048, D 64)
+  and jamba's (B 4, H 32/8, S 256, D 128), causal: ms, its bound (the
+  package's ``bwd_cost`` where it has one: 10·d a kept pair at the bf16
+  peak), the torch-op ``_flash_bwd``'s ms, SDPA forward + backward's ms
+  (the library yardstick), each gradient's largest error against the
+  torch ops over its largest entry, whether two calls gave the same bits,
+  a sha1 of the three, and each pass's compiled attributes.
 - ``scan_bwd``: a sha1 of the scan's y at ``check_ssm``'s four shapes; the
   forward's ms at jamba's train shape (B 4 × L 256, bf16 and fp32) and at
   B 1 × L 4000 in bf16; the backward with and from the forward's tape where
@@ -39,13 +48,17 @@ from __future__ import annotations
 import argparse
 import hashlib
 import time
+import types
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import roofline
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as scan
 from repro_torch.kernels import streamed_matmul as mm
+from repro_torch.models import flash as flash_fn
 
 SPIN_CYCLES_PER_S = 1.98e9
 L2_BYTES = 50 * 2**20
@@ -175,6 +188,63 @@ def time_flash(tag: str, iters: int) -> None:
         torch.cuda.empty_cache()
 
 
+#: (label, B, Hq, Hkv, S, D) of the backward's timings, causal
+FLASH_BWD_SHAPES = (("minicpm-2b train", 8, 36, 36, 2048, 64),
+                    ("jamba train", 4, 32, 8, 256, 128))
+
+
+def time_flash_bwd(tag: str, iters: int) -> None:
+    for label, b, hq, hkv, s_len, d in FLASH_BWD_SHAPES:
+        nbytes = (3 * b * hq * s_len * d + 2 * b * hkv * s_len * d) * 2
+
+        def make(i, b=b, hq=hq, hkv=hkv, s_len=s_len, d=d):
+            q = _randn((b, hq, s_len, d), torch.bfloat16, 10 * i + 21)
+            k = _randn((b, hkv, s_len, d), torch.bfloat16, 10 * i + 22)
+            v = _randn((b, hkv, s_len, d), torch.bfloat16, 10 * i + 23)
+            out, lse = ops.attention(q, k, v, return_lse=True)
+            return q, k, v, out, lse, _randn((b, hq, s_len, d), torch.bfloat16, 10 * i + 24)
+
+        sets = _copies(make, nbytes)
+        scale = d ** -0.5
+
+        def backward(q, k, v, out, lse, dout):     # the Function's backward, from its saved forward
+            ctx = types.SimpleNamespace(saved_tensors=(q, k, v, out, lse),
+                                        args=(True, scale, 1024, 1024))
+            return flash_fn.FlashAttention.backward(ctx, dout)[:3]
+
+        def torch_op(q, k, v, out, lse, dout):
+            return flash_fn._flash_bwd(q, k, v, out, lse, dout, True, scale, 1024, 1024)
+
+        def sdpa(q, k, v, out, lse, dout):
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*qkv, is_causal=True, enable_gqa=hq != hkv)
+            return torch.autograd.grad(o, qkv, dout)
+
+        got, again, want = backward(*sets[0]), backward(*sets[0]), torch_op(*sets[0])
+        errs = [round(((g.float() - w.float()).abs().max() / w.float().abs().max()).item(), 5)
+                for g, w in zip(got, want)]
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        digest = hashlib.sha1(b"".join(g.view(torch.int16).cpu().numpy().tobytes()
+                                       for g in got)).hexdigest()[:16]
+        del got, again, want
+        ms = _bench_ms(backward, sets, iters)
+        op_ms = _bench_ms(torch_op, sets, max(1, iters // 10))
+        lib_ms = _bench_ms(sdpa, sets, iters)
+        if hasattr(flash, "bwd_cost"):
+            t, by = roofline.kernel_bound(flash.bwd_cost(b, hq, hkv, s_len, s_len, d, 2),
+                                          roofline.H100_SXM)
+            bound = f"{t * 1e3:.4f} ({by})"
+            attrs = {p: flash.bwd_kernel_attrs(d, p, sets[0][0].device) for p in ("dq", "dkv")}
+        else:
+            bound, attrs = "none (no backward kernel)", {}
+        print(f"{tag} flash_bwd {label} b{b} h{hq}/{hkv} s{s_len} d{d} causal: ms={ms:.4f} "
+              f"bound_ms={bound} torch_op_ms={op_ms:.4f} sdpa_fwd_bwd_ms={lib_ms:.4f} "
+              f"errs_vs_torch_op={errs} bits_repeat={same} sha1={digest} attrs={attrs}",
+              flush=True)
+        del sets
+        torch.cuda.empty_cache()
+
+
 def _scan_inputs(b, seq, di, ds, dtype, seed):
     """``chip_smoke.py``'s ``_ssm_inputs``: x, Δ, B, C; A = -(1..d_state); D."""
     return (_randn((b, seq, di), dtype, seed),
@@ -225,7 +295,8 @@ def time_scan_bwd(tag: str, iters: int) -> None:
         torch.cuda.empty_cache()
 
 
-KERNELS = {"matmul": time_matmul, "flash": time_flash, "scan_bwd": time_scan_bwd}
+KERNELS = {"matmul": time_matmul, "flash": time_flash, "flash_bwd": time_flash_bwd,
+           "scan_bwd": time_scan_bwd}
 
 
 def main() -> None:

@@ -12,10 +12,14 @@ bounds structural (each Q tile's scan stops at the diagonal, each KV block's
 starts at the first Q tile that sees it). GQA folds the query heads as
 (Hkv, group), so K/V are reused across the group without a repeat.
 
-The reference's backward is jnp, not a Pallas kernel, so its counterpart is
-torch ops, in fp32 with one cast per gradient at the end, tiled as the
-reference tiles (1024 × 1024 by default). Queries sit at the end of the keys
-(``q_offset = Skv - Sq``), as the kernel places them.
+The reference's backward is jnp, not a Pallas kernel. On bf16 CUDA tensors
+the port's is a hand-written kernel (:func:`repro_torch.kernels.ops.attention_bwd`:
+the same two passes on the tensor cores, no score tile in device memory, no
+atomics). CPU tensors and fp32 CUDA tensors (whose promise is exact fp32
+products, as the fp32 forward keeps it) take :func:`_flash_bwd`, the plain
+version: torch ops in fp32 with one cast per gradient at the end, tiled as
+the reference tiles (1024 × 1024 by default). Queries sit at the end of the
+keys (``q_offset = Skv - Sq``), as the kernels place them.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import math
 
 import torch
 
+from repro_torch.core.roofline import counted
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import bwd_cost
 
 __all__ = ["FlashAttention", "flash_attention"]
 
@@ -130,9 +136,26 @@ def _flash_bwd(q, k, v, out, lse, dout, causal: bool, sm_scale: float,
     return dq, dk, dv
 
 
+def _kernel_cost(q, k, v, out, lse, dout, causal, *rest):
+    b, hq, sq, d = q.shape
+    return bwd_cost(b, hq, k.shape[1], sq, k.shape[2], d, q.element_size(), causal=causal)
+
+
+@counted("flash_attention_bwd", _kernel_cost)
+def _plain_bwd(q, k, v, *args):
+    """:func:`_flash_bwd` standing in for the backward kernel on bf16 CPU
+    tensors: a count records the kernel's formula in place of its torch ops,
+    as it does on the card, and each gradient comes back in its input's
+    layout, as the kernel's does, so the ops after it are the card's too."""
+    grads = _flash_bwd(q, k, v, *args)
+    return tuple(torch.empty_like(t).copy_(g) for t, g in zip((q, k, v), grads))
+
+
 class FlashAttention(torch.autograd.Function):
     """Softmax attention, q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D): the flash
-    kernel forward, saving (q, k, v, out, lse), and :func:`_flash_bwd`."""
+    kernel forward, saving (q, k, v, out, lse); the backward kernel for bf16
+    CUDA tensors, :func:`_flash_bwd` for the rest (``block_q`` and
+    ``block_kv`` are its tiles; on bf16 CPU tensors counted as the kernel)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, sm_scale: float | None = None,
@@ -146,7 +169,14 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        causal, sm_scale = ctx.args[:2]
+        if q.dtype != torch.bfloat16:       # exact fp32 products, on either device
+            dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        elif q.is_cuda:
+            dq, dk, dv = ops.attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                           sm_scale=sm_scale)
+        else:
+            dq, dk, dv = _plain_bwd(q, k, v, out, lse, dout, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
 

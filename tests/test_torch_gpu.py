@@ -206,7 +206,8 @@ def test_wrappers_count_their_launches(cuda):
     ops.selective_scan(x, x.abs(), bc, bc, -torch.ones((128, 16), device=cuda),
                        torch.ones(128, device=cuda))
     assert ops.launch_counts() == {"streamed_dot": 1, "streamed_matmul": 1,
-                                   "flash_attention": 1, "ssm_scan": 1, "ssm_scan_bwd": 0}
+                                   "flash_attention": 1, "flash_attention_bwd": 0,
+                                   "ssm_scan": 1, "ssm_scan_bwd": 0}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -663,26 +664,91 @@ def test_flash_lse_matches_plain(cuda, b, hq, hkv, sq, skv, d, causal, dtype):
     assert torch.equal(out, flash_attention(q, k, v, causal=causal))
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 36, 36, 256, 64), (2, 32, 8, 256, 128),
-                                          (1, 8, 2, 100, 64), (1, 96, 8, 256, 192)])
-def test_flash_function_grads_on_the_card(cuda, b, hq, hkv, s, d):
-    """FlashAttention's (dq, dk, dv): the kernel forward and the torch-op
-    backward on bf16 card tensors, against fp32 CPU autograd through the
-    plain version; bounded at 2% of the largest gradient (bf16 inputs, P
-    rounded to bf16 in the forward)."""
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    (2, 36, 36, 256, 256, 64, True),            # minicpm-2b
+    (2, 32, 8, 256, 256, 128, True),            # jamba (GQA 32/8)
+    (1, 8, 2, 100, 100, 64, True),              # GQA, ragged
+    (1, 96, 8, 256, 256, 192, True),            # nemotron
+    (2, 4, 2, 128, 128, 16, True), (2, 4, 2, 128, 128, 32, True),   # quickstart's, D 32
+    (1, 16, 8, 256, 256, 256, True),            # D 256
+    (2, 4, 2, 70, 70, 64, False),               # non-causal, ragged
+    (1, 4, 4, 100, 300, 128, True),             # Sq < Skv, queries at the end of the keys
+    (1, 8, 2, 77, 200, 256, False),             # the same, non-causal, split columns
+    (1, 4, 2, 131, 131, 32, True),              # S not a multiple of any tile
+])
+def test_flash_function_grads_on_the_card(cuda, b, hq, hkv, sq, skv, d, causal):
+    """FlashAttention's (dq, dk, dv): the kernel forward and the backward
+    kernel on bf16 card tensors (one ``flash_attention_bwd`` count a
+    backward), against fp32 CPU autograd through the plain version; bounded
+    at 2% of the largest gradient (bf16 inputs, P rounded to bf16 in the
+    forward, P and dS in the backward)."""
     from repro_torch.models.flash import FlashAttention
 
     qkv = [_rand(shape, torch.bfloat16, cuda, 43 + i).requires_grad_(True)
-           for i, shape in enumerate(((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))]
-    do = _rand((b, hq, s, d), torch.bfloat16, cuda, 46)
-    before = ops.launch_counts()["flash_attention"]
-    got = torch.autograd.grad(FlashAttention.apply(*qkv, True), qkv, do)
-    assert ops.launch_counts()["flash_attention"] == before + 1
+           for i, shape in enumerate(((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))]
+    do = _rand((b, hq, sq, d), torch.bfloat16, cuda, 46)
+    before = ops.launch_counts()
+    got = torch.autograd.grad(FlashAttention.apply(*qkv, causal), qkv, do)
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     cpu = [t.detach().float().cpu().requires_grad_(True) for t in qkv]
-    want = torch.autograd.grad(FlashAttention.apply(*cpu, True), cpu, do.float().cpu())
-    for g, w in zip(got, want):
-        assert g.dtype == torch.bfloat16
+    want = torch.autograd.grad(FlashAttention.apply(*cpu, causal), cpu, do.float().cpu())
+    for g, w, t in zip(got, want, qkv):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
         assert (g.float().cpu() - w).abs().max() <= 0.02 * w.abs().max()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_is_deterministic(cuda, d):
+    """Two backwards of the same inputs give the same bits: no atomics, every
+    sum in a fixed order."""
+    from repro_torch.models.flash import FlashAttention
+
+    qkv = [_rand(shape, torch.bfloat16, cuda, 50 + i).requires_grad_(True)
+           for i, shape in enumerate(((2, 8, 300, d), (2, 2, 300, d), (2, 2, 300, d)))]
+    do = _rand((2, 8, 300, d), torch.bfloat16, cuda, 53)
+    first = torch.autograd.grad(FlashAttention.apply(*qkv, True), qkv, do)
+    second = torch.autograd.grad(FlashAttention.apply(*qkv, True), qkv, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_rows_are_batch_invariant(cuda, d):
+    """A batch row's (dq, dk, dv) are the same bits alone (batch 1) as in a
+    batch of 4: no block's work depends on the other rows."""
+    from repro_torch.models.flash import FlashAttention
+
+    shapes = ((4, 8, 200, d), (4, 2, 200, d), (4, 2, 200, d))
+    qkv = [_rand(shape, torch.bfloat16, cuda, 60 + i) for i, shape in enumerate(shapes)]
+    do = _rand((4, 8, 200, d), torch.bfloat16, cuda, 63)
+
+    def grads(rows):
+        x = [t[rows].clone().requires_grad_(True) for t in qkv]
+        return torch.autograd.grad(FlashAttention.apply(*x, True), x, do[rows].clone())
+
+    batch = grads(slice(0, 4))
+    for i in (0, 3):
+        alone = grads(slice(i, i + 1))
+        assert all(torch.equal(a, b[i:i + 1]) for a, b in zip(alone, batch))
+
+
+def test_flash_fp32_backward_keeps_the_torch_ops(cuda):
+    """fp32 card tensors keep the torch-op backward (exact fp32 products, as
+    the fp32 forward keeps them): no ``flash_attention_bwd`` count, the
+    gradients within 1e-4 of fp32 CPU autograd through the plain version."""
+    from repro_torch.models.flash import FlashAttention
+
+    qkv = [_rand(shape, torch.float32, cuda, 70 + i).requires_grad_(True)
+           for i, shape in enumerate(((1, 4, 96, 64), (1, 2, 96, 64), (1, 2, 96, 64)))]
+    do = _rand((1, 4, 96, 64), torch.float32, cuda, 73)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = torch.autograd.grad(FlashAttention.apply(*qkv, True), qkv, do)
+    assert ops.launch_counts()["flash_attention_bwd"] == before
+    cpu = [t.detach().cpu().requires_grad_(True) for t in qkv]
+    want = torch.autograd.grad(ref.attention_ref(*cpu, causal=True), cpu, do.cpu())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
 
 
 def test_packed_lane_logits_equal_batch1_bitwise(cuda, engine_cut):
@@ -749,6 +815,7 @@ def test_train_step_on_the_card_matches_cpu(cuda):
     counts = ops.launch_counts()
     assert counts["streamed_matmul"] == 3 * (7 * cfg.num_layers + 1)
     assert counts["flash_attention"] == cfg.num_layers
+    assert counts["flash_attention_bwd"] == cfg.num_layers
     _, _, want = make_train_step(dataclasses.replace(cfg, dtype="float32"), opt,
                                  device="cpu")(cpu, opt.init(cpu), batch)
     assert abs(float(got["loss"]) - float(want["loss"])) <= 0.02 * float(want["loss"])
@@ -1518,7 +1585,7 @@ def _count_on(device, fn, *tensors):
 
 
 @pytest.mark.parametrize("kernel", ["matmul", "matmul_nk", "dot", "attention", "scan",
-                                    "scan_backward"])
+                                    "scan_backward", "attention_backward"])
 def test_kernel_counts_equal_on_both_devices(cuda, kernel):
     """Each wrapper records its kernel's formula on the card, where it
     launches, and on the CPU, where its plain version runs: the same FLOPs,
@@ -1536,6 +1603,15 @@ def test_kernel_counts_equal_on_both_devices(cuda, kernel):
         args = (_rand((2, 8, 100, 64), bf, "cpu", 1), _rand((2, 2, 100, 64), bf, "cpu", 2),
                 _rand((2, 2, 100, 64), bf, "cpu", 3))
         fn = lambda q, k, v: ops.attention(q, k, v, return_lse=True)
+    elif kernel == "attention_backward":
+        from repro_torch.models.flash import FlashAttention
+
+        args = (_rand((2, 8, 100, 64), bf, "cpu", 1), _rand((2, 2, 100, 64), bf, "cpu", 2),
+                _rand((2, 2, 100, 64), bf, "cpu", 3))
+
+        def fn(*t):      # dout a broadcast of ones (stride 0): the wrapper stages it
+            live = [u.detach().requires_grad_(True) for u in t]
+            FlashAttention.apply(*live, True).sum().backward()
     else:
         x = _rand((2, 40, 256), torch.float32, "cpu", 1)
         dt = _rand((2, 40, 256), torch.float32, "cpu", 2).abs() * 0.05
@@ -1553,7 +1629,7 @@ def test_kernel_counts_equal_on_both_devices(cuda, kernel):
     card, cpu = _count_on(cuda, fn, *args), _count_on("cpu", fn, *args)
     assert card.kernels == cpu.kernels and card.kernels
     assert (card.flops, card.bytes, card.launches) == (cpu.flops, cpu.bytes, cpu.launches)
-    if kernel not in ("matmul_nk", "scan_backward"):
+    if kernel not in ("matmul_nk", "scan_backward", "attention_backward"):
         assert card.ops == cpu.ops == {}
 
 

@@ -29,7 +29,12 @@ from repro_torch.core import bsp as tbsp
 from repro_torch.kernels import ops, pipeline, ref
 from repro_torch.kernels.flash_attention import (
     HEAD_DIMS,
+    attention_bwd_plans,
     attention_plan,
+    bwd_cost,
+    bwd_tiles,
+    causal_pairs,
+    flash_attention_bwd,
     kernel_head_dim,
     pad_head_dim,
 )
@@ -188,6 +193,75 @@ def test_kernel_geometry_follows_the_plans():
     assert pipeline.geometry(dot_plan(16, 8192)) == ((1, 1, 1), 16)
 
 
+@pytest.mark.parametrize("d,tiles", [(16, (64, 64, 1)), (32, (64, 64, 1)), (64, (64, 64, 1)),
+                                     (128, (64, 32, 1)), (192, (32, 32, 2)), (256, (32, 32, 2))])
+def test_flash_bwd_tiles(d, tiles):
+    """The backward's tiles a head dim (``BwdTile`` in the CUDA source):
+    pass A's keys a step, pass B's queries a step and column splits."""
+    assert bwd_tiles(d) == tiles
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("b,hq,hkv,sq,skv", [(8, 36, 36, 2048, 2048), (4, 32, 8, 256, 256),
+                                             (1, 8, 2, 100, 300), (2, 4, 2, 20, 90)])
+def test_flash_bwd_geometry_follows_the_plans(b, hq, hkv, sq, skv, d):
+    """The backward's two plans lower to what its C entries check: pass A a
+    block a (Q tile of 64, q head, batch) looping over the KV blocks of its
+    tile, its scratch the dq accumulator; pass B a block a (KV block of 64,
+    kv head, batch) looping over the group's heads × Q tiles, its scratch
+    the dk and dv accumulators. Each plan pads (sq, skv) to its own tiles."""
+    nk, qb, _ = bwd_tiles(d)
+    dq_plan, dkv_plan = attention_bwd_plans(b, hq, hkv, sq, skv, d, q_offset=skv - sq)
+    assert pipeline.geometry(dq_plan) == ((-(-sq // 64), hq, b), -(-skv // nk))
+    assert pipeline.geometry(dkv_plan) == ((-(-skv // 64), hkv, b), hq // hkv * -(-sq // qb))
+    assert dq_plan.scratch_bytes == 64 * d * 4
+    assert dkv_plan.scratch_bytes == 2 * 64 * d * 4
+
+
+def test_flash_bwd_plans_skip_above_the_diagonal():
+    """Causal hypersteps wholly above the diagonal cost nothing: pass A's
+    Q tile 0 stops at KV block 0, pass B's KV block 3 starts at Q tile 3;
+    without causal masking every hyperstep computes."""
+    dq_plan, dkv_plan = attention_bwd_plans(1, 2, 2, 256, 256, 64)
+    assert dq_plan.flops_per_hyperstep(0, 0, 0, 0) == 6.0 * 64 * 64 * 64
+    assert dq_plan.flops_per_hyperstep(0, 0, 0, 1) == 0.0
+    assert dkv_plan.flops_per_hyperstep(0, 0, 3, 0, 2) == 0.0
+    assert dkv_plan.flops_per_hyperstep(0, 0, 3, 0, 3) == 8.0 * 64 * 64 * 64
+    assert dq_plan.mean_flops_per_hyperstep == 6.0 * 64 ** 3 * 10 / 16
+    dq_full, _ = attention_bwd_plans(1, 2, 2, 256, 256, 64, causal=False)
+    assert dq_full.flops_per_hyperstep(0, 0, 0, 3) == 6.0 * 64 ** 3
+
+
+def test_flash_bwd_cost_counts_ten_d_a_kept_pair():
+    """The backward's counted work: 10·d operations a kept pair (the
+    harness's frozen count), minicpm-2b's train-step layer 386.7 GFLOP;
+    Q, K, V, O, dO and lse read, dQ, dK, dV written once."""
+    c = bwd_cost(8, 36, 36, 2048, 2048, 64, 2)
+    assert c.flops == 10.0 * 8 * 36 * 64 * causal_pairs(2048, 2048)
+    assert round(c.flops / 1e9, 1) == 386.7 and c.kind == "bf16"
+    assert c.bytes == (4 * 8 * 36 * 2048 * 64 + 4 * 8 * 36 * 2048 * 64) * 2 + 4 * 8 * 36 * 2048
+    assert bwd_cost(1, 4, 2, 10, 30, 16, 2, causal=False).flops == 10.0 * 4 * 16 * 300
+
+
+def test_flash_attention_bwd_takes_only_card_tensors():
+    """The backward kernel's wrapper has no CPU path (its plain version is
+    ``models/flash._flash_bwd``): CPU and meta tensors and bad shapes raise
+    before the library is touched, and nothing is counted."""
+    before = ops.launch_counts()["flash_attention_bwd"]
+    for device in ("cpu", "meta"):
+        q = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16, device=device)
+        lse = torch.zeros((1, 2, 8), device=device)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.attention_bwd(q, q, q, q, lse, q)
+    q = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention_bwd(q, q, q, q, torch.zeros((1, 2, 9), device="meta"), q)
+    with pytest.raises(ValueError, match="multiple"):
+        kv = torch.zeros((1, 3, 8, 16), dtype=torch.bfloat16, device="meta")
+        flash_attention_bwd(q[:, :2], kv, kv, q, torch.zeros((1, 2, 8), device="meta"), q)
+    assert ops.launch_counts()["flash_attention_bwd"] == before
+
+
 def test_decode_tiles_and_split():
     assert VARIANTS[variant_for(4, 0, 2304, 0, 5760, 2304)] == (16, 128, 64)
     assert variant_for(4, 0, 2304, 0, 5761, 2304) == "decode_cp"
@@ -287,7 +361,7 @@ def test_the_matmul_has_six_variants():
     assert set(ops.matmul_variant_counts()) == six
 
 
-@pytest.mark.parametrize("kernel", ["matmul", "flash", "scan_bwd"])
+@pytest.mark.parametrize("kernel", ["matmul", "flash", "flash_bwd", "scan_bwd"])
 def test_time_kernels_refuses_to_run_without_a_card(kernel, monkeypatch, capsys):
     """The parent/change timer times only on the card: without one it exits
     with its reason before it makes any input."""

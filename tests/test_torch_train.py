@@ -337,6 +337,97 @@ def test_flash_function_grads_match_reference(rng, causal, hq, hkv, sq, skv, blo
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_cpu_backward_is_the_torch_op_one(rng, monkeypatch, dtype, causal):
+    """On CPU tensors, fp32 or bf16, FlashAttention's backward runs the
+    torch-op ``_flash_bwd`` (a spy counts its calls) and never the card's
+    kernel entry; no ``flash_attention_bwd`` launch is counted; fp32
+    gradients equal autograd through the plain attention within 1e-5."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import flash as tflash
+
+    calls = []
+    torch_op = tflash._flash_bwd
+
+    def spy(*args):
+        calls.append(args[0].dtype)
+        return torch_op(*args)
+
+    def kernel(*a, **k):
+        raise AssertionError("the backward kernel was reached from CPU tensors")
+
+    monkeypatch.setattr(tflash, "_flash_bwd", spy)
+    monkeypatch.setattr(ops, "attention_bwd", kernel)
+    ops.reset_launch_counts()
+    shapes = ((2, 4, 24, 16), (2, 2, 40, 16), (2, 2, 40, 16), (2, 4, 24, 16))
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32) for s in shapes)
+    qkv = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(FlashAttention.apply(*qkv, causal, None, 16, 16), qkv, do.to(dtype))
+    assert calls == [dtype]
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+    assert all(g.dtype == dtype and g.shape == t.shape for g, t in zip(got, qkv))
+    if dtype == torch.float32:
+        plain = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        ref_out = ref.attention_ref(*plain, causal=causal)
+        want = torch.autograd.grad(ref_out, plain, do)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_function_cpu_backward_counts_as_on_the_card(rng, dtype):
+    """Under ``roofline.count`` a bf16 CPU backward records the backward
+    kernel's formula (10·d a kept pair) in place of the torch-op version's
+    ops, as the card's kernel records it; an fp32 backward, which takes the
+    torch ops on both devices, records its ops and no kernel."""
+    from repro_torch.core import roofline
+    from repro_torch.kernels.flash_attention import bwd_cost
+
+    shapes = ((1, 24, 4, 16), (1, 40, 2, 16), (1, 40, 2, 16))   # (B, S, H, D), the model's
+    qkv = [torch.as_tensor(rng.standard_normal(s), dtype=dtype).transpose(1, 2)
+           .requires_grad_(True) for s in shapes]
+    out = FlashAttention.apply(*qkv, True)
+    with roofline.count() as c:
+        grads = torch.autograd.grad(out, qkv, torch.ones_like(out))
+    if dtype == torch.bfloat16:
+        want = bwd_cost(1, 4, 2, 24, 40, 16, 2)
+        assert c.kernels == {"flash_attention_bwd": [1, want.flops, want.bytes]}
+        assert "aten.exp.default" not in c.ops and c.launches == 1
+        # in its input's layout, as the kernel returns it
+        assert all(g.stride() == t.stride() for g, t in zip(grads, qkv))
+    else:
+        assert c.kernels == {} and c.ops["aten.exp.default"][0] >= 1
+
+
+def test_flash_function_backward_dispatch(monkeypatch):
+    """The dispatch is on the input's device and dtype: bf16 on the card
+    goes to the kernel entry, fp32 on either device to ``_flash_bwd``, bf16
+    on the CPU to ``_flash_bwd`` counted as the kernel (``_plain_bwd``).
+    Checked on stand-in tensors whose ``is_cuda`` the test sets, so no card
+    is needed."""
+    from repro_torch.models import flash as tflash
+
+    taken = []
+    monkeypatch.setattr(tflash, "_flash_bwd", lambda *a: taken.append("torch-op") or (None,) * 3)
+    monkeypatch.setattr(tflash, "_plain_bwd", lambda *a: taken.append("plain") or (None,) * 3)
+    monkeypatch.setattr(ops, "attention_bwd", lambda *a, **k: taken.append("kernel") or (None,) * 3)
+
+    class Saved:                      # what FlashAttention.backward reads off a saved tensor
+        def __init__(self, dtype, is_cuda):
+            self.dtype, self.is_cuda = dtype, is_cuda
+
+    class Ctx:
+        def __init__(self, q):
+            self.saved_tensors = (q, None, None, None, None)
+            self.args = (True, 0.25, 1024, 1024)
+
+    for dtype, is_cuda in ((torch.bfloat16, True), (torch.float32, True),
+                           (torch.bfloat16, False), (torch.float32, False)):
+        FlashAttention.backward(Ctx(Saved(dtype, is_cuda)), None)
+    assert taken == ["kernel", "torch-op", "plain", "torch-op"]
+
+
 def test_flash_lse_plain_version(rng):
     """``return_lse`` on the CPU: the plain version's log-sum-exp of the
     scaled, causally masked scores."""
