@@ -17,10 +17,9 @@ train step's forward, backward and optimizer update, the batch fetch.
   inside a span of that name, the innermost such span on the op's thread
   (``tracing.scope_of``'s rule).
 
-It takes the lists ``tracing.capture`` gathers (kernels, ops, host spans and
-the window). A ``Trace`` has no field for its result yet, so the readers of
-``metrics/`` that read it through :func:`program_of` return nothing until
-``capture`` stores it as ``trace.program``.
+It takes the lists ``tracing.reduce_profile`` gathers (kernels, ops, host
+spans and the window), which stores the result as ``Trace.program``; the
+readers of ``metrics/`` read it through :func:`program_of`.
 """
 
 from __future__ import annotations
@@ -113,5 +112,5 @@ def reduce_program(kernels: list[tuple[str, float, float, int]],
 
 def program_of(run: Any) -> dict[str, dict[str, float]]:
     """The traced stretch's program spans (``reduce_program``'s result, as
-    ``trace.program``), or nothing where the run has none."""
-    return getattr(run.trace, "program", None) or {}
+    ``trace.program``), or nothing where the run was not traced."""
+    return run.trace.program if run.trace is not None else {}

@@ -23,6 +23,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from portbench import archs
+
 __all__ = ["Ref", "fp8_round", "exact_fp32"]
 
 _NEG = -1e30
@@ -64,7 +66,10 @@ class _Fp8Product(torch.autograd.Function):
 class Ref:
     """The reference model over ``params`` (leaves of any float dtype,
     read as fp32). ``params`` may hold fp32 leaves that require grad (the
-    training reference differentiates through them)."""
+    training reference differentiates through them). A layer runs its
+    mixer and MLP by kind (``mixer``, ``mixer_state``, ``mixer_step``,
+    ``ffn``); a kind the built-ins lack runs ``archs/<kind>.py``'s
+    ``forward``, ``state`` and ``step``, and raises where there is none."""
 
     def __init__(self, cfg: dict, params: dict, *, quant: bool = False):
         self.cfg = cfg
@@ -125,11 +130,13 @@ class Ref:
 
     def attend(self, q, k, v, q0: int, block: int = 1024) -> torch.Tensor:
         """Causal softmax attention of q (B, Sq, H, D) at positions q0.. over
-        k, v (B, Skv, Hkv, D) at positions 0.., in blocks of queries."""
+        k (B, Skv, Hkv, D) and v (B, Skv, Hkv, Dv) at positions 0.., in
+        blocks of queries, scaled by D^-1/2: (B, Sq, H·Dv)."""
         b, sq, h, hd = q.shape
+        dv = v.shape[-1]
         g = h // self.hkv
         kk = k.permute(0, 2, 3, 1)[:, :, None]                 # (B, Hkv, 1, D, Skv)
-        vv = v.permute(0, 2, 1, 3)[:, :, None]                 # (B, Hkv, 1, Skv, D)
+        vv = v.permute(0, 2, 1, 3)[:, :, None]                 # (B, Hkv, 1, Skv, Dv)
         kpos = torch.arange(k.shape[1], device=q.device)
         outs = []
         for s0 in range(0, sq, block):
@@ -139,9 +146,9 @@ class Ref:
             sc = self.mm(qg, kk) * hd ** -0.5                   # (B, Hkv, g, n, Skv)
             qpos = q0 + s0 + torch.arange(n, device=q.device)
             sc = sc.masked_fill(kpos[None, :] > qpos[:, None], _NEG)
-            o = self.mm(torch.softmax(sc, dim=-1), vv)          # (B, Hkv, g, n, D)
-            outs.append(o.reshape(b, h, n, hd).permute(0, 2, 1, 3))
-        return torch.cat(outs, dim=1).reshape(b, sq, h * hd)
+            o = self.mm(torch.softmax(sc, dim=-1), vv)          # (B, Hkv, g, n, Dv)
+            outs.append(o.reshape(b, h, n, dv).permute(0, 2, 1, 3))
+        return torch.cat(outs, dim=1).reshape(b, sq, h * dv)
 
     # -- MoE ----------------------------------------------------------------------
 
@@ -224,6 +231,53 @@ class Ref:
         y = torch.einsum("bis,bs->bi", state["h"], cm[:, 0]) + xin[:, 0] * p["d_skip"].float()
         return self.mm(y[:, None] * F.silu(z), p["w_out"])
 
+    # -- a layer, by kind ----------------------------------------------------------------
+
+    def mixer(self, kind: str, p: dict, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """The mixer over a full sequence x (B, S, d) at positions ``pos``."""
+        if kind == "attn":
+            q, k, v = self._qkv(p, x, pos)
+            return self.mm(self.attend(q, k, v, 0), p["wo"])
+        if kind == "mamba":
+            return self.mamba(p, x)
+        return archs.find(kind, "forward", "reference for mixer")(self, p, x, pos)
+
+    def mixer_state(self, kind: str, batch: int, max_len: int, device: Any) -> dict:
+        """The mixer's decoding state for ``batch`` rows of up to ``max_len``
+        positions."""
+        if kind == "attn":
+            return {"k": torch.zeros(batch, max_len, self.hkv, self.hd, device=device),
+                    "v": torch.zeros(batch, max_len, self.hkv, self.hd, device=device)}
+        if kind == "mamba":
+            di = self.cfg.get("ssm_expand", 2) * self.d
+            kc = self.cfg.get("ssm_d_conv", 4)
+            return {"conv": torch.zeros(batch, kc - 1, di, device=device),
+                    "h": torch.zeros(batch, di, self.ds, device=device)}
+        return archs.find(kind, "state", "reference for mixer")(self, batch, max_len, device)
+
+    def mixer_step(self, kind: str, p: dict, x: torch.Tensor, t: int,
+                   state: dict) -> torch.Tensor:
+        """The mixer on one position x (B, 1, d) at position ``t`` against
+        its ``state`` (updated)."""
+        if kind == "attn":
+            q, k, v = self._qkv(p, x, torch.full((x.shape[0], 1), t, device=x.device))
+            state["k"][:, t], state["v"][:, t] = k[:, 0], v[:, 0]
+            o = self.attend(q, state["k"][:, :t + 1], state["v"][:, :t + 1], t)
+            return self.mm(o, p["wo"])
+        if kind == "mamba":
+            return self.mamba_step(p, x, state)
+        return archs.find(kind, "step", "reference for mixer")(self, p, x, t, state)
+
+    def ffn(self, kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
+        """The MLP on x (B, S, d); an MoE layer routes the B·S tokens as one
+        group."""
+        if kind == "dense":
+            return self.mlp(p, x)
+        if kind == "moe":
+            b, s, d = x.shape
+            return self.moe(p, x.reshape(b * s, d)).view(b, s, d)
+        return archs.find(kind, "forward", "reference for mlp")(self, p, x)
+
     # -- the stack --------------------------------------------------------------------
 
     def blocks(self):
@@ -234,20 +288,18 @@ class Ref:
     def block(self, kind, p: dict, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """Full-sequence block on x (B, S, d)."""
         mixer, mlp = kind
-        hn = self.norm(x, p["ln1"]["scale"])
-        if mixer == "attn":
-            q, k, v = self._qkv(p["mixer"], hn, pos)
-            hn = self.mm(self.attend(q, k, v, 0), p["mixer"]["wo"])
-        else:
-            hn = self.mamba(p["mixer"], hn)
-        x = x + hn
+        x = x + self.mixer(mixer, p["mixer"], self.norm(x, p["ln1"]["scale"]), pos)
         if mlp == "none":
             return x
-        hn = self.norm(x, p["ln2"]["scale"])
-        if mlp == "dense":
-            return x + self.mlp(p["mlp"], hn)
-        b, s, d = hn.shape
-        return x + self.moe(p["mlp"], hn.reshape(b * s, d)).view(b, s, d)
+        return x + self.ffn(mlp, p["mlp"], self.norm(x, p["ln2"]["scale"]))
+
+    def block_step(self, kind, p: dict, x: torch.Tensor, t: int, state: dict) -> torch.Tensor:
+        """The block on one position x (B, 1, d) at position ``t``."""
+        mixer, mlp = kind
+        x = x + self.mixer_step(mixer, p["mixer"], self.norm(x, p["ln1"]["scale"]), t, state)
+        if mlp == "none":
+            return x
+        return x + self.ffn(mlp, p["mlp"], self.norm(x, p["ln2"]["scale"]))
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.p["embed"]["tokens"][tokens.long()].float()
@@ -271,41 +323,18 @@ class Ref:
     # -- step-by-step decoding over every row -------------------------------------------
 
     def decode_state(self, batch: int, max_len: int, device: Any) -> dict:
-        di = self.cfg.get("ssm_expand", 2) * self.d
-        kc = self.cfg.get("ssm_d_conv", 4)
         st: dict = {"len": 0}
         for at, (mixer, _), _ in self.blocks():
-            if mixer == "attn":
-                st[at] = {"k": torch.zeros(batch, max_len, self.hkv, self.hd, device=device),
-                          "v": torch.zeros(batch, max_len, self.hkv, self.hd, device=device)}
-            else:
-                st[at] = {"conv": torch.zeros(batch, kc - 1, di, device=device),
-                          "h": torch.zeros(batch, di, self.ds, device=device)}
+            st[at] = self.mixer_state(mixer, batch, max_len, device)
         return st
 
     def step(self, tok: torch.Tensor, st: dict) -> torch.Tensor:
         """Logits (B, V) after feeding one token a row (B,) at position
         ``st["len"]``; every row is one request of one batch, so an MoE
         layer routes the B tokens as one group."""
-        b = tok.shape[0]
         t = st["len"]
         x = self.embed(tok[:, None])
-        pos = torch.full((b, 1), t, device=tok.device)
-        for at, (mixer, mlp), p in self.blocks():
-            hn = self.norm(x, p["ln1"]["scale"])
-            if mixer == "attn":
-                q, k, v = self._qkv(p["mixer"], hn, pos)
-                c = st[at]
-                c["k"][:, t], c["v"][:, t] = k[:, 0], v[:, 0]
-                o = self.attend(q, c["k"][:, :t + 1], c["v"][:, :t + 1], t)
-                hn = self.mm(o, p["mixer"]["wo"])
-            else:
-                hn = self.mamba_step(p["mixer"], hn, st[at])
-            x = x + hn
-            if mlp == "none":
-                continue
-            hn = self.norm(x, p["ln2"]["scale"])
-            x = x + (self.mlp(p["mlp"], hn) if mlp == "dense"
-                     else self.moe(p["mlp"], hn[:, 0])[:, None])
+        for at, kind, p in self.blocks():
+            x = self.block_step(kind, p, x, t, st[at])
         st["len"] = t + 1
         return self.head(self.norm(x, self.p["final_norm"]["scale"]))[:, 0]

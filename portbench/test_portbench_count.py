@@ -36,7 +36,7 @@ def test_forward_counts_equal_the_programs(smoke, name):
     tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg["vocab_size"], (b, s)))
     with roofline.count() as c, torch.no_grad():
         M.forward(_program(cfg), params, tokens, device="cpu")
-    items = work.forward(cfg, b, s)
+    items = work.Work(cfg).forward(b, s)
     assert _sums(items, "matmul", "port") == pytest.approx(tuple(c.kernels["streamed_matmul"]))
     n_attn = _sums(items, "attention")
     if n_attn[0]:
@@ -61,7 +61,7 @@ def test_train_step_counts_equal_the_programs(smoke):
     state = opt.init(params)
     with roofline.count() as c:
         step(params, state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
-    items = work.train_step(cfg, b, s, "full")
+    items = work.Work(cfg).train_step(b, s, "full")
     assert _sums(items, "matmul", "port") == pytest.approx(tuple(c.kernels["streamed_matmul"]))
     assert _sums(items, "attention", phases=("fwd", "remat")) == pytest.approx(
         tuple(c.kernels["flash_attention"]))
@@ -77,7 +77,7 @@ def test_decode_unit_reads_every_weight_each_step():
     from portbench.run import load_json, HERE
 
     cfg = load_json(HERE / "configs" / "jamba-v0.1-52b.json", "configuration")
-    items = work.decode_step(cfg, 64, 1)
+    items = work.Work(cfg).decode_step(64, 1)
     weight_bytes = sum(it.cost.bytes for it in items if it.cls == "matmul")
     # every expert is touched by 128 routed rows: the step reads all 13.3 B
     # parameters but the embedding's (bf16)

@@ -1,7 +1,8 @@
 """What the benchmark's modules import: never JAX or the JAX package
 (``repro``; top-level names compared whole, since the program's name
 ``repro_torch`` begins with it), and in the yardstick (the reference, the
-counts, the weights) nothing of the program either."""
+counts, the weights, the modules of the kinds (``archs/``), the trace's
+reduction) nothing of the program either."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import pytest
 
 HERE = pathlib.Path(__file__).resolve().parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
-YARDSTICK = ("reference", "count", "weights.py", "tracing.py", "metrics")
+YARDSTICK = ("reference", "count", "weights.py", "tracing.py", "metrics", "archs",
+             "program_spans.py")
 
 
 def imported(path: pathlib.Path) -> set[str]:

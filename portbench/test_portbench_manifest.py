@@ -1,7 +1,8 @@
 """``BENCHMARK.json`` against the benchmark's contract: names, units and
 lines in the allowed characters, every per-layer metric moving one
 end-to-end metric of the cells it lists, every file a cell needs found by
-name, and the run length within what a full check of 24 cells can hold."""
+name (the module of each mixer or MLP kind the built-ins lack too), and the
+run length within what a full check of 24 cells can hold."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ BENCH = run.manifest()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
+#: the mixer and MLP kinds the harness's built-in code knows
+BUILTIN_KINDS = {"attn", "mamba", "dense", "moe", "none"}
 WIDTH = re.compile(r"(hidden|intermediate|latent|state|proj|head|expan|_dim$|_rank$|per_tok)",
                    re.IGNORECASE)
 
@@ -92,6 +95,8 @@ def test_each_cell_finds_its_files_by_name(cell):
     conf = run.find(BENCH["configs"], wl["config"], "configuration")
     assert conf["file"] == f"portbench/configs/{wl['config']}.json"
     assert cfg["source"] == conf["source"] and cfg["reduced"] == conf["reduced"]
+    for kind in {k for block in cfg["pattern"] for k in block} - BUILTIN_KINDS:
+        assert (run.HERE / "archs" / f"{kind}.py").is_file(), kind
     traffic = run.load_json(run.HERE / "traffic" / f"{wl['traffic']}.json", "traffic")
     assert (run.HERE / "kinds" / f"{traffic['kind']}.py").exists()
     assert (run.HERE / "limits" / f"{cell}.json").exists()

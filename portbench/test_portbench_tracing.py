@@ -93,3 +93,88 @@ def test_the_programs_wrapped_names_exist():
         for part in attr.split("."):
             owner = getattr(owner, part)
         assert callable(owner), (module, attr)
+
+
+class _Event:
+    """A profiler event as ``kineto_results.events()`` gives it."""
+
+    def __init__(self, name, start, end, *, cuda=False, tid=1, corr=0, linked=0):
+        self._name, self._s, self._e = name, start, end
+        self._cuda, self._tid, self._corr, self._linked = cuda, tid, corr, linked
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return round(self._s * 1e9)
+
+    def end_ns(self):
+        return round(self._e * 1e9)
+
+    def device_type(self):
+        from torch.autograd import DeviceType
+
+        return DeviceType.CUDA if self._cuda else DeviceType.CPU
+
+    def start_thread_id(self):
+        return self._tid
+
+    def correlation_id(self):
+        return self._corr
+
+    def linked_correlation_id(self):
+        return self._linked
+
+
+def test_a_profile_is_reduced_with_the_programs_spans():
+    """One decode-like step in a window of 10 s: the program's spans are
+    reduced into ``Trace.program`` beside the harness's classes, and the
+    readers read them from there."""
+    from portbench import program_spans, run
+
+    gen, step, moe = "repro_torch.serve.generate", "repro_torch.serve.step", "repro_torch.model.moe"
+    host = [("portbench.window", 0.0, 10.0, 1, 0), (gen, 0.5, 9.5, 1, 0),
+            ("repro_torch.serve.prefill", 0.5, 1.0, 1, 0), (step, 1.0, 5.0, 1, 0),
+            (moe, 1.5, 3.5, 1, 0), ("aten::mm", 2.0, 2.2, 1, 11),
+            ("portbench.attention", 4.0, 4.5, 1, 0), ("aten::bmm", 4.1, 4.2, 1, 12),
+            ("repro_torch.optim.update", 6.0, 7.0, 2, 0), ("aten::add", 6.5, 6.6, 2, 13)]
+    device = [("nvjet_gemm", 2.5, 3.0, 11), ("flash_fwd_kernel", 4.3, 4.4, 12),
+              ("adam", 6.7, 7.2, 13), ("portbench.attention", 4.0, 4.5, 0)]
+    events = ([_Event(n, s, e, tid=tid, corr=corr) for n, s, e, tid, corr in host]
+              + [_Event(n, s, e, cuda=True, linked=corr) for n, s, e, corr in device])
+    tr = tracing.reduce_profile(events)
+    assert tr.window_s == pytest.approx(10.0) and tr.busy_s == pytest.approx(1.1)
+    assert tr.class_s == pytest.approx({"matmul": 0.5, "attention": 0.1})
+    kernels = [(n, s, e, c) for n, s, e, c in device if c]
+    ops = {corr: (s, tid) for _, s, _, tid, corr in host if corr}
+    spans = [(n, s, e, tid) for n, s, e, tid, _ in host]
+    want = program_spans.reduce_program(kernels, ops, spans, (0.0, 10.0))
+    assert set(tr.program) == set(want) == {gen, "repro_torch.serve.prefill", step, moe,
+                                            "repro_torch.optim.update"}
+    for name, row in want.items():
+        assert tr.program[name] == pytest.approx(row), name
+    assert tr.program[moe]["device_s"] == pytest.approx(0.5)
+    assert tr.program["repro_torch.optim.update"]["device_s"] == pytest.approx(0.5)
+    assert tr.program[step]["count"] == 1 and tr.program[step]["host_s"] == pytest.approx(4.0)
+    # the card idles in [1.5, 2.5) and [3.0, 3.5) inside the MoE layer
+    assert tr.program[moe]["idle_s"] == pytest.approx(1.5)
+    traced = run.Run(cfg={}, traffic={}, units=1, window_s=1.0, work={}, model_flops=0.0,
+                     traced_units=1, traced_work=None, trace=tr, spans={}, counters={})
+    # the idle given to a program span: prefill 0.5, step 0.5 + 0.8 + 0.6,
+    # MoE 1.5, generate 1.0 + 2.3, the update 0.7; 7.9 s in all
+    assert sum(row["idle_s"] for row in tr.program.values()) == pytest.approx(7.9)
+    read = {m: run.reader(m)(m, traced) for m in
+            ("host_step_ms.decode", "layer_idle_ms.moe.decode", "after_prefill_ms.ttft",
+             "update_ms.train", "layer_idle_ms.mamba.decode", "layer_idle_share.moe.decode",
+             "layer_idle_share.mamba.decode")}
+    assert read == pytest.approx({"host_step_ms.decode": 4000.0,
+                                  "layer_idle_ms.moe.decode": 1500.0,
+                                  "after_prefill_ms.ttft": 8500.0, "update_ms.train": 500.0,
+                                  "layer_idle_ms.mamba.decode": None,
+                                  "layer_idle_share.moe.decode": 100 * 1.5 / 7.9,
+                                  "layer_idle_share.mamba.decode": None})
+
+
+def test_a_profile_without_the_window_span_is_refused():
+    with pytest.raises(RuntimeError, match="no window span"):
+        tracing.reduce_profile([_Event("aten::mm", 0.0, 1.0, corr=1)])

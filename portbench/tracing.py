@@ -12,7 +12,9 @@ back to the op that launched it by the profiler's correlation id, and the
 op's start lies inside the span on the same thread), else the first class,
 in file-name order, of the pattern files ``kernel_names/<class>.txt`` (one
 regular expression a line) that matches its name. So GEMMs that the
-program runs inside its attention are attention's, not matmul's.
+program runs inside its attention are attention's, not matmul's. The
+program's own spans (``repro_torch.*``) in the stretch are reduced by
+``program_spans.reduce_program`` into ``Trace.program``.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["Trace", "capture", "kernel_classes", "kernel_scopes", "scope_of", "reduce_events",
-           "merge"]
+__all__ = ["Trace", "capture", "reduce_profile", "kernel_classes", "kernel_scopes", "scope_of",
+           "reduce_events", "merge"]
 
 HERE = pathlib.Path(__file__).resolve().parent
 WINDOW = "portbench.window"
@@ -39,7 +41,9 @@ WINDOW = "portbench.window"
 class Trace:
     """A traced stretch: its host length, the union of kernel intervals in
     it, the device seconds of each kernel class, the kernels by device time
-    and the idle gaps by what the host was doing (each at most 10)."""
+    and the idle gaps by what the host was doing (each at most 10), and the
+    program's spans (``program_spans.reduce_program``: count, host s, idle
+    s and device s a span name)."""
 
     window_s: float
     busy_s: float
@@ -48,6 +52,7 @@ class Trace:
     idle_gaps: list[list]
     unmatched: list[str]
     kernels: int
+    program: dict[str, dict[str, float]] = dataclasses.field(default_factory=dict)
 
 
 def kernel_classes(root: pathlib.Path = HERE / "kernel_names") -> list[tuple[str, re.Pattern]]:
@@ -190,7 +195,6 @@ def _ns(ev: Any, what: str) -> float:
 
 def capture(fn: Callable[[], Any]) -> tuple[Any, Trace]:
     """Run ``fn()`` traced; returns its result and the reduced trace."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -199,10 +203,28 @@ def capture(fn: Callable[[], Any]) -> tuple[Any, Trace]:
             out = fn()
             torch.cuda.synchronize()
     t0 = time.perf_counter()
+    tr = reduce_profile(prof.profiler.kineto_results.events())
+    print(f"[trace] {tr.kernels} device events, reduced in "
+          f"{time.perf_counter() - t0:.1f} s; busy {tr.busy_s:.4f} s of {tr.window_s:.4f} s; "
+          f"device s by class {tr.class_s}; the 5 unmatched kernels with most time: "
+          f"{[n[:80] for n in tr.unmatched[:5]]}; {len(tr.program)} program span names",
+          file=sys.stderr)
+    return out, tr
+
+
+def reduce_profile(events: Any) -> Trace:
+    """Reduce the profiler's events (``kineto_results.events()``) of a
+    stretch run inside the span ``WINDOW``: the kernels, the ops that
+    launched them and the host spans, then the harness's classes and the
+    program's spans."""
+    from torch.autograd import DeviceType
+
+    from portbench.program_spans import reduce_program
+
     kernels, host, spans = [], [], []
     ops: dict[int, tuple[float, int]] = {}
     window = None
-    for ev in prof.profiler.kineto_results.events():
+    for ev in events:
         name = ev.name()
         s, e = _ns(ev, "start"), _ns(ev, "end")
         if ev.device_type() == DeviceType.CUDA:
@@ -224,8 +246,5 @@ def capture(fn: Callable[[], Any]) -> tuple[Any, Trace]:
         raise RuntimeError("the profile holds no window span")
     tr = reduce_events(scope_of(kernels, ops, spans, kernel_scopes()), host, window,
                        kernel_classes())
-    print(f"[trace] {tr.kernels} device events, reduced in "
-          f"{time.perf_counter() - t0:.1f} s; busy {tr.busy_s:.4f} s of {tr.window_s:.4f} s; "
-          f"device s by class {tr.class_s}; the 5 unmatched kernels with most time: "
-          f"{[n[:80] for n in tr.unmatched[:5]]}", file=sys.stderr)
-    return out, tr
+    tr.program = reduce_program(kernels, ops, spans, window)
+    return tr

@@ -17,7 +17,9 @@ from typing import Any
 
 import torch
 
-__all__ = ["make_params", "leaf_specs", "torch_dtype"]
+from portbench import archs
+
+__all__ = ["Leaves", "dims", "make_params", "leaf_specs", "torch_dtype"]
 
 _ALIGN = 128          # elements: every view starts 256-byte aligned in bf16
 
@@ -26,70 +28,99 @@ def torch_dtype(cfg: dict) -> torch.dtype:
     return getattr(torch, cfg["dtype"])
 
 
-def _dims(cfg: dict) -> dict[str, int]:
+def dims(cfg: dict) -> dict[str, int]:
+    """The configuration's widths under short names, as the weights and the
+    work model read them."""
     d = cfg["d_model"]
-    di = cfg.get("ssm_expand", 2) * d
     return {"d": d, "h": cfg["num_heads"], "hkv": cfg["num_kv_heads"],
             "hd": cfg.get("head_dim") or d // cfg["num_heads"], "ff": cfg["d_ff"],
             "v": cfg["vocab_size"], "e": cfg.get("moe_experts", 0),
-            "eff": cfg.get("moe_d_ff", 0), "di": di, "ds": cfg.get("ssm_d_state", 16),
-            "k": cfg.get("ssm_d_conv", 4),
+            "top_k": cfg.get("moe_top_k", 0), "eff": cfg.get("moe_d_ff", 0),
+            "di": cfg.get("ssm_expand", 2) * d, "ds": cfg.get("ssm_d_state", 16),
+            "d_conv": cfg.get("ssm_d_conv", 4),
             "dtr": cfg.get("ssm_dt_rank") or math.ceil(d / 16)}
 
 
+class Leaves:
+    """The leaf list of a configuration: (path, shape, init) of every leaf,
+    in a fixed order. ``init`` is a scale for a random leaf (drawn in the
+    config's dtype, or in fp32 for a path ending in "router"), or ("fill",
+    value) / ("a_log",) for a constant. A block's leaves come from ``mixer``
+    and ``mlp`` by kind; a kind the built-ins lack, from
+    ``archs/<kind>.py``'s ``leaves``."""
+
+    def __init__(self, cfg: dict):
+        self.cfg = cfg
+        self.z = dims(cfg)
+
+    def specs(self) -> list[tuple[tuple, tuple[int, ...], Any]]:
+        pattern = self.cfg["pattern"]
+        out = self.embed()
+        for i in range(self.cfg["num_layers"] // len(pattern)):
+            for j, (mixer, mlp) in enumerate(pattern):
+                out += self.block(("stack", i, j), mixer, mlp)
+        return out + self.final()
+
+    def embed(self) -> list:
+        d, v = self.z["d"], self.z["v"]
+        out: list = [(("embed", "tokens"), (v, d), 0.02)]
+        if not self.cfg.get("tie_embeddings", False):
+            out.append((("embed", "head"), (d, v), 1 / math.sqrt(d)))
+        return out
+
+    def block(self, at: tuple, mixer: str, mlp: str) -> list:
+        d = self.z["d"]
+        out = [(at + ("ln1", "scale"), (d,), ("fill", 1.0))] + self.mixer(at + ("mixer",), mixer)
+        if mlp == "none":
+            return out
+        return out + [(at + ("ln2", "scale"), (d,), ("fill", 1.0))] + self.mlp(at + ("mlp",), mlp)
+
+    def mixer(self, at: tuple, kind: str) -> list:
+        z = self.z
+        d = z["d"]
+        if kind == "attn":
+            h, hkv, hd = z["h"], z["hkv"], z["hd"]
+            return [(at + ("wq",), (d, h * hd), 1 / math.sqrt(d)),
+                    (at + ("wk",), (d, hkv * hd), 1 / math.sqrt(d)),
+                    (at + ("wv",), (d, hkv * hd), 1 / math.sqrt(d)),
+                    (at + ("wo",), (h * hd, d), 1 / math.sqrt(h * hd))]
+        if kind == "mamba":
+            di, ds, dtr = z["di"], z["ds"], z["dtr"]
+            return [(at + ("w_in",), (d, 2 * di), 1 / math.sqrt(d)),
+                    (at + ("conv_w",), (z["d_conv"], di), 0.1),
+                    (at + ("conv_b",), (di,), ("fill", 0.0)),
+                    (at + ("w_x",), (di, dtr + 2 * ds), 1 / math.sqrt(di)),
+                    (at + ("w_dt",), (dtr, di), 1 / math.sqrt(dtr)),
+                    (at + ("dt_bias",), (di,), ("fill", -4.6)),
+                    (at + ("a_log",), (di, ds), ("a_log",)),
+                    (at + ("d_skip",), (di,), ("fill", 1.0)),
+                    (at + ("w_out",), (di, d), 1 / math.sqrt(di))]
+        return archs.find(kind, "leaves", "weights for mixer")(self, at)
+
+    def mlp(self, at: tuple, kind: str) -> list:
+        z = self.z
+        d = z["d"]
+        if kind == "dense":
+            ff = z["ff"]
+            return [(at + ("w_up",), (d, ff), 1 / math.sqrt(d)),
+                    (at + ("w_down",), (ff, d), 1 / math.sqrt(ff)),
+                    (at + ("w_gate",), (d, ff), 1 / math.sqrt(d))]
+        if kind == "moe":
+            e, ff = z["e"], z["eff"]
+            return [(at + ("router",), (d, e), 1 / math.sqrt(d)),
+                    (at + ("w_up",), (e, d, ff), 1 / math.sqrt(d)),
+                    (at + ("w_down",), (e, ff, d), 1 / math.sqrt(ff)),
+                    (at + ("w_gate",), (e, d, ff), 1 / math.sqrt(d))]
+        return archs.find(kind, "leaves", "weights for mlp")(self, at)
+
+    def final(self) -> list:
+        return [(("final_norm", "scale"), (self.z["d"],), ("fill", 1.0))]
+
+
 def leaf_specs(cfg: dict) -> list[tuple[tuple, tuple[int, ...], Any]]:
-    """(path, shape, init) of every leaf, in a fixed order. ``init`` is a
-    scale for a random leaf (drawn in the config's dtype, or in fp32 for a
-    path ending in "router"), or ("fill", value) / ("a_log",) for a
-    constant."""
-    z = _dims(cfg)
-    d, v = z["d"], z["v"]
-    out: list = [(("embed", "tokens"), (v, d), 0.02)]
-    if not cfg.get("tie_embeddings", False):
-        out.append((("embed", "head"), (d, v), 1 / math.sqrt(d)))
-    pattern = cfg["pattern"]
-    periods = cfg["num_layers"] // len(pattern)
-    for i in range(periods):
-        for j, (mixer, mlp) in enumerate(pattern):
-            at = ("stack", i, j)
-            out.append((at + ("ln1", "scale"), (d,), ("fill", 1.0)))
-            if mixer == "attn":
-                h, hkv, hd = z["h"], z["hkv"], z["hd"]
-                out += [(at + ("mixer", "wq"), (d, h * hd), 1 / math.sqrt(d)),
-                        (at + ("mixer", "wk"), (d, hkv * hd), 1 / math.sqrt(d)),
-                        (at + ("mixer", "wv"), (d, hkv * hd), 1 / math.sqrt(d)),
-                        (at + ("mixer", "wo"), (h * hd, d), 1 / math.sqrt(h * hd))]
-            elif mixer == "mamba":
-                di, ds, dtr = z["di"], z["ds"], z["dtr"]
-                out += [(at + ("mixer", "w_in"), (d, 2 * di), 1 / math.sqrt(d)),
-                        (at + ("mixer", "conv_w"), (z["k"], di), 0.1),
-                        (at + ("mixer", "conv_b"), (di,), ("fill", 0.0)),
-                        (at + ("mixer", "w_x"), (di, dtr + 2 * ds), 1 / math.sqrt(di)),
-                        (at + ("mixer", "w_dt"), (dtr, di), 1 / math.sqrt(dtr)),
-                        (at + ("mixer", "dt_bias"), (di,), ("fill", -4.6)),
-                        (at + ("mixer", "a_log"), (di, ds), ("a_log",)),
-                        (at + ("mixer", "d_skip"), (di,), ("fill", 1.0)),
-                        (at + ("mixer", "w_out"), (di, d), 1 / math.sqrt(di))]
-            else:
-                raise ValueError(f"no weights for mixer {mixer!r}")
-            if mlp == "none":
-                continue
-            out.append((at + ("ln2", "scale"), (d,), ("fill", 1.0)))
-            if mlp == "dense":
-                ff = z["ff"]
-                out += [(at + ("mlp", "w_up"), (d, ff), 1 / math.sqrt(d)),
-                        (at + ("mlp", "w_down"), (ff, d), 1 / math.sqrt(ff)),
-                        (at + ("mlp", "w_gate"), (d, ff), 1 / math.sqrt(d))]
-            elif mlp == "moe":
-                e, ff = z["e"], z["eff"]
-                out += [(at + ("mlp", "router"), (d, e), 1 / math.sqrt(d)),
-                        (at + ("mlp", "w_up"), (e, d, ff), 1 / math.sqrt(d)),
-                        (at + ("mlp", "w_down"), (e, ff, d), 1 / math.sqrt(ff)),
-                        (at + ("mlp", "w_gate"), (e, d, ff), 1 / math.sqrt(d))]
-            else:
-                raise ValueError(f"no weights for mlp {mlp!r}")
-    out.append((("final_norm", "scale"), (d,), ("fill", 1.0)))
-    return out
+    """(path, shape, init) of every leaf of ``cfg``, in a fixed order
+    (``Leaves``)."""
+    return Leaves(cfg).specs()
 
 
 def _put(tree: dict, path: tuple, leaf: torch.Tensor) -> None:
