@@ -14,14 +14,8 @@ for _p in (str(ROOT / "src"), str(ROOT)):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
-#: smoke widths of each configuration: every key of the kind kept, so each
-#: mixer, MLP and head of the cell runs
-SMOKE = {
-    "minicpm-2b": dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
-                       vocab_size=256),
-    "jamba-v0.1-52b": dict(num_layers=8, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
-                           vocab_size=256, moe_experts=4, moe_d_ff=128, ssm_d_state=8),
-}
+from portbench import run  # noqa: E402
+
 #: smoke shapes of each traffic kind; the checked spans so short that the
 #: last tenth of a row's positions fills over 30% of its last span, as 20 of
 #: a cell's 256 served tokens fill its last span of 64
@@ -47,13 +41,18 @@ def card():
 
 
 def smoke_config(name: str, dtype: str = "float32") -> dict:
-    cfg = json.loads((ROOT / "portbench" / "configs" / f"{name}.json").read_text())
-    cfg.update(SMOKE[name], dtype=dtype)
+    """The configuration ``configs/<name>.json`` cut to its smoke widths,
+    ``smoke/configs/<name>.json``: every key of the kind kept, so each
+    mixer, MLP and head of its cells runs. Both files are found under
+    ``run.HERE`` when called, so a test can move them."""
+    cfg = json.loads((run.HERE / "configs" / f"{name}.json").read_text())
+    cfg.update(json.loads((run.HERE / "smoke" / "configs" / f"{name}.json").read_text()),
+               dtype=dtype)
     return cfg
 
 
 def smoke_traffic(name: str) -> dict:
-    tr = json.loads((ROOT / "portbench" / "traffic" / f"{name}.json").read_text())
+    tr = json.loads((run.HERE / "traffic" / f"{name}.json").read_text())
     tr.update(SMOKE_TRAFFIC[tr["kind"]])
     return tr
 

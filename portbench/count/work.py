@@ -85,12 +85,14 @@ class Work:
         if kind == "dense":
             return [("port", t, d, z["ff"], 2)] * 2 + [("port", t, z["ff"], d, 2)]
         if kind == "moe":
-            e, k, eff = z["e"], z["top_k"], z["eff"]
+            e, k, eff, sff = z["e"], z["top_k"], z["eff"], z["shared"] * z["eff"]
             out = [("library", t, d, e, 4)]                            # the fp32 router
             touched = min(e, t * k)
             rows = t * k / touched                                     # routed rows an expert
             out += [("library", rows, d, eff, 2)] * (2 * touched)
             out += [("library", rows, eff, d, 2)] * touched
+            if sff:                                                    # shared experts, all t
+                out += [("library", t, d, sff, 2)] * 2 + [("library", t, sff, d, 2)]
             return out
         return archs.find(kind, "products", "work model for mlp")(self, t)
 

@@ -4,7 +4,9 @@ The dense decoder (RMSNorm, RoPE, causal GQA attention, SwiGLU), Jamba's
 Mamba mixer (causal depthwise conv, selective scan walked position by
 position), its top-k MoE with GShard capacity (token-major choices sorted
 stably by expert, each expert keeping its first ``ceil(T·k/E·factor)``,
-the rest dropped) and untied or tied heads. It reads the configuration's
+the rest dropped) and untied or tied heads. The MoE takes DeepSeek's
+variant from the configuration: shared experts, sigmoid scoring with a
+selection bias, a routed scale (``Ref.moe``). It reads the configuration's
 JSON file and the benchmark's weights (the parameter tree of
 ``portbench.weights``); every product runs in fp32 with TF32 off.
 
@@ -154,13 +156,33 @@ class Ref:
 
     def moe(self, p: dict, x: torch.Tensor) -> torch.Tensor:
         """x (T, d) -> (T, d): top-k routing, GShard capacity, renormalised
-        weights; a dropped choice adds nothing."""
+        weights; a dropped choice adds nothing. The configuration's fields,
+        each defaulting to the plain GShard MoE:
+
+        * ``moe_scoring``: ``"softmax"`` (the weights are the softmax of
+          x·router) or ``"sigmoid"`` (scores sigmoid(x·router) in fp32; the
+          experts chosen by the top-k of the scores plus the fp32 leaf
+          ``router_bias``, the weights the chosen scores without it); either
+          way the k weights are divided by their sum;
+        * ``moe_routed_scale`` (1.0): multiplies the routed sum;
+        * ``moe_shared_experts`` (0): a SwiGLU MLP of that many experts'
+          width (``shared_up``, ``shared_gate``, ``shared_down``) on every
+          token, added to the routed sum unscaled.
+
+        Dropless needs no field: a ``moe_capacity_factor`` of at least E/k
+        gives a capacity of at least T, and no expert is chosen by more
+        than the T tokens, so every choice is kept."""
         cfg = self.cfg
         e, k = cfg["moe_experts"], cfg["moe_top_k"]
         t = x.shape[0]
         cap = max(1, math.ceil(t * k / e * cfg["moe_capacity_factor"]))
-        probs = torch.softmax(self.mm(x, p["router"]), dim=-1)
-        top_p, top_e = torch.topk(probs, k, dim=-1)
+        logits = self.mm(x, p["router"])
+        if cfg.get("moe_scoring", "softmax") == "sigmoid":
+            scores = torch.sigmoid(logits)
+            top_e = torch.topk(scores + p["router_bias"].float(), k, dim=-1).indices
+            top_p = torch.gather(scores, -1, top_e)
+        else:
+            top_p, top_e = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
         flat_e = top_e.reshape(-1)
         order = torch.argsort(flat_e, stable=True)
@@ -178,6 +200,10 @@ class Ref:
             rows, w = tok[sel], top_p[sel]
             h = F.silu(self.mm(x[rows], p["w_gate"][j])) * self.mm(x[rows], p["w_up"][j])
             y.index_add_(0, rows, self.mm(h, p["w_down"][j]) * w[:, None])
+        y = y * cfg.get("moe_routed_scale", 1.0)
+        if cfg.get("moe_shared_experts", 0):
+            y = y + self.mlp({"w_gate": p["shared_gate"], "w_up": p["shared_up"],
+                              "w_down": p["shared_down"]}, x)
         return y
 
     # -- Mamba ----------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The harness's spans around program functions while a stretch is traced.
 
 Each ``wrap: <module>:<attribute>`` line of ``kernel_scopes/<class>.txt``
-names a program function; inside ``wrapped()`` a call of it runs in a
+(or of ``<class>.<any>.txt``, ``tracing.class_lines``) names a program
+function; inside ``wrapped()`` a call of it runs in a
 ``torch.profiler.record_function`` span ``portbench.<class>``, so that
 ``tracing`` assigns the kernels it launches to that class. A name the
 program no longer has is passed over. Outside ``wrapped()`` the program is
@@ -16,20 +17,21 @@ import importlib
 import pathlib
 from typing import Any, Callable, Iterator
 
-HERE = pathlib.Path(__file__).resolve().parent
+from portbench import tracing
 
 __all__ = ["wraps", "wrapped"]
 
 
-def wraps(root: pathlib.Path = HERE / "kernel_scopes") -> list[tuple[str, str, str]]:
-    """(class, module, attribute path) of every ``wrap:`` line."""
+def wraps(root: pathlib.Path | None = None) -> list[tuple[str, str, str]]:
+    """(class, module, attribute path) of every ``wrap:`` line under ``root``
+    (default ``tracing.SCOPES``)."""
     out = []
-    for f in sorted(root.glob("*.txt")):
-        for ln in f.read_text().splitlines():
-            key, _, value = ln.strip().partition(":")
+    for cls, lines in tracing.class_lines(root or tracing.SCOPES).items():
+        for ln in lines:
+            key, _, value = ln.partition(":")
             if key == "wrap":
                 module, _, attr = value.strip().partition(":")
-                out.append((f.stem, module, attr))
+                out.append((cls, module, attr))
     return out
 
 
@@ -45,7 +47,7 @@ def _in_span(fn: Callable, span: str) -> Callable:
 
 
 @contextlib.contextmanager
-def wrapped(root: pathlib.Path = HERE / "kernel_scopes") -> Iterator[list[str]]:
+def wrapped(root: pathlib.Path | None = None) -> Iterator[list[str]]:
     """Run the program's wrapped functions in their spans; yields the names
     wrapped."""
     undo: list[tuple[Any, str, Any, bool]] = []

@@ -5,13 +5,13 @@ program), and with the fp8 control in the program's place, they do not."""
 
 from __future__ import annotations
 
+import importlib
 import json
 
 import pytest
 import torch
 
 from portbench import run
-from portbench.kinds import decode, score, train, ttft
 
 BENCH = run.manifest()
 CELLS = {w["name"]: w for w in BENCH["workloads"]}
@@ -21,28 +21,27 @@ def limits(cell: str) -> dict:
     return json.loads((run.HERE / "limits" / f"{cell}.json").read_text())
 
 
-def run_smoke(smoke, cell: str, seed: int = 20240612) -> dict:
+def run_smoke(smoke, cell: str, seed: int = 20240612, bench: dict = BENCH) -> dict:
     # the seed picks the first window call for the check (seed % 2 and % 4)
-    wl = CELLS[cell]
-    return run.run_cell(cell, seed, 0.2, False, device="cpu", cfg=smoke[0](wl["config"]),
-                        traffic=smoke[1](wl["traffic"]), limits=limits(cell))
+    wl = run.find(bench["workloads"], cell, "workload")
+    return run.run_cell(cell, seed, 0.2, False, device="cpu", bench=bench,
+                        cfg=smoke[0](wl["config"]), traffic=smoke[1](wl["traffic"]),
+                        limits=limits(cell))
 
 
-#: the control's widths where the smoke widths are too narrow for fp8's error
-#: to reach the cell's limit: ttft compares one token a request, and two
-#: layers of width 64 over 256 tokens seldom reorder it; decode's spans of a
-#: row hold two tokens at smoke widths, where the cell's hold 64
-CONTROL_WIDTHS = {"minicpm-2b.ttft-1k-4k": dict(num_layers=16, d_model=512, num_heads=8,
-                                                num_kv_heads=8, d_ff=1280, vocab_size=32768),
-                  "jamba-v0.1-52b.decode-b64": dict(d_model=256, d_ff=512, moe_d_ff=512,
-                                                    vocab_size=4096)}
-
-
-def control(smoke, cell: str, seed: int = 7) -> dict:
-    wl = CELLS[cell]
+def control(smoke, cell: str, seed: int = 7, bench: dict = BENCH) -> dict:
+    """The control's numbers of ``cell`` at its smoke widths, widened by
+    ``smoke/controls/<cell>.json`` where that file exists: where the smoke
+    widths are too narrow for fp8's error to reach the cell's limit (ttft
+    compares one token a request, and two layers of width 64 over 256 tokens
+    seldom reorder it; decode's spans of a row hold two tokens at smoke
+    widths, where the cell's hold 64)."""
+    wl = run.find(bench["workloads"], cell, "workload")
     cfg, tr = smoke[0](wl["config"]), smoke[1](wl["traffic"])
-    cfg.update(CONTROL_WIDTHS.get(cell, {}))
-    kind = {"train": train, "decode": decode, "ttft": ttft, "score": score}[tr["kind"]]
+    widths = run.HERE / "smoke" / "controls" / f"{cell}.json"
+    if widths.exists():
+        cfg.update(json.loads(widths.read_text()))
+    kind = importlib.import_module(f"portbench.kinds.{tr['kind']}")
     ctx = run.Context(cell, cfg, tr, seed, 0.0, torch.device("cpu"))
     return dict(kind.control_numbers(ctx))
 

@@ -105,6 +105,22 @@ def test_each_cell_finds_its_files_by_name(cell):
         assert callable(run.reader(m["name"]))
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_each_configuration_has_its_smoke_widths(config):
+    """``smoke/configs/<config>.json`` cuts the configuration for the CPU
+    tests: keys of the configuration, each a number."""
+    cfg = run.load_json(run.HERE / "configs" / f"{config}.json", "configuration")
+    cut = run.load_json(run.HERE / "smoke" / "configs" / f"{config}.json", "smoke widths")
+    assert cut and set(cut) <= set(cfg)
+    assert all(isinstance(v, (int, float)) for v in cut.values())
+
+
+def test_control_widths_are_of_cells_of_the_benchmark():
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for f in (run.HERE / "smoke" / "controls").glob("*.json"):
+        assert f.stem in cells, f.name
+
+
 def test_configurations_are_the_published_widths():
     cfgs = {c["name"]: run.load_json(run.ROOT / c["file"], "configuration")
             for c in BENCH["configs"]}

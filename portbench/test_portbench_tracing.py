@@ -19,6 +19,36 @@ def test_kernel_scopes_name_their_own_span_and_the_flash_backward():
     assert scopes["optimizer"].search("portbench.optimizer")
 
 
+def test_a_file_adds_its_lines_to_the_class_its_name_begins_with(tmp_path, monkeypatch):
+    """``<class>.<any>.txt`` adds to ``<class>``: its name patterns, its
+    spans and its wraps, which run inside ``portbench.<class>``; the classes
+    keep their order."""
+    names, scopes = tmp_path / "names", tmp_path / "scopes"
+    names.mkdir()
+    scopes.mkdir()
+    (names / "attention.txt").write_text("flash_fwd\n")
+    (names / "attention.mla.txt").write_text("# the latent kernels\nmla_decode\n")
+    (names / "matmul.txt").write_text("gemm\n")
+    (scopes / "attention.txt").write_text("span: FlashAttentionBackward\n")
+    (scopes / "attention.mla.txt").write_text("span: MlaBackward\nwrap: a.b:mla_attend\n")
+    (scopes / "optimizer.txt").write_text("wrap: a.b:update\n")
+    classes = tracing.kernel_classes(names)
+    assert [c for c, _ in classes] == ["attention", "matmul"]
+    assert classes[0][1].search("mla_decode_kernel") and classes[0][1].search("flash_fwd")
+    monkeypatch.setattr(tracing, "SCOPES", scopes)
+    got = dict(tracing.kernel_scopes())
+    assert list(got) == ["attention", "optimizer"]
+    assert all(got["attention"].search(n) for n in ("portbench.attention", "MlaBackward",
+                                                    "FlashAttentionBackward"))
+    assert not got["attention"].search("portbench.attention.mla")
+    assert spans.wraps() == [("attention", "a.b", "mla_attend"), ("optimizer", "a.b", "update")]
+
+
+def test_the_benchmarks_classes_are_those_of_its_files():
+    assert [c for c, _ in tracing.kernel_classes()] == ["attention", "matmul", "scan"]
+    assert [c for c, _ in tracing.kernel_scopes()] == ["attention", "optimizer"]
+
+
 def test_a_kernel_takes_the_class_of_the_span_its_op_started_in():
     scopes = tracing.kernel_scopes()
     spans_ = [("portbench.attention", 1.0, 2.0, 7),

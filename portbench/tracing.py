@@ -10,10 +10,12 @@ its ``span:`` lines are regular expressions over host span names, and the
 harness's own span ``portbench.<class>`` counts too; the kernel is traced
 back to the op that launched it by the profiler's correlation id, and the
 op's start lies inside the span on the same thread), else the first class,
-in file-name order, of the pattern files ``kernel_names/<class>.txt`` (one
+in name order, of the pattern files ``kernel_names/<class>.txt`` (one
 regular expression a line) that matches its name. So GEMMs that the
-program runs inside its attention are attention's, not matmul's. The
-program's own spans (``repro_torch.*``) in the stretch are reduced by
+program runs inside its attention are attention's, not matmul's. A file
+``<class>.<any>.txt`` in either directory adds its lines to ``<class>``
+(``class_lines``), so a new kernel or entry joins a class as a new file.
+The program's own spans (``repro_torch.*``) in the stretch are reduced by
 ``program_spans.reduce_program`` into ``Trace.program``.
 """
 
@@ -30,11 +32,15 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["Trace", "capture", "reduce_profile", "kernel_classes", "kernel_scopes", "scope_of",
-           "reduce_events", "merge"]
+__all__ = ["Trace", "capture", "reduce_profile", "class_lines", "kernel_classes",
+           "kernel_scopes", "scope_of", "reduce_events", "merge"]
 
 HERE = pathlib.Path(__file__).resolve().parent
 WINDOW = "portbench.window"
+#: the class files, read when called: patterns over kernel names, and host
+#: spans and program functions (``spans.py``) whose kernels a class takes
+NAMES = HERE / "kernel_names"
+SCOPES = HERE / "kernel_scopes"
 
 
 @dataclasses.dataclass
@@ -55,27 +61,42 @@ class Trace:
     program: dict[str, dict[str, float]] = dataclasses.field(default_factory=dict)
 
 
-def kernel_classes(root: pathlib.Path = HERE / "kernel_names") -> list[tuple[str, re.Pattern]]:
-    out = []
+def class_lines(root: pathlib.Path) -> dict[str, list[str]]:
+    """The stripped lines of the ``.txt`` files under ``root`` by class, the
+    class of a file being its name up to the first dot (``attention.txt``
+    and ``attention.mla.txt`` are both attention's): classes in name order,
+    each class's files in file-name order."""
+    out: dict[str, list[str]] = {}
     for f in sorted(root.glob("*.txt")):
-        lines = [ln.strip() for ln in f.read_text().splitlines()]
+        out.setdefault(f.name.split(".")[0], []).extend(
+            ln.strip() for ln in f.read_text().splitlines())
+    return dict(sorted(out.items()))
+
+
+def kernel_classes(root: pathlib.Path | None = None) -> list[tuple[str, re.Pattern]]:
+    """(class, pattern over kernel names) of each class with a pattern under
+    ``root`` (default ``NAMES``), in class order: one regular expression a
+    line of its files."""
+    out = []
+    for cls, lines in class_lines(root or NAMES).items():
         pats = [ln for ln in lines if ln and not ln.startswith("#")]
         if pats:
-            out.append((f.stem, re.compile("|".join(f"(?:{p})" for p in pats))))
+            out.append((cls, re.compile("|".join(f"(?:{p})" for p in pats))))
     return out
 
 
-def kernel_scopes(root: pathlib.Path = HERE / "kernel_scopes") -> list[tuple[str, re.Pattern]]:
-    """(class, pattern over host span names) of each scope file, in file-name
-    order; the class's own harness span ``portbench.<class>`` included."""
+def kernel_scopes(root: pathlib.Path | None = None) -> list[tuple[str, re.Pattern]]:
+    """(class, pattern over host span names) of each class of scope files
+    under ``root`` (default ``SCOPES``), in class order; the class's own
+    harness span ``portbench.<class>`` included."""
     out = []
-    for f in sorted(root.glob("*.txt")):
-        pats = [re.escape(f"portbench.{f.stem}") + "$"]
-        for ln in f.read_text().splitlines():
-            key, _, value = ln.strip().partition(":")
+    for cls, lines in class_lines(root or SCOPES).items():
+        pats = [re.escape(f"portbench.{cls}") + "$"]
+        for ln in lines:
+            key, _, value = ln.partition(":")
             if key == "span" and value.strip():
                 pats.append(value.strip())
-        out.append((f.stem, re.compile("|".join(f"(?:{p})" for p in pats))))
+        out.append((cls, re.compile("|".join(f"(?:{p})" for p in pats))))
     return out
 
 
